@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port (particle_sim_tpu_torch) on one
 NVIDIA GPU: builds the hand-written kernels, holds each against its plain
-PyTorch version, drives the headless CLI at 1M particles, and times the
-kernels.
+PyTorch version, drives the headless CLI at 1M particles (the attractor)
+and at 65,536 (direct-sum gravity), drives the WebSocket server at 65,536,
+and times the kernels.
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
@@ -20,9 +21,38 @@ Phases (each prints a line; any failure raises and exits non-zero):
   4. the main path: particle_sim_tpu_torch.app.cli.main at 1M particles,
      600 steps, orbiting dragged attractor, a 1280x720 frame every 100
      steps; checks the frames, the final state and the kernel launch counts
-  5. times with CUDA events (medians after warm-up), kernel vs plain; the
-     kernel-level times queue the calls behind a GPU spin, so they are
-     device times; the frame times include the host (one read per frame)
+  5. times with CUDA events (medians after warm-up) of the step,
+     compaction and deposit kernels beside their plain versions, the one
+     PyTorch call that computes the same function (where there is one) and
+     the bound (the least time the card could take); the kernel-level
+     times queue the calls behind a GPU spin, so they are device times
+  6. pairwise kernel vs plain at 65,536 (G = 1, eps 0.5, filled sphere):
+     the full square, 60,000 active with poisoned padding, a central mass
+     of 1000, and Ni = 65,536 x Nj = 32,768 at j_base = 32,768; bar
+     max|k - p| <= 1e-4 max|p| per component (f32 sums in another order);
+     one direct-sum step (kernel, plain kick, step kernel) vs the plain step
+  7. sorted-deposit kernel vs plain at 1M @ 1280x720 and 16M @ 1920x1080
+     (|k - p| <= 1e-5 + 1e-4 |p| on raw tile sums); the whole frame within
+     one u8 level of the plain pipeline; the golden frame through the
+     kernel within 3 u8 levels
+  8. the gravity main path: particle_sim_tpu_torch.app.cli.main with
+     --pairwise --central-mass 1000 at 65,536 particles, 200 steps, a
+     sorted 1280x720 frame every 100 steps; checks the launch counts, the
+     frames, a finite final state, the masses, and that the total momentum
+     stays 0 and the centre of mass in place; then the sorted-deposit
+     kernel vs plain (phase 7's bars) on the CLI's final state at the
+     path's own shape, 65,536 @ 1280x720
+  9. the WebSocket server at 65,536 in-process on an ephemeral port: a
+     "direct" solver event, then frames in wire modes 0, 1 and 2; checks
+     the headers, reflected_seq and the launch counts; then the compaction
+     and deposit kernels vs plain (phase 3's bars) on the server's state,
+     parameters and camera at its shape, 65,536 @ 1280x720
+ 10. times: pairwise at 65,536 and the sorted deposit at 1M and 16M beside
+     their plain versions, library call and bound (for the pairwise sum
+     the largest of its FP32 issue, flop and rsqrt bounds, beside the
+     FP32 instructions a pair in the kernel's SASS); the sorted, compact
+     and scatter frames (these include the host: the compact frame reads
+     one count back per frame)
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -44,7 +74,18 @@ import zlib
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+FP32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, FP32 outside the tensor cores
 STEP_BYTES = 48                # 6 floats read + 6 written per particle-step
+# the pairwise sum's arithmetic per pair (csrc/pairwise.cu:accumulate):
+# 3 sub, r2 = 3 fma (eps^2 as the first addend), 1 rsqrt, w = 3 mul,
+# 3 fma into the sum -> 18 flops (an fma is 2) in 12 FP32 instructions
+PAIR_FLOPS = 18
+PAIR_FP32_INSTRS = 12
+# an SM issues 128 FP32 instructions a clock (the flop peak counts each fma
+# as 2) and 16 MUFU rsqrt
+FP32_INSTRS_PER_S = FP32_FLOPS_PER_S / 2
+RSQRT_PER_S = FP32_FLOPS_PER_S / 16
+N_GRAVITY = 65_536             # BASELINE.json config 3: all-pairs gravity
 
 
 def fail(msg: str) -> None:
@@ -128,12 +169,118 @@ def bucket_of(words, rc) -> int:
     return next(bb for bb in rc.buckets(words.key.shape[0]) if kept <= bb)
 
 
-def gpu_name_and_limit() -> str:
+def nvidia_smi(query: str) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def gpu_name_and_limit() -> str:
+    return nvidia_smi("name,power.limit")
+
+
+def bytes_ms(nbytes: float) -> float:
+    """The least time, in ms, to move nbytes at the card's memory rate."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def flops_ms(flops: float) -> float:
+    """The least time, in ms, for flops at the card's FP32 rate."""
+    return flops / FP32_FLOPS_PER_S * 1e3
+
+
+def pairwise_sass_counts(lib_path) -> tuple:
+    """(FP32 instructions, MUFU.RSQ) in the pairwise kernel's machine code
+    (cuobjdump -sass of the built library); the kernel takes one rsqrt a
+    pair, so their ratio is the FP32 instructions a pair."""
+    import re
+
+    from particle_sim_tpu_torch.utils import cuda_build
+
+    cuobjdump = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    body = next(s for s in sass.split("Function : ")[1:]
+                if "pairwise_kernel" in s.split()[0])
+    return (len(re.findall(r"\b(?:FADD|FMUL|FFMA)\b", body)),
+            len(re.findall(r"\bMUFU\.RSQ\b", body)))
+
+
+def frame_pixels(key, n_tiles, width):
+    """Frame pixel index (y * width + x) of 8x128-tile keys, and the live
+    mask (keys below the sentinel)."""
+    import torch
+
+    live = key < n_tiles * 1024
+    k = torch.where(live, key, 0).long()
+    tile, local = k >> 10, k & 1023
+    tiles_x = width // 128
+    y = (tile // tiles_x) * 8 + (local >> 7)
+    x = (tile % tiles_x) * 128 + (local & 127)
+    return y * width + x, live
+
+
+# -- a minimal WebSocket client for phase 9 (every read has a timeout) ------------
+class WsClient:
+    def __init__(self, port: int, timeout: float = 60.0):
+        import base64
+        import socket
+
+        self.sock = socket.create_connection(("127.0.0.1", port),
+                                             timeout=timeout)
+        key = base64.b64encode(b"chip-smoke-key!!").decode()
+        self.sock.sendall((
+            "GET /ws HTTP/1.1\r\nHost: x\r\nUpgrade: websocket\r\n"
+            f"Connection: Upgrade\r\nSec-WebSocket-Key: {key}\r\n"
+            "Sec-WebSocket-Version: 13\r\n\r\n").encode())
+        resp = b""
+        while b"\r\n\r\n" not in resp:
+            chunk = self.sock.recv(4096)
+            if not chunk:
+                fail("server closed the connection during the handshake")
+            resp += chunk
+        head, _, self.buf = resp.partition(b"\r\n\r\n")
+        if b" 101 " not in head.split(b"\r\n")[0] + b" ":
+            fail(f"no WebSocket upgrade: {head[:80]!r}")
+
+    def _exact(self, k: int) -> bytes:
+        while len(self.buf) < k:
+            chunk = self.sock.recv(1 << 20)
+            if not chunk:
+                fail("server closed the WebSocket")
+            self.buf += chunk
+        out, self.buf = self.buf[:k], self.buf[k:]
+        return out
+
+    def frame(self) -> tuple:
+        head = self._exact(2)
+        n = head[1] & 0x7F
+        if n == 126:
+            n = struct.unpack(">H", self._exact(2))[0]
+        elif n == 127:
+            n = struct.unpack(">Q", self._exact(8))[0]
+        return head[0] & 0x0F, self._exact(n)
+
+    def send(self, obj) -> None:
+        payload = json.dumps(obj).encode()
+        mask = b"\x01\x02\x03\x04"
+        masked = bytes(b ^ mask[i % 4] for i, b in enumerate(payload))
+        if len(payload) >= 126:
+            fail("event too long for the short frame form")
+        self.sock.sendall(bytes([0x81, 0x80 | len(payload)]) + mask + masked)
+
+    def binary_until(self, pred, what: str, limit_s: float = 120.0) -> bytes:
+        deadline = time.monotonic() + limit_s
+        while time.monotonic() < deadline:
+            op, payload = self.frame()
+            if op == 0x2 and pred(payload):
+                return payload
+        fail(f"server: no frame with {what} within {limit_s} s")
+
+    def close(self) -> None:
+        self.sock.close()
 
 
 def main() -> int:
@@ -150,12 +297,16 @@ def main() -> int:
 
     import numpy as np
 
-    from particle_sim_tpu_torch.app import cli
+    from particle_sim_tpu_torch.app import cli, server
     from particle_sim_tpu_torch.core import generate as gen
-    from particle_sim_tpu_torch.core.params import SimParams
+    from particle_sim_tpu_torch.core.params import (
+        Method, PairwiseParams, SimParams,
+    )
     from particle_sim_tpu_torch.core.state import ParticleState
-    from particle_sim_tpu_torch.ops import step_cuda
+    from particle_sim_tpu_torch.engine import Engine
+    from particle_sim_tpu_torch.ops import pairwise, pairwise_cuda, step_cuda
     from particle_sim_tpu_torch.render import raster, raster_compact as rc
+    from particle_sim_tpu_torch.render import raster_sorted as rs
     from particle_sim_tpu_torch.render.camera import Camera
     from particle_sim_tpu_torch.utils import cuda_build
 
@@ -172,13 +323,14 @@ def main() -> int:
     cuda_build.library()
     log = path.with_suffix(".log")
     regs = [ln.strip() for ln in log.read_text().splitlines()
-            if "registers" in ln] if log.exists() else []
+            if "registers" in ln or ln.startswith("==")] if log.exists() else []
     print(f"phase 1 build: {os.path.relpath(path, ROOT)} in {secs:.2f} s "
           f"(nvcc {' '.join(cuda_build.NVCC_FLAGS)})")
     for ln in regs:
         print(f"  ptxas: {ln}")
 
-    err = {"step": 0.0, "compact": 0.0, "deposit": 0.0}
+    err = {"step": 0.0, "compact": 0.0, "deposit": 0.0, "pairwise": 0.0,
+           "sorted_deposit": 0.0}
     params = [SimParams(),
               SimParams(gravity=2.0),
               SimParams(is_mouse_dragging=True,
@@ -190,6 +342,67 @@ def main() -> int:
         vel = np.random.default_rng(seed).normal(size=pos.shape)
         return ParticleState.from_arrays(pos, (vel * 3.0).astype(np.float32),
                                          col, device=dev)
+
+    def frame_args(st, params_, camera):
+        return (st.pos, st.vel, st.init_color,
+                torch.from_numpy(params_.pack()).to(dev),
+                torch.from_numpy(camera.view_proj()).to(dev), st.n_active)
+
+    def check_frame_u8(label, fk, fp, min_lit) -> int:
+        """Raise unless the kernel's frame is within one u8 level of the
+        plain one and lights at least min_lit pixels. -> lit pixels."""
+        u8 = (raster.to_rgba8(fk).int() - raster.to_rgba8(fp).int()).abs()
+        if int(u8.max()) > 1:
+            fail(f"{label}: u8 frames differ by {int(u8.max())}")
+        lit = int((fk.sum(-1) > 0).sum())
+        if lit < min_lit:
+            fail(f"{label}: only {lit} lit pixels")
+        return lit
+
+    def check_compact(label, args, w, h, min_lit=1000):
+        """Compaction kernel (bit-exact) and deposit kernel (|k - p| <=
+        1e-5 + 1e-4 |p|) vs their plain versions on one frame's inputs,
+        and the frame through the kernels within one u8 level."""
+        words = rc.point_words(*args, width=w, height=h)
+        bucket, cargs = bucket_of(words, rc), cargs_of(words)
+        ck = rc.compact(*cargs, bucket=bucket, sentinel=words.sentinel)
+        cp = rc.compact_plain(*cargs, bucket=bucket, sentinel=words.sentinel)
+        for a, b in zip(ck, cp):
+            if not torch.equal(a, b):
+                fail(f"compact {label}: kernel differs from plain")
+        pt = rc.pair_table(*ck, n_tiles=words.n_tiles,
+                           sentinel=words.sentinel)
+        dargs = (pt.table, pt.offsets, pt.key, pt.rg, pt.b)
+        dk = rc.deposit(*dargs, n_tiles=words.n_tiles)
+        dp = rc.deposit_plain(*dargs, n_tiles=words.n_tiles)
+        err["deposit"] = max(err["deposit"], check_close(
+            f"deposit {label}", dk, dp, 1e-4, 1e-5))
+        fk = rc.render(*args, width=w, height=h)
+        fp = rc.render(*args, width=w, height=h, plain=True)
+        check_close(f"compact frame {label}", fk, fp, 1e-4, 1e-5)
+        lit = check_frame_u8(f"compact frame {label}", fk, fp, min_lit)
+        print(f"  compact {label}: kept {int(words.kept_n.item()) * rc.CHUNK}"
+              f" of {words.key.shape[0]} points (bucket {bucket}), table "
+              f"{pt.table.shape[0]} entries, {lit} lit pixels")
+        return cargs, bucket, words, dargs
+
+    def check_sorted(label, args, w, h, min_lit=1000):
+        """Sorted-deposit kernel vs plain (|k - p| <= 1e-5 + 1e-4 |p| on
+        raw tile sums) on one frame's inputs, and the frame through the
+        kernel within one u8 level."""
+        sp = rs.sort_points(raster.tile_keys(*args, width=w, height=h))
+        dk = rs.deposit(sp.key, sp.rgb, sp.offsets, n_tiles=sp.n_tiles)
+        dp = rs.deposit_plain(sp.key, sp.rgb, sp.offsets, n_tiles=sp.n_tiles)
+        err["sorted_deposit"] = max(err["sorted_deposit"], check_close(
+            f"sorted deposit {label}", dk, dp, 1e-4, 1e-5))
+        fk = rs.render(*args, width=w, height=h)
+        fp = rs.render(*args, width=w, height=h, plain=True)
+        lit = check_frame_u8(f"sorted frame {label}", fk, fp, min_lit)
+        print(f"  sorted {label}: {int(sp.offsets[-1])} drawn points, "
+              f"{sp.n_tiles} tiles, largest tile slice "
+              f"{int((sp.offsets[1:] - sp.offsets[:-1]).max())}, {lit} lit "
+              f"pixels")
+        return sp
 
     # -- phase 2: step kernel vs plain --------------------------------------------
     t0 = time.perf_counter()
@@ -216,47 +429,20 @@ def main() -> int:
     t0 = time.perf_counter()
     main_inputs = None
     for n, w, h in ((1_000_000, 1280, 720), (16_777_216, 1920, 1080)):
-        st = states[n]
-        pv = torch.from_numpy(SimParams(color_mode=1).pack()).to(dev)
-        vp = torch.from_numpy(Camera(aspect=w / h).view_proj()).to(dev)
-        args = (st.pos, st.vel, st.init_color, pv, vp, st.n_active)
-        words = rc.point_words(*args, width=w, height=h)
-        kept = int(words.kept_n.item()) * rc.CHUNK
-        bucket, cargs = bucket_of(words, rc), cargs_of(words)
-        ck = rc.compact(*cargs, bucket=bucket, sentinel=words.sentinel)
-        cp = rc.compact_plain(*cargs, bucket=bucket, sentinel=words.sentinel)
-        for a, b in zip(ck, cp):
-            if not torch.equal(a, b):
-                fail(f"compact n={n}: kernel differs from plain")
-        pt = rc.pair_table(*ck, n_tiles=words.n_tiles,
-                           sentinel=words.sentinel)
-        dargs = (pt.table, pt.offsets, pt.key, pt.rg, pt.b)
-        dk = rc.deposit(*dargs, n_tiles=words.n_tiles)
-        dp = rc.deposit_plain(*dargs, n_tiles=words.n_tiles)
-        err["deposit"] = max(err["deposit"], check_close(
-            f"deposit n={n} {w}x{h}", dk, dp, 1e-4, 1e-5))
-        fk = rc.render(*args, width=w, height=h)
-        fp = rc.render(*args, width=w, height=h, plain=True)
-        check_close(f"compact frame n={n} {w}x{h}", fk, fp, 1e-4, 1e-5)
-        u8 = (raster.to_rgba8(fk).int() - raster.to_rgba8(fp).int()).abs()
-        if int(u8.max()) > 1:
-            fail(f"frame n={n}: u8 frames differ by {int(u8.max())}")
-        lit = int((fk.sum(-1) > 0).sum())
-        if lit < 1000:
-            fail(f"frame n={n}: only {lit} lit pixels")
-        print(f"  n={n} {w}x{h}: kept {kept} of {words.key.shape[0]} points "
-              f"(bucket {bucket}), table {pt.table.shape[0]} entries, "
-              f"{lit} lit pixels")
+        inputs = check_compact(
+            f"n={n} {w}x{h}",
+            frame_args(states[n], SimParams(color_mode=1),
+                       Camera(aspect=w / h)), w, h)
         if n == 1_000_000:
-            main_inputs = (cargs, bucket, words, dargs)
+            main_inputs = inputs
     # the golden frame, through the kernels
     pos, vel, col = gen.generate(3000)
     vel = (pos * 0.02).astype(np.float32)
-    gst = ParticleState.from_arrays(pos, vel, col, device=dev)
-    gfb = rc.render(gst.pos, gst.vel, gst.init_color,
+    gst_golden = ParticleState.from_arrays(pos, vel, col, device=dev)
+    gfb = rc.render(gst_golden.pos, gst_golden.vel, gst_golden.init_color,
                     torch.from_numpy(SimParams().pack()).to(dev),
                     torch.from_numpy(Camera(aspect=2.0).view_proj()).to(dev),
-                    gst.n_active, width=256, height=128)
+                    gst_golden.n_active, width=256, height=128)
     golden = np.load(os.path.join(ROOT, "tests", "data",
                                   "golden_raster_256x128.npz"))["rgba"]
     gdiff = np.abs(raster.to_rgba8(gfb).cpu().numpy().astype(np.int16)
@@ -328,7 +514,7 @@ def main() -> int:
           f"{d1.mean():.4f} (within reach {d0[near].mean():.4f} -> "
           f"{d1[near].mean():.4f}), launches {launches}")
 
-    # -- phase 5: times -----------------------------------------------------------
+    # -- phase 5: times of the attractor path's kernels ----------------------------
     timing = {}
     pv = torch.from_numpy(params[2].pack()).to(dev)
     for n in (1_000_000, 16_777_216):
@@ -341,28 +527,336 @@ def main() -> int:
              lambda: step_cuda.step_plain(pp, vp_, pv)], inner=inner,
             lead_ms=inner * 0.5)
         timing[n] = (k_ms, p_ms)
-        roof = STEP_BYTES * n / HBM_BYTES_PER_S * 1e3
+        roof = bytes_ms(STEP_BYTES * n)
         print(f"phase 5 step n={n}: kernel {k_ms:.5f} ms "
               f"({n / k_ms * 1e3:.4g} particle-steps/s, "
               f"{roof / k_ms:.1%} of the 3.35 TB/s HBM roofline) | plain "
               f"{p_ms:.5f} ms ({n / p_ms * 1e3:.4g} particle-steps/s, "
-              f"{roof / p_ms:.1%})")
+              f"{roof / p_ms:.1%}) | bound {roof:.5f} ms | library: none")
     cargs, bucket, words, dargs = main_inputs
-    ck_ms, cp_ms = median_ms(
+    # the one PyTorch call for the compaction: index_select of the kept
+    # chunks of the three word planes, stacked
+    stacked = torch.stack(cargs[:3]).view(3, -1, rc.CHUNK)
+    kept_idx = words.kept_list[: bucket // rc.CHUNK].long()
+    ck_ms, cp_ms, cl_ms = median_ms(
         [lambda: rc.compact(*cargs, bucket=bucket, sentinel=words.sentinel),
          lambda: rc.compact_plain(*cargs, bucket=bucket,
-                                  sentinel=words.sentinel)], inner=20,
+                                  sentinel=words.sentinel),
+         lambda: torch.index_select(stacked, 1, kept_idx)], inner=20,
         lead_ms=20 * 0.3)
-    dk_ms, dp_ms = median_ms(
+    # compaction bound: the kept words read, the bucket written
+    c_bound = bytes_ms(12 * int(words.kept_n.item()) * rc.CHUNK
+                       + 12 * bucket)
+    # the one PyTorch call for the deposit: index_put_ with accumulation of
+    # the points that each table entry's chunk adds to the entry's tile,
+    # into the frame (the same sum before the clamp)
+    table, offsets, key_p, rg_p, b_p = dargs
+    keep = (table & rc._F_BIT) == 0
+    s_idx = torch.clamp(table & rc._S_MASK,
+                        max=key_p.shape[0] // rc.CHUNK - 1).long()[keep]
+    ent_t = ((table >> rc._T_SHIFT) & rc._MAX_TILES)[keep]
+    ekey = key_p.view(-1, rc.CHUNK)[s_idx]
+    inside = (ekey >> 10) == ent_t[:, None]
+    pix, live = frame_pixels(torch.where(inside, ekey, words.sentinel),
+                             words.n_tiles, 1280)
+    r_, g_, b_ = rc.unpack_rgb_bf16(rg_p.view(-1, rc.CHUNK)[s_idx],
+                                    b_p.view(-1, rc.CHUNK)[s_idx])
+    lib_pix = pix[live]
+    lib_rgb = torch.stack([r_, g_, b_], -1)[live]
+    fb_lib = torch.zeros((720 * 1280, 3), dtype=torch.float32, device=dev)
+    dk_ms, dp_ms, dl_ms = median_ms(
         [lambda: rc.deposit(*dargs, n_tiles=words.n_tiles),
-         lambda: rc.deposit_plain(*dargs, n_tiles=words.n_tiles)], inner=5,
-        lead_ms=5 * 0.5)
+         lambda: rc.deposit_plain(*dargs, n_tiles=words.n_tiles),
+         lambda: fb_lib.index_put_((lib_pix,), lib_rgb, accumulate=True)],
+        inner=5, lead_ms=5 * 0.5)
+    # deposit bound: the point words read, the framebuffer written
+    d_bound = bytes_ms(key_p.numel() * 12 + words.n_tiles * 3 * 1024 * 4)
     print(f"phase 5 compact 1M@1280x720: kernel {ck_ms:.5f} ms | plain "
-          f"{cp_ms:.5f} ms")
+          f"{cp_ms:.5f} ms | index_select {cl_ms:.5f} ms | bound "
+          f"{c_bound:.5f} ms")
     print(f"phase 5 deposit 1M@1280x720: kernel {dk_ms:.5f} ms | plain "
-          f"{dp_ms:.5f} ms")
+          f"{dp_ms:.5f} ms | index_put_ {dl_ms:.5f} ms | bound "
+          f"{d_bound:.5f} ms")
+
+    # -- phase 6: pairwise kernel vs plain ---------------------------------------------
+    t0 = time.perf_counter()
+    gpos, _, gcol = gen.generate(N_GRAVITY, gen.SphereGeneration.FILLED)
+    x = torch.from_numpy(np.ascontiguousarray(gpos.T)).to(dev)  # f32[3, N]
+    poisoned = x.clone()
+    poisoned[:, 60_000:] = 1e3
+    masses = torch.ones(N_GRAVITY, dtype=torch.float32, device=dev)
+    masses[0] = 1000.0
+    half = N_GRAVITY // 2
+    cases = [("square", x, N_GRAVITY, {}),
+             ("60000 active, poisoned padding", poisoned, 60_000, {}),
+             ("central mass 1000", x, N_GRAVITY, {"masses": masses}),
+             ("65536 x 32768, j_base 32768", x, N_GRAVITY,
+              {"j_base": half, "src": x[:, half:].contiguous()})]
+    for label, xs, n_act, kw in cases:
+        kw = dict(kw)
+        src = kw.pop("src", xs)
+        got = pairwise_cuda.pairwise_accel(xs.T, src, n_act, 1.0, 0.5, **kw)
+        want = pairwise.pairwise_accel(xs.T, src, n_act, 1.0, 0.5, **kw)
+        torch.cuda.synchronize()
+        scale = want.abs().amax(0)
+        e = check_close(f"pairwise {label}", got, want, 0.0,
+                        1e-4 * scale[None, :])
+        err["pairwise"] = max(err["pairwise"], e)
+        rel = float(((got - want).abs().amax(0) / scale).max())
+        print(f"  pairwise {label}: max |k - p| {e:.3g} "
+              f"({rel:.3g} of max|p| {float(scale.max()):.4g})")
+    # one direct-sum step: kernel + plain kick + step kernel vs plain step
+    gst = ParticleState.from_arrays(
+        gpos, np.random.default_rng(1).normal(size=gpos.shape).astype(
+            np.float32), gcol, device=dev)
+    spv = torch.from_numpy(SimParams(
+        gravity=0.3, is_mouse_dragging=True, mouse_position=(0.0, 0.0, 10.0),
+        mouse_force=20.0).pack()).to(dev)
+    spp = torch.from_numpy(PairwiseParams(1.0, 0.5).pack()).to(dev)
+    pk, vk = gst.pos.clone(), gst.vel.clone()
+    pairwise_cuda.step_pairwise(pk, vk, spv, spp, gst.n_active)
+    pp_, vp_ = pairwise.step_pairwise(gst.pos, gst.vel, spv, spp,
+                                      gst.n_active)
+    torch.cuda.synchronize()
+    acc_scale = float(pairwise.pairwise_accel(
+        x.T, x, N_GRAVITY, 1.0, 0.5).abs().max())
+    dv = 1e-4 * acc_scale * 0.016          # the accel bar times dt
+    ev = check_close("step_pairwise vel", vk, vp_, 1e-5, dv)
+    ep = check_close("step_pairwise pos", pk, pp_, 1e-5, dv * 0.016 + 1e-5)
+    print(f"phase 6 pairwise kernel == plain at {N_GRAVITY}: 4 cases, max "
+          f"|err| {err['pairwise']:.3g} (bar 1e-4 max|p| per component); "
+          f"step_pairwise max |err| vel {ev:.3g} pos {ep:.3g} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- phase 7: sorted-deposit kernel vs plain --------------------------------------
+    t0 = time.perf_counter()
+    sorted_inputs = {}
+    for n, w, h in ((1_000_000, 1280, 720), (16_777_216, 1920, 1080)):
+        args = frame_args(states[n], SimParams(color_mode=1),
+                          Camera(aspect=w / h))
+        sorted_inputs[n] = (check_sorted(f"n={n} {w}x{h}", args, w, h), w, h)
+    gfb = rs.render(gst_golden.pos, gst_golden.vel, gst_golden.init_color,
+                    torch.from_numpy(SimParams().pack()).to(dev),
+                    torch.from_numpy(Camera(aspect=2.0).view_proj()).to(dev),
+                    gst_golden.n_active, width=256, height=128)
+    sdiff = np.abs(raster.to_rgba8(gfb).cpu().numpy().astype(np.int16)
+                   - golden.astype(np.int16))
+    if sdiff.max() > 3:
+        fail(f"golden frame through the sorted kernel: max diff "
+             f"{sdiff.max()}")
+    print(f"phase 7 sorted deposit == plain, max |err| "
+          f"{err['sorted_deposit']:.3g} (bar 1e-5 + 1e-4|p|), frames within "
+          f"1 u8, golden frame max diff {sdiff.max()} u8 "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- phase 8: the gravity main path through the CLI ----------------------------------
+    g_steps = 200
+    with tempfile.TemporaryDirectory() as tmp:
+        frames = os.path.join(tmp, "frames")
+        final = os.path.join(tmp, "final.npz")
+        argv = ["--device", "cuda", "--pairwise", "--count", str(N_GRAVITY),
+                "--central-mass", "1000", "--steps", str(g_steps),
+                "--render-every", "100", "--renderer", "sorted",
+                "--color-mode", "1", "--width", "1280", "--height", "720",
+                "--render-dir", frames, "--checkpoint-every", str(g_steps),
+                "--checkpoint", final, "--stats-every", "100"]
+        step_cuda.LAUNCHES = 0
+        pairwise_cuda.LAUNCHES = 0
+        rs.LAUNCHES = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc_code = cli.main(argv)
+        g_wall = time.perf_counter() - t0
+        g_launches = {"pairwise": pairwise_cuda.LAUNCHES,
+                      "sorted_deposit": rs.LAUNCHES,
+                      "step": step_cuda.LAUNCHES}
+        text = out.getvalue()
+        for ln in text.splitlines():
+            print(f"  cli: {ln}")
+        if rc_code != 0:
+            fail(f"gravity cli.main returned {rc_code}")
+        done = json.loads(text.strip().splitlines()[-1])
+        if done.get("done") is not True or done.get("steps") != g_steps:
+            fail(f"gravity path: no final done line: {done}")
+        pngs = sorted(os.listdir(frames))
+        if len(pngs) != 2:
+            fail(f"gravity path: expected 2 frames, got {pngs}")
+        for name in pngs:
+            img = read_png(os.path.join(frames, name))
+            if img.shape != (720, 1280, 4) or int(img[..., :3].max()) == 0:
+                fail(f"gravity path {name}: shape {img.shape}, black="
+                     f"{img[..., :3].max() == 0}")
+        with np.load(final) as z:
+            g_end, gv_end = z["positions"], z["velocities"]
+            g_m = z["masses"].astype(np.float64)
+            g_col = z["init_colors"]
+    if g_end.shape != (N_GRAVITY, 3) or not (np.isfinite(g_end).all()
+                                             and np.isfinite(gv_end).all()):
+        fail("gravity path: final state is not finite or has the wrong shape")
+    if g_m[0] != 1000.0 or g_m[1:].max() != 1.0:
+        fail(f"gravity path: masses not kept ({g_m[:3]})")
+    # the CLI starts from the hollow sphere (radius 50) at rest: internal
+    # forces cancel pairwise (with any masses) and damping scales every
+    # velocity alike, so the total momentum stays 0 and the centre of mass
+    # stays where it was
+    g_start = gen.generate(N_GRAVITY)[0]
+    r0 = float(np.linalg.norm(g_start, axis=1).mean())
+    r1 = float(np.linalg.norm(g_end, axis=1).mean())
+    mom = np.abs((g_m[:, None] * gv_end.astype(np.float64)).sum(0)).max()
+    mom_rel = float(mom / (g_m * np.linalg.norm(gv_end, axis=1)).sum())
+    com0 = (g_m[:, None] * g_start).sum(0) / g_m.sum()
+    com1 = (g_m[:, None] * g_end.astype(np.float64)).sum(0) / g_m.sum()
+    com_shift = float(np.linalg.norm(com1 - com0))
+    if not (mom_rel < 1e-3 and com_shift < 0.5):
+        fail(f"gravity path: momentum |P| / sum m|v| = {mom_rel:.3g} (bar "
+             f"1e-3), centre of mass moved {com_shift:.3g} (bar 0.5)")
+    if g_launches != {"pairwise": g_steps, "sorted_deposit": 2,
+                      "step": g_steps}:
+        fail(f"the gravity path missed a kernel: launches {g_launches}")
+    # the sorted-deposit kernel at this path's own shape and data: the
+    # CLI's final state (the collapsed cloud), 65,536 points @ 1280x720
+    check_sorted(f"gravity cli final state n={N_GRAVITY} 1280x720",
+                 frame_args(ParticleState.from_arrays(g_end, gv_end, g_col,
+                                                      device=dev),
+                            SimParams(color_mode=1), Camera(aspect=1280 / 720)),
+                 1280, 720, min_lit=1)
+    print(f"phase 8 gravity main path: cli {N_GRAVITY} x {g_steps} steps "
+          f"--pairwise --central-mass 1000 --renderer sorted in "
+          f"{g_wall:.2f} s, 2 frames, mean radius {r0:.4f} -> {r1:.4f}, "
+          f"|P| / sum m|v| {mom_rel:.3g}, centre of mass moved "
+          f"{com_shift:.3g}, "
+          f"launches {g_launches}; sorted deposit == plain on its final "
+          f"state, max |err| so far {err['sorted_deposit']:.3g}")
+
+    # -- phase 9: the WebSocket server on the card -------------------------------------
+    hdr = server.HEADER_BYTES
+    eng = Engine(particle_count=N_GRAVITY, device="cuda", method=Method.CUDA)
+    srv = server.StreamServer(eng, host="127.0.0.1", port=0, target_fps=60)
+    pairwise_cuda.LAUNCHES = 0
+    rc.COMPACT_LAUNCHES = 0
+    rc.DEPOSIT_LAUNCHES = 0
+    step_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    srv.start()
+    try:
+        ws = WsClient(srv.port)
+        op, hello = ws.frame()
+        hello = json.loads(hello.decode()) if op == 0x1 else {}
+        if hello.get("type") != "hello" or hello.get("count") != N_GRAVITY \
+                or "pallas" not in hello.get("methods", []):
+            fail(f"server hello: {hello}")
+        ws.send({"type": "solver", "name": "direct", "g": 1.0,
+                 "softening": 0.5, "seq": 5})
+        modes = {}
+        f0 = ws.binary_until(lambda f: struct.unpack(
+            server.HEADER_FMT, f[:hdr])[7] >= 5, "reflected_seq >= 5")
+        modes[0] = f0
+        ws.send({"type": "view", "mode": "compact"})
+        modes[1] = ws.binary_until(lambda f: struct.unpack(
+            "<I", f[4:8])[0] == 1, "mode 1")
+        ws.send({"type": "params", "gravity": 2.0, "seq": 6})
+        ws.send({"type": "view", "mode": "raster", "width": 1280,
+                 "height": 720})
+        modes[2] = ws.binary_until(lambda f: struct.unpack(
+            "<I", f[4:8])[0] == 2 and struct.unpack(
+            server.HEADER_FMT, f[:hdr])[7] >= 6, "mode 2, reflected_seq 6")
+        ws.close()
+    finally:
+        srv.stop()
+    s_wall = time.perf_counter() - t0
+    s_launches = {"pairwise": pairwise_cuda.LAUNCHES,
+                  "compact": rc.COMPACT_LAUNCHES,
+                  "deposit": rc.DEPOSIT_LAUNCHES,
+                  "step": step_cuda.LAUNCHES}
+    summary = []
+    for mode, frame in modes.items():
+        (magic, fmode, count, fid, total, fps, upd, rseq, lat,
+         flags) = struct.unpack(server.HEADER_FMT, frame[:hdr])
+        if magic != server.MAGIC or fmode != mode or total != N_GRAVITY:
+            fail(f"server mode {mode}: header {magic:#x} {fmode} {total}")
+        want = {0: hdr + 16 * count, 1: hdr + 10 * count,
+                2: hdr + 8 + 4 * count}[mode]
+        if len(frame) != want:
+            fail(f"server mode {mode}: {len(frame)} bytes, expected {want}")
+        summary.append(f"mode {mode}: count {count} frame {fid} "
+                       f"reflected_seq {rseq} latency {lat:.3f} ms")
+    pos0 = np.frombuffer(modes[0], np.float32, 3 * N_GRAVITY, hdr)
+    if not np.isfinite(pos0).all():
+        fail("server mode 0: non-finite positions")
+    w2, h2 = struct.unpack("<II", modes[2][hdr:hdr + 8])
+    img2 = np.frombuffer(modes[2], np.uint8, offset=hdr + 8).reshape(
+        h2, w2, 4)
+    if (w2, h2) != (1280, 720) or int(img2[..., :3].max()) == 0:
+        fail(f"server mode 2: {w2}x{h2}, black={img2[..., :3].max() == 0}")
+    if eng.pairwise != PairwiseParams(1.0, 0.5):
+        fail(f"server: the solver event did not switch the engine "
+             f"({eng.pairwise})")
+    if min(s_launches["pairwise"], s_launches["compact"],
+           s_launches["deposit"]) < 1:
+        fail(f"the server path missed a kernel: launches {s_launches}")
+    # the compaction and deposit kernels at the server's own shapes: its
+    # engine's state, parameters and camera, 65,536 points @ 1280x720
+    check_compact(f"server state n={N_GRAVITY} 1280x720",
+                  frame_args(eng.state, srv.params, srv.camera), 1280, 720,
+                  min_lit=1)
+    print(f"phase 9 server at {N_GRAVITY}: {' | '.join(summary)}; "
+          f"launches {s_launches} ({s_wall:.2f} s); compact (bit-exact) and "
+          f"deposit == plain on its state, deposit max |err| so far "
+          f"{err['deposit']:.3g}")
+
+    # -- phase 10: times of the gravity and sorted-frame kernels --------------------------
+    clk_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    pairs = float(N_GRAVITY) * N_GRAVITY
+    # three operation bounds at the data sheet's FP32 peak; the bound is
+    # the largest (the FP32 issue: only half the instructions are fmas)
+    pw_flops = flops_ms(PAIR_FLOPS * pairs)
+    pw_issue = PAIR_FP32_INSTRS * pairs / FP32_INSTRS_PER_S * 1e3
+    pw_rsqrt = pairs / RSQRT_PER_S * 1e3
+    pw_bound = max(pw_flops, pw_issue, pw_rsqrt)
+    pw_clock = PAIR_FP32_INSTRS * pairs / (132 * 128 * clk_mhz * 1e6) * 1e3
+    sass_fp32, sass_rsq = pairwise_sass_counts(path)
+    (pw_ms,) = median_ms(
+        [lambda: pairwise_cuda.pairwise_accel(x.T, x, N_GRAVITY, 1.0, 0.5)],
+        reps=7, inner=5, lead_ms=5 * 4.0)
+    (pwp_ms,) = median_ms(
+        [lambda: pairwise.pairwise_accel(x.T, x, N_GRAVITY, 1.0, 0.5)],
+        reps=3, inner=1)
+    print(f"phase 10 pairwise {N_GRAVITY}^2: kernel {pw_ms:.4f} ms "
+          f"({pairs / pw_ms * 1e3:.4g} pairs/s, {pw_bound / pw_ms:.1%} of the "
+          f"bound) | plain {pwp_ms:.3f} ms | bound {pw_bound:.4f} ms "
+          f"(largest of: {PAIR_FP32_INSTRS} FP32 instructions/pair at 128/SM/"
+          f"clock {pw_issue:.4f} ms; {PAIR_FLOPS} flops/pair at 67 TFLOP/s "
+          f"{pw_flops:.4f} ms; rsqrt at 16/SM/clock {pw_rsqrt:.4f} ms; the "
+          f"FP32 issue bound at the reported max SM clock {clk_mhz:.0f} MHz "
+          f"{pw_clock:.4f} ms; the kernel's SASS: {sass_fp32} FP32 "
+          f"instructions over {sass_rsq} MUFU.RSQ = "
+          f"{sass_fp32 / max(sass_rsq, 1):.2f} a pair) | library: none | grid "
+          f"{-(-N_GRAVITY // 256)} blocks x 8 warps = "
+          f"{-(-N_GRAVITY // 256) * 8 / 132:.1f} warps per SM of 64")
+    sd_timing = {}
+    for n, (sp, w, h) in sorted_inputs.items():
+        pix, live = frame_pixels(sp.key, sp.n_tiles, w)
+        lib_pix = pix[live]
+        lib_rgb = sp.rgb.T[live].contiguous()
+        fb_lib = torch.zeros((h * w, 3), dtype=torch.float32, device=dev)
+        inner = 10 if n == 1_000_000 else 3
+        k_ms, p_ms, l_ms = median_ms(
+            [lambda: rs.deposit(sp.key, sp.rgb, sp.offsets,
+                                n_tiles=sp.n_tiles),
+             lambda: rs.deposit_plain(sp.key, sp.rgb, sp.offsets,
+                                      n_tiles=sp.n_tiles),
+             lambda: fb_lib.index_put_((lib_pix,), lib_rgb,
+                                       accumulate=True)],
+            inner=inner, lead_ms=inner * (0.5 if n == 1_000_000 else 8.0))
+        bound = bytes_ms(16 * n + 12 * w * h)
+        sd_timing[n] = (k_ms, p_ms, l_ms, bound)
+        print(f"phase 10 sorted deposit n={n} {w}x{h}: kernel {k_ms:.5f} ms "
+              f"| plain {p_ms:.5f} ms | index_put_ {l_ms:.5f} ms | bound "
+              f"{bound:.5f} ms ({bound / k_ms:.1%})")
     # frames: the random-velocity states of phases 2-3 (every point lit),
-    # and the main path's own final state (lit only where the mouse pulled)
+    # and the attractor path's own final state (lit only where the mouse
+    # pulled)
     for label, st, w, h in (("n=1000000", states[1_000_000], 1280, 720),
                             ("n=16777216", states[16_777_216], 1920, 1080),
                             ("cli final state n=1000000", cli_state, 1280,
@@ -371,15 +865,18 @@ def main() -> int:
                 torch.from_numpy(SimParams(color_mode=1).pack()).to(dev),
                 torch.from_numpy(Camera(aspect=w / h).view_proj()).to(dev),
                 st.n_active)
-        fk_ms, fp_ms, fs_ms = median_ms(
-            [lambda: rc.render(*args, width=w, height=h),
+        fs_ms, fk_ms, fp_ms, fsc_ms = median_ms(
+            [lambda: rs.render(*args, width=w, height=h),
+             lambda: rc.render(*args, width=w, height=h),
              lambda: rc.render(*args, width=w, height=h, plain=True),
              lambda: raster.render(*args, width=w, height=h)], inner=3)
-        print(f"phase 5 frame {label} {w}x{h}: compact (kernels) "
-              f"{fk_ms:.4f} ms"
+        print(f"phase 10 frame {label} {w}x{h}: sorted (kernel) "
+              f"{fs_ms:.4f} ms | compact (kernels) {fk_ms:.4f} ms"
               f" | compact (plain) {fp_ms:.4f} ms | scatter (plain) "
-              f"{fs_ms:.4f} ms")
-        # the compact frame's layers, one at a time
+              f"{fsc_ms:.4f} ms")
+        # each frame's layers, one at a time (device times)
+        keys = raster.tile_keys(*args, width=w, height=h)
+        sp = rs.sort_points(keys)
         words = rc.point_words(*args, width=w, height=h)
         bucket = bucket_of(words, rc)
         ck = rc.compact(*cargs_of(words), bucket=bucket,
@@ -387,7 +884,11 @@ def main() -> int:
         pt = rc.pair_table(*ck, n_tiles=words.n_tiles,
                            sentinel=words.sentinel)
         layers = median_ms(
-            [lambda: rc.point_words(*args, width=w, height=h),
+            [lambda: raster.tile_keys(*args, width=w, height=h),
+             lambda: rs.sort_points(keys),
+             lambda: rs.deposit(sp.key, sp.rgb, sp.offsets,
+                                n_tiles=sp.n_tiles),
+             lambda: rc.point_words(*args, width=w, height=h),
              lambda: words.kept_n.item(),
              lambda: rc.compact(*cargs_of(words), bucket=bucket,
                                 sentinel=words.sentinel),
@@ -396,28 +897,46 @@ def main() -> int:
              lambda: rc.deposit(pt.table, pt.offsets, pt.key, pt.rg, pt.b,
                                 n_tiles=words.n_tiles)],
             inner=3, lead_ms=10.0)
-        print(f"  layers (kept {int(words.kept_n.item()) * rc.CHUNK} "
-              f"points): " + " | ".join(
-            f"{name} {ms:.4f} ms" for name, ms in zip(
-                ("point_words", "kept_n host read", "compact",
-                 "pair_table", "deposit"), layers)))
+        print(f"  layers (compact kept "
+              f"{int(words.kept_n.item()) * rc.CHUNK} points): " + " | ".join(
+                  f"{name} {ms:.4f} ms" for name, ms in zip(
+                      ("sorted: tile_keys", "sort_points", "deposit",
+                       "compact: point_words", "kept_n host read", "compact",
+                       "pair_table", "deposit"), layers)))
 
     src = "particle_sim_tpu_torch/csrc/"
     kernels = [
         {"name": "step", "route": "cuda", "source": src + "step.cu",
          "replaces": "particle_sim_tpu/ops/step_pallas.py:38",
          "launches": launches["step"], "max_abs_err": err["step"],
-         "ms": timing[1_000_000][0], "plain_ms": timing[1_000_000][1]},
+         "ms": timing[1_000_000][0], "plain_ms": timing[1_000_000][1],
+         "bound_ms": bytes_ms(STEP_BYTES * 1_000_000), "bound_by": "bytes",
+         "library_ms": None},
         {"name": "compact", "route": "cuda",
          "source": src + "raster_compact.cu",
          "replaces": "particle_sim_tpu/render/raster_compact.py:165",
          "launches": launches["compact"], "max_abs_err": err["compact"],
-         "ms": ck_ms, "plain_ms": cp_ms},
+         "ms": ck_ms, "plain_ms": cp_ms, "bound_ms": c_bound,
+         "bound_by": "bytes", "library_ms": cl_ms},
         {"name": "deposit", "route": "cuda",
          "source": src + "raster_compact.cu",
          "replaces": "particle_sim_tpu/render/raster_compact.py:85",
          "launches": launches["deposit"], "max_abs_err": err["deposit"],
-         "ms": dk_ms, "plain_ms": dp_ms},
+         "ms": dk_ms, "plain_ms": dp_ms, "bound_ms": d_bound,
+         "bound_by": "bytes", "library_ms": dl_ms},
+        {"name": "pairwise", "route": "cuda", "source": src + "pairwise.cu",
+         "replaces": "particle_sim_tpu/ops/pairwise_pallas.py:54",
+         "launches": g_launches["pairwise"], "max_abs_err": err["pairwise"],
+         "ms": pw_ms, "plain_ms": pwp_ms, "bound_ms": pw_bound,
+         "bound_by": "operations", "library_ms": None},
+        {"name": "sorted_deposit", "route": "cuda",
+         "source": src + "raster_sorted.cu",
+         "replaces": "particle_sim_tpu/render/raster_sorted.py:47",
+         "launches": g_launches["sorted_deposit"],
+         "max_abs_err": err["sorted_deposit"],
+         "ms": sd_timing[1_000_000][0], "plain_ms": sd_timing[1_000_000][1],
+         "bound_ms": sd_timing[1_000_000][3], "bound_by": "bytes",
+         "library_ms": sd_timing[1_000_000][2]},
     ]
     print(gpu_name_and_limit())
     print(json.dumps({"kernels": kernels}))

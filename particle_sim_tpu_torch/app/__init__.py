@@ -1,1 +1,1 @@
-"""Application entry points: the headless CLI."""
+"""Application entry points: the headless CLI and the stream server."""

@@ -1,17 +1,20 @@
-"""Headless CLI driver: scripted attractor input, periodic frame renders to
-PNG, periodic checkpoints, stats to stdout.
+"""Headless command line: scripted attractor input, optional direct-sum
+self-gravity, periodic frame renders to PNG, periodic checkpoints, stats
+to stdout.
 
 Counterpart of ``particle_sim_tpu/app/cli.py``, with the same flags and
 the same stats and ``done`` JSON lines, plus ``--device {cuda,cpu}``. The
-flags of parts not ported yet (the gravity solvers, masses, diagnostics,
-the multi-device mesh, ``--renderer sorted``) are accepted by the parser
-and raise ``NotImplementedError`` naming the ROADMAP.md item that ports
-them.
+flags of parts not ported yet (the particle-mesh solvers, diagnostics,
+the multi-device mesh) are accepted by the parser and raise
+``NotImplementedError`` naming the ROADMAP.md item that ports them.
 
-Example:
+Examples:
     python -m particle_sim_tpu_torch.app.cli --device cuda \
         --count 1000000 --steps 600 --drag --orbit-mouse --color-mode 1 \
         --render-every 100 --render-dir frames/
+    python -m particle_sim_tpu_torch.app.cli --device cuda --pairwise \
+        --central-mass 1000 --count 65536 --steps 200 --renderer sorted \
+        --render-every 100
 """
 
 from __future__ import annotations
@@ -56,11 +59,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--color-mode", type=int, choices=[0, 1, 2], default=0)
     p.add_argument("--max-dist-for-color", type=float, default=50.0)
     p.add_argument("--damping", type=float, default=0.99)
-    # gravity solvers (not ported yet: each raises NotImplementedError)
-    p.add_argument("--pairwise", action="store_true")
+    # direct-sum self-gravity
+    p.add_argument("--pairwise", action="store_true",
+                   help="all-pairs O(N^2) softened gravity")
     p.add_argument("--pairwise-g", type=float, default=1.0)
     p.add_argument("--pairwise-softening", type=float, default=0.5)
-    p.add_argument("--central-mass", type=float, default=0.0)
+    p.add_argument("--central-mass", type=float, default=0.0,
+                   help="give particle 0 this source mass (heavy central "
+                        "body for --pairwise runs)")
+    # particle-mesh solvers (not ported yet: each raises NotImplementedError)
     p.add_argument("--pm", action="store_true")
     p.add_argument("--pm-grid", type=int, default=128)
     p.add_argument("--pm-softening", type=float, default=2.0)
@@ -88,8 +95,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--renderer",
                    choices=["auto", "scatter", "sorted", "compact"],
                    default="auto",
-                   help="compact: compaction + deposit kernels (tile-"
-                        "aligned sizes); scatter: plain PyTorch scatter")
+                   help="compact: compaction + deposit kernels; sorted: "
+                        "sorted-deposit kernel (both tile-aligned sizes); "
+                        "scatter: plain PyTorch scatter")
     p.add_argument("--width", type=int, default=1280)
     p.add_argument("--height", type=int, default=720)
     # checkpointing
@@ -107,14 +115,11 @@ def _refuse_not_ported(args) -> None:
 
     for feature, given in (
             ("mesh", args.mesh != "none"),
-            ("pairwise", args.pairwise),
-            ("masses", args.central_mass > 0.0),
             ("pm_persist", args.pm_persist),
             ("pm2", args.pm2_size[0] > 0.0),
             ("pmx", args.pmx_size > 0.0),
             ("pm", args.pm),
-            ("diagnostics", args.diagnostics),
-            ("sorted renderer", args.renderer == "sorted")):
+            ("diagnostics", args.diagnostics)):
         if given:
             raise not_ported(feature)
 
@@ -125,7 +130,9 @@ def main(argv=None) -> int:
 
     import torch
 
-    from ..core.params import Method, SimParams, SphereGeneration
+    from ..core.params import (
+        Method, PairwiseParams, SimParams, SphereGeneration,
+    )
     from ..engine import Engine
     from ..io import checkpoint as ckpt
     from ..render.camera import Camera
@@ -141,6 +148,7 @@ def main(argv=None) -> int:
               f"({engine.particle_count} particles)", file=sys.stderr)
         ignored = [name for name, given in (
             ("--count", args.count),
+            ("--pairwise", args.pairwise),
             ("--substeps", args.substeps != 1),
             ("--generation", args.generation != "hollow"),
         ) if given]
@@ -156,7 +164,15 @@ def main(argv=None) -> int:
                              else SphereGeneration.FILLED),
             device=args.device,
             substeps=args.substeps,
+            pairwise=(PairwiseParams(args.pairwise_g, args.pairwise_softening)
+                      if args.pairwise else None),
         )
+
+    if args.central_mass > 0.0:
+        # applies to fresh AND resumed runs (overrides checkpoint masses)
+        m = np.ones(engine.particle_count, np.float32)
+        m[0] = args.central_mass
+        engine.set_masses(m)
 
     camera = Camera(aspect=args.width / args.height)
     if args.render_every:

@@ -3,6 +3,7 @@ from .params import (
     FILLED_SEED,
     Method,
     PARAM_VEC_SIZE,
+    PairwiseParams,
     SimParams,
     SPHERE_RADIUS,
     SphereGeneration,
@@ -16,6 +17,7 @@ __all__ = [
     "LANE",
     "Method",
     "PARAM_VEC_SIZE",
+    "PairwiseParams",
     "ParticleState",
     "SPHERE_RADIUS",
     "SimParams",

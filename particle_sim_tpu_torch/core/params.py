@@ -6,9 +6,9 @@ both packages and the CUDA step kernel reads it straight from device
 memory (parameter edits never rebuild or re-specialise anything). The
 enums keep their integer values, so checkpoints cross between packages.
 
-Only the attractor configuration is carried here; the gravity solvers'
-configurations (``PairwiseParams``, ``PMConfig``) arrive with their
-solvers.
+The attractor configuration and the direct-sum gravity configuration
+(``PairwiseParams``) are carried here; the particle-mesh configuration
+(``PMConfig``) arrives with its solver.
 """
 
 from __future__ import annotations
@@ -95,3 +95,23 @@ class SimParams:
 
     def replace(self, **kw) -> "SimParams":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class PairwiseParams:
+    """Parameters of the all-pairs O(N^2) softened gravity:
+
+        a_i = G * sum_j m_j * (x_j - x_i) / (|x_j - x_i|^2 + eps^2)^(3/2)
+
+    The softening makes the self-pair contribute exactly zero (its
+    numerator is 0), so no self-interaction mask is needed.
+    """
+
+    gravitational_constant: float = 1.0
+    softening: float = 0.5
+
+    def pack(self) -> np.ndarray:
+        """-> float32[2]: (G, softening)."""
+        return np.array(
+            [self.gravitational_constant, self.softening], dtype=np.float32
+        )

@@ -1,7 +1,9 @@
-"""Engine — the headless application layer, attractor configuration.
+"""Engine — the headless application layer: the attractor, optionally
+with direct-sum self-gravity.
 
-Counterpart of ``particle_sim_tpu/engine/engine.py`` for the attractor
-(no gravity solver). Lifecycle, as there:
+Counterpart of ``particle_sim_tpu/engine/engine.py`` for the attractor and
+the all-pairs gravity solver (``pairwise``, with per-particle source
+``masses``). Lifecycle, as there:
 
   * **method selection**: ``Method.CUDA`` (the hand-written step kernel)
     needs a CUDA device; ``Method.TORCH`` (plain PyTorch) runs on any
@@ -12,15 +14,20 @@ Counterpart of ``particle_sim_tpu/engine/engine.py`` for the attractor
   * **resize**: grow appends newly generated particles and keeps the
     existing ones; shrink keeps the capacity and only drops the count.
   * **set_method** builds fresh state, keeping the count and pause flag.
+  * **pairwise**: a ``PairwiseParams`` turns on the O(N^2) direct sum
+    (ops/pairwise_cuda.py: the pairwise kernel, then the step kernel, on
+    ``Method.CUDA``; the plain ops/pairwise.py on ``Method.TORCH``). The
+    attribute may be swapped between steps (the server's solver events).
+  * **masses**: f32 source masses, kept across resizes; grown particles
+    get mass 1.
 
 The state lives on ``device`` for the engine's life; nothing moves to
 another device behind the caller's back, and asking for ``"cuda"``
 without CUDA raises. The CUDA method steps the planes in place.
 
 Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP.md
-item that ports them: the gravity solvers (``pairwise``, ``pm``, ``pm2``,
-``pmx``, ``pm_persist=True``, ``masses``), the multi-device ``mesh`` and
-the ``"sorted"`` renderer.
+item that ports them: the particle-mesh solvers (``pm``, ``pm2``, ``pmx``,
+``pm_persist=True``) and the multi-device ``mesh``.
 """
 
 from __future__ import annotations
@@ -32,10 +39,10 @@ import numpy as np
 import torch
 
 from ..core import generate as gen
-from ..core.params import Method, SimParams, SphereGeneration
+from ..core.params import Method, PairwiseParams, SimParams, SphereGeneration
 from ..core.state import LANE, ParticleState, capacity_rows, grow_state
-from ..ops import step_cuda, step_ref
-from ..render import raster, raster_compact
+from ..ops import pairwise, pairwise_cuda, step_cuda, step_ref
+from ..render import raster, raster_compact, raster_sorted
 from ..render.camera import Camera
 from .stats import FrameStats
 
@@ -44,15 +51,12 @@ DEFAULT_COUNT_CUDA = 1_000_000
 
 #: Where in ROADMAP.md each feature that is not ported yet is queued.
 NOT_PORTED = {
-    "pairwise": "ROADMAP.md queue 1 item 8 (ops/pairwise.py)",
-    "masses": "ROADMAP.md queue 1 item 8 (ops/pairwise.py)",
     "pm": "ROADMAP.md queue 1 items 9-10 (ops/pm.py, ops/pm_pallas.py)",
     "pm2": "ROADMAP.md queue 1 item 11 (ops/pm2.py)",
     "pmx": "ROADMAP.md queue 1 item 12 (ops/pmx.py)",
     "pm_persist": "ROADMAP.md queue 1 item 13 (ops/pm_persist.py)",
     "diagnostics": "ROADMAP.md queue 1 item 14 (ops/diagnostics.py)",
     "mesh": "ROADMAP.md queue 1 item 15 (parallel/)",
-    "sorted renderer": "ROADMAP.md queue 2 item 1 (render/raster_sorted.py)",
 }
 
 
@@ -92,7 +96,7 @@ class Engine:
         *,
         device="cuda",
         substeps: int = 1,
-        pairwise=None,
+        pairwise: Optional[PairwiseParams] = None,
         pm=None,
         pm2=None,
         pmx=None,
@@ -100,12 +104,10 @@ class Engine:
         masses=None,
         mesh=None,
     ):
-        for feature, given in (("pairwise", pairwise is not None),
-                               ("pm", pm is not None),
+        for feature, given in (("pm", pm is not None),
                                ("pm2", pm2 is not None),
                                ("pmx", pmx is not None),
                                ("pm_persist", pm_persist is True),
-                               ("masses", masses is not None),
                                ("mesh", mesh is not None)):
             if given:
                 raise not_ported(feature)
@@ -126,9 +128,13 @@ class Engine:
         self.method = method
         self.generation_mode = generation_mode
         self.substeps = substeps
+        self.pairwise = pairwise
         self.paused = False
         self.stats = FrameStats()
         self.state = self._generate_state(particle_count)
+        self._masses: Optional[torch.Tensor] = None
+        if masses is not None:
+            self.set_masses(masses)
 
     # -- construction helpers -------------------------------------------------
     def _generate_state(self, count: int,
@@ -152,6 +158,34 @@ class Engine:
     def capacity(self) -> int:
         return self.state.capacity
 
+    # -- masses -----------------------------------------------------------------
+    @property
+    def masses(self) -> Optional[torch.Tensor]:
+        """f32[capacity] source masses on the device, or None (unit)."""
+        return self._masses
+
+    def set_masses(self, masses) -> None:
+        """Set per-particle source masses (length = particle_count)."""
+        m = np.asarray(masses, dtype=np.float32).ravel()
+        if m.shape[0] != self.particle_count:
+            raise ValueError(
+                f"masses length {m.shape[0]} != count {self.particle_count}")
+        buf = np.ones((self.capacity,), np.float32)
+        buf[: m.shape[0]] = m
+        self._masses = torch.from_numpy(buf).to(self.device)
+
+    def _masses_for_capacity(self) -> Optional[torch.Tensor]:
+        """Masses padded (with 1) or cut to the CURRENT capacity."""
+        if self._masses is None:
+            return None
+        cap, cur = self.capacity, self._masses.shape[0]
+        if cur > cap:
+            self._masses = self._masses[:cap].contiguous()
+        elif cur < cap:
+            self._masses = torch.cat([self._masses, torch.ones(
+                (cap - cur,), dtype=torch.float32, device=self.device)])
+        return self._masses
+
     # -- stepping -------------------------------------------------------------
     def step(self, params: Union[SimParams, np.ndarray]) -> None:
         """Advance one frame unless paused. Asynchronous on CUDA."""
@@ -161,7 +195,22 @@ class Engine:
         pv = self._param_vec(params)
         t0 = time.perf_counter()
         st = self.state
-        if self.method == Method.CUDA:
+        if self.pairwise is not None:
+            pp = self._param_vec(self.pairwise.pack())   # (G, softening)
+            masses = self._masses_for_capacity()
+            pos, vel = st.pos, st.vel
+            for _ in range(self.substeps):
+                if self.method == Method.CUDA:
+                    pairwise_cuda.step_pairwise(pos, vel, pv, pp, st.n_active,
+                                                masses=masses)
+                else:
+                    pos, vel = pairwise.step_pairwise(pos, vel, pv, pp,
+                                                      st.n_active,
+                                                      masses=masses)
+            self.state = ParticleState(pos=pos, vel=vel,
+                                       init_color=st.init_color,
+                                       n_active=st.n_active)
+        elif self.method == Method.CUDA:
             step_cuda.step(st.pos, st.vel, pv, substeps=self.substeps)
         else:
             pos, vel = step_ref.step_n(st.pos, st.vel, pv, self.substeps)
@@ -214,7 +263,11 @@ class Engine:
                 n_active=torch.tensor(new_count, dtype=torch.int32,
                                       device=self.device))
             return
-        # grow: only the newly generated tail crosses to the device
+        # grow: only the newly generated tail crosses to the device. Grown
+        # particles get mass 1, even where a past shrink left stale masses
+        # in the kept-capacity buffer.
+        if self._masses is not None:
+            self._masses_for_capacity()[old_count:new_count] = 1.0
         pos_a, vel_a, col_a = gen.generate(new_count - old_count,
                                            self.generation_mode)
         self.state = grow_state(st, pos_a, vel_a, col_a, new_count)
@@ -243,6 +296,38 @@ class Engine:
         out[:, :3] = rgb.reshape(3, -1)[:, :n].cpu().numpy().T
         return out
 
+    def frame_arrays(
+        self, params: Union[SimParams, np.ndarray], max_points: int = 0,
+    ) -> tuple:
+        """Host (pos f32[3, m], rgba u8[m, 4]) for the stream packer.
+
+        rgba is premultiplied by the fragment brightness min(2|v|, 1), so
+        thin clients just draw the colour. When ``max_points`` > 0 a
+        strided subsample is taken on the device, so only it crosses to
+        the host."""
+        pos_dev, rgba_dev = self.frame_arrays_device(params, max_points)
+        return (np.ascontiguousarray(pos_dev.cpu().numpy()),
+                np.ascontiguousarray(rgba_dev.cpu().numpy()))
+
+    def frame_arrays_device(
+        self, params: Union[SimParams, np.ndarray], max_points: int = 0,
+    ) -> tuple:
+        """frame_arrays on the engine's device: queues the pack and
+        returns without the device->host copy, so a caller can release its
+        locks before the fetch."""
+        st = self.state
+        n = self.particle_count
+        stride = 1
+        if max_points and n > max_points:
+            stride = -(-n // max_points)
+        pos_dev, rgba_dev = raster.pack_points(
+            st.pos, st.vel, st.init_color, self._param_vec(params),
+            n_stop=n, stride=stride)
+        # the pack strides the padded capacity; slice to the live range so
+        # the payload honours max_points even when capacity >> n_active
+        out_n = -(-max(n, 1) // stride)
+        return pos_dev[:, :out_n], rgba_dev[:out_n]
+
     def render_frame_device(
         self, camera: Camera, params: Union[SimParams, np.ndarray],
         width: int = 1920, height: int = 1080, renderer: str = "auto",
@@ -251,13 +336,13 @@ class Engine:
 
         renderer: "scatter" (raster.render, any device), "compact"
         (render/raster_compact.py: the compaction and deposit kernels on
-        CUDA, their plain versions on the CPU), or "auto": compact on a
-        CUDA device when the resolution is a multiple of 128x8 and the
-        capacity a multiple of 512, scatter otherwise.
+        CUDA, their plain versions on the CPU), "sorted"
+        (render/raster_sorted.py: the sorted-deposit kernel on CUDA, its
+        plain version on the CPU), or "auto": compact on a CUDA device
+        when the resolution is a multiple of 128x8 and the capacity a
+        multiple of 512, scatter otherwise.
         """
-        if renderer == "sorted":
-            raise not_ported("sorted renderer")
-        if renderer not in ("auto", "scatter", "compact"):
+        if renderer not in ("auto", "scatter", "compact", "sorted"):
             raise ValueError(f"unknown renderer {renderer!r}")
         st = self.state
         pv = self._param_vec(params)
@@ -270,6 +355,8 @@ class Engine:
         args = (st.pos, st.vel, st.init_color, pv, vp, st.n_active)
         if renderer == "compact" or (renderer == "auto" and eligible):
             fb = raster_compact.render(*args, width=width, height=height)
+        elif renderer == "sorted":
+            fb = raster_sorted.render(*args, width=width, height=height)
         else:
             fb = raster.render(*args, width=width, height=height)
         return raster.to_rgba8(fb)

@@ -1,1 +1,1 @@
-"""Checkpoint / resume."""
+"""Checkpoint / resume and the stream frame packer."""

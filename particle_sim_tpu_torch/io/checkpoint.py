@@ -2,10 +2,11 @@
 
 Counterpart of ``particle_sim_tpu/io/checkpoint.py`` with the same file
 format (``FORMAT_VERSION = 1``: one .npz holding positions, velocities
-and init colors sliced to the active count, and a JSON ``meta`` with the
-same keys), so a file saved by either package loads in the other. A
-checkpoint whose configuration needs a part not ported yet (a gravity
-solver, masses) raises ``NotImplementedError`` on load.
+and init colors sliced to the active count, an optional ``masses``
+array, and a JSON ``meta`` with the same keys, ``pairwise`` included), so
+a file saved by either package loads in the other. A checkpoint whose
+configuration needs a part not ported yet (a particle-mesh solver)
+raises ``NotImplementedError`` on load.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Optional
 
 import numpy as np
 
-from ..core.params import Method, SphereGeneration
+from ..core.params import Method, PairwiseParams, SphereGeneration
 from ..core.state import ParticleState
 from ..engine import Engine
 from ..engine.engine import not_ported
@@ -34,8 +35,10 @@ def save(path: str, engine: Engine, step_index: int = 0) -> None:
         "paused": engine.paused,
         "step_index": step_index,
         "substeps": engine.substeps,
-        # the attractor configuration: no gravity solver
-        "pairwise": None,
+        "pairwise": (
+            [engine.pairwise.gravitational_constant, engine.pairwise.softening]
+            if engine.pairwise else None),
+        # the particle-mesh solvers are not ported: always off here
         "pm": None,
         "pm_persist": "auto",
         "pm2": None,
@@ -48,6 +51,10 @@ def save(path: str, engine: Engine, step_index: int = 0) -> None:
         init_colors=state.init_color.reshape(3, -1)[:, :n].cpu().numpy().T,
         meta=json.dumps(meta),
     )
+    if engine.masses is not None:
+        # repadded to the current capacity: the raw buffer can be shorter
+        # than the count right after a grow
+        arrays["masses"] = engine._masses_for_capacity()[:n].cpu().numpy()
     # atomic: an interruption mid-save must not truncate the previous
     # good checkpoint
     tmp = f"{path}.tmp"
@@ -66,23 +73,25 @@ def load(path: str, method: Optional[Method] = None, *,
         positions = z["positions"]
         velocities = z["velocities"]
         init_colors = z["init_colors"]
-        has_masses = "masses" in z.files
+        masses = z["masses"] if "masses" in z.files else None
 
-    for key in ("pairwise", "pm", "pm2", "pmx"):
+    for key in ("pm", "pm2", "pmx"):
         if meta.get(key):
             raise not_ported(key)
     if meta.get("pm_persist") is True:
         raise not_ported("pm_persist")
-    if has_masses:
-        raise not_ported("masses")
+    pair = meta.get("pairwise")
     engine = Engine(
         particle_count=1,  # placeholder; the state is replaced below
         method=method if method is not None else Method(meta["method"]),
         generation_mode=SphereGeneration(meta["generation_mode"]),
         device=device,
         substeps=meta.get("substeps", 1),
+        pairwise=PairwiseParams(*pair) if pair else None,
     )
     engine.state = ParticleState.from_arrays(positions, velocities,
                                              init_colors, device=device)
+    if masses is not None:
+        engine.set_masses(masses)
     engine.paused = bool(meta["paused"])
     return engine, int(meta["step_index"])

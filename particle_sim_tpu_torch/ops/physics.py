@@ -26,6 +26,8 @@ from typing import Tuple
 
 import torch
 
+from ..core import params as P
+
 Vec3 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
@@ -107,3 +109,23 @@ def color_rgb(
 def brightness(vx, vy, vz) -> torch.Tensor:
     """Fragment brightness = min(2*|v|, 1)."""
     return torch.clamp_max(_norm(vx, vy, vz) * 2.0, 1.0)
+
+
+def kick_and_step_planes(pos, vel, acc, param_vec):
+    """Shared tail of the interaction solvers: accumulate an external
+    acceleration into velocity (``vel = vel + acc*dt``, two rounded ops),
+    then run :func:`attractor_step`, on ``(3, ...)`` component planes.
+    ``acc`` must broadcast to ``pos.shape``; ``param_vec`` is the packed
+    SimParams vector. -> (pos, vel), new tensors."""
+    dt = param_vec[P.P_DT]
+    vel = vel + acc * dt
+    px, py, pz, vx, vy, vz = attractor_step(
+        pos[0], pos[1], pos[2], vel[0], vel[1], vel[2],
+        dt=dt, gravity=param_vec[P.P_GRAVITY],
+        mouse_force=param_vec[P.P_MOUSE_FORCE],
+        mouse_radius=param_vec[P.P_MOUSE_RADIUS],
+        damping=param_vec[P.P_DAMPING],
+        mouse_x=param_vec[P.P_MOUSE_X], mouse_y=param_vec[P.P_MOUSE_Y],
+        mouse_z=param_vec[P.P_MOUSE_Z], dragging=param_vec[P.P_DRAGGING],
+    )
+    return torch.stack([px, py, pz]), torch.stack([vx, vy, vz])

@@ -10,17 +10,23 @@ Counterpart of ``particle_sim_tpu/render/raster.py``. Semantics:
     so the frame does not depend on the order of the points
 
 :func:`render` is the plain scatter version (``index_put_`` with
-accumulation) that every faster renderer is held to.
+accumulation) that every faster renderer is held to; :func:`tile_keys`
+and :func:`tiles_to_frame` are the first and last stage of the two tiled
+renderers (raster_compact, raster_sorted); :func:`pack_points` packs the
+point stream of the WebSocket server.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from ..core import params as P
 from ..ops import physics
+
+TILE_H, TILE_W = 8, 128         # framebuffer tile of the tiled renderers
+PX_PER_TILE = TILE_H * TILE_W   # 1024
 
 
 def project_to_pixels(
@@ -72,6 +78,57 @@ def shaded_rgb(flat_pos, flat_vel, flat_col, param_vec):
     return r, g, b, bright
 
 
+class TileKeys(NamedTuple):
+    """Per-point tile keys and premultiplied colour of one frame."""
+
+    key: torch.Tensor        # int32[n]
+    r: torch.Tensor          # f32[n]: r * w (0 where nothing is drawn)
+    g: torch.Tensor
+    b: torch.Tensor
+    n_tiles: int
+    sentinel: int
+
+
+def tile_keys(pos, vel, init_color, param_vec, view_proj, n_active, *,
+              width: int, height: int) -> TileKeys:
+    """Shade and project every point into its tile key and payload, the
+    input of both tiled renderers: key = tile * 1024 + pixel inside the
+    8x128 framebuffer tile, or the sentinel n_tiles * 1024 for a point
+    that draws nothing; payload (r*w, g*w, b*w)."""
+    if width % TILE_W or height % TILE_H:
+        raise ValueError(f"({height},{width}) not a multiple of "
+                         f"({TILE_H},{TILE_W}); use raster.render")
+    tiles_x, tiles_y = width // TILE_W, height // TILE_H
+    n_tiles = tiles_x * tiles_y
+    sentinel = n_tiles * PX_PER_TILE
+
+    flat_pos = pos.reshape(3, -1)
+    flat_vel = vel.reshape(3, -1)
+    flat_col = init_color.reshape(3, -1)
+    n = flat_pos.shape[1]
+
+    r, g, b, bright = shaded_rgb(flat_pos, flat_vel, flat_col, param_vec)
+    px, py, valid = project_to_pixels(flat_pos, view_proj, width, height)
+    active = (torch.arange(n, dtype=torch.int32, device=pos.device)
+              < n_active).to(torch.float32)
+    w = valid * active * bright
+
+    tile = (py // TILE_H) * tiles_x + (px // TILE_W)
+    local = (py % TILE_H) * TILE_W + (px % TILE_W)
+    key = torch.where(w > 0.0, tile * PX_PER_TILE + local, sentinel)
+    return TileKeys(key.to(torch.int32), r * w, g * w, b * w, n_tiles,
+                    sentinel)
+
+
+def tiles_to_frame(tiles: torch.Tensor, width: int,
+                   height: int) -> torch.Tensor:
+    """f32[n_tiles, 3, 8, 128] tile planes -> f32[H, W, 3] clamped to 1."""
+    tiles_x, tiles_y = width // TILE_W, height // TILE_H
+    fb = tiles.view(tiles_y, tiles_x, 3, TILE_H, TILE_W)
+    fb = fb.permute(0, 3, 1, 4, 2).reshape(height, width, 3)
+    return torch.clamp(fb, 0.0, 1.0)
+
+
 def render(
     pos: torch.Tensor,          # f32[3, R, LANE]
     vel: torch.Tensor,
@@ -100,6 +157,28 @@ def render(
                      device=pos.device)
     fb.index_put_((py.long(), px.long()), rgb, accumulate=True)
     return torch.clamp(fb, 0.0, 1.0)
+
+
+def pack_points(pos, vel, init_color, param_vec, n_stop, stride: int = 1):
+    """Stream packing on the state's device -> (pos f32[3, m],
+    rgba8 u8[m, 4]) for every ``stride``-th slot of the capacity.
+
+    rgb is premultiplied by the fragment brightness min(2|v|, 1);
+    inactive slots (index >= ``n_stop``) get rgb 0 and alpha 0, which
+    clients discard. The subsample is taken on the device, so only it
+    crosses to the host."""
+    flat_pos = pos.reshape(3, -1)[:, ::stride]
+    flat_vel = vel.reshape(3, -1)[:, ::stride]
+    flat_col = init_color.reshape(3, -1)[:, ::stride]
+    n = flat_pos.shape[1]
+    r, g, b, bright = shaded_rgb(flat_pos, flat_vel, flat_col, param_vec)
+    active = (torch.arange(n, dtype=torch.int32, device=pos.device)
+              * stride) < n_stop
+    af = active.to(torch.float32)
+    rgb = torch.stack([r, g, b]) * (bright * af)
+    rgba = torch.cat([rgb, af[None, :]], dim=0).T            # [n, 4]
+    rgba8 = (torch.clamp(rgba, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+    return flat_pos, rgba8
 
 
 def to_rgba8(fb: torch.Tensor) -> torch.Tensor:

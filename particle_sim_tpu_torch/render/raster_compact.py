@@ -29,10 +29,10 @@ import torch
 
 from ..utils import cuda_build
 from ..utils.search import rank_right_iota
-from . import raster
+from .raster import (
+    PX_PER_TILE, TILE_H, TILE_W, tile_keys, tiles_to_frame,
+)
 
-TILE_H, TILE_W = 8, 128
-PX_PER_TILE = TILE_H * TILE_W   # 1024
 CHUNK = 512
 SEGMENTS = 16                   # sort rows; divisor of every bucket's chunks
 
@@ -216,42 +216,24 @@ class PointWords(NamedTuple):
 def point_words(pos, vel, init_color, param_vec, view_proj, n_active, *,
                 width: int, height: int) -> PointWords:
     """Shade, project and pack every point; list the visible chunks."""
-    if width % TILE_W or height % TILE_H:
-        raise ValueError(f"({height},{width}) not a multiple of "
-                         f"({TILE_H},{TILE_W}); use raster.render")
-    tiles_x, tiles_y = width // TILE_W, height // TILE_H
-    n_tiles = tiles_x * tiles_y
-    if n_tiles > _MAX_TILES:
-        raise ValueError(f"{n_tiles} framebuffer tiles; at most {_MAX_TILES}")
-    sentinel = n_tiles * PX_PER_TILE
-
-    flat_pos = pos.reshape(3, -1)
-    flat_vel = vel.reshape(3, -1)
-    flat_col = init_color.reshape(3, -1)
-    n = flat_pos.shape[1]
-    if n % CHUNK:
-        raise ValueError(f"point count {n} not a multiple of {CHUNK}")
-
-    r, g, b, bright = raster.shaded_rgb(flat_pos, flat_vel, flat_col,
-                                        param_vec)
-    px, py, valid = raster.project_to_pixels(flat_pos, view_proj,
-                                             width, height)
-    active = (torch.arange(n, dtype=torch.int32, device=pos.device)
-              < n_active).to(torch.float32)
-    w = valid * active * bright
-
-    tile = (py // TILE_H) * tiles_x + (px // TILE_W)
-    local = (py % TILE_H) * TILE_W + (px % TILE_W)
-    key = torch.where(w > 0.0, tile * PX_PER_TILE + local, sentinel)
-    key = key.to(torch.int32)
-    rg_w, b_w = pack_rgb_bf16(r * w, g * w, b * w)
+    keys = tile_keys(pos, vel, init_color, param_vec, view_proj, n_active,
+                     width=width, height=height)
+    if keys.n_tiles > _MAX_TILES:
+        raise ValueError(f"{keys.n_tiles} framebuffer tiles; at most "
+                         f"{_MAX_TILES}")
+    if keys.key.shape[0] % CHUNK:
+        raise ValueError(f"point count {keys.key.shape[0]} not a multiple "
+                         f"of {CHUNK}")
+    key, sentinel = keys.key, keys.sentinel
+    rg_w, b_w = pack_rgb_bf16(keys.r, keys.g, keys.b)
 
     # chunk-granular visibility: kept-chunk list via a stable sort
     # (visible chunks first, original order preserved)
     vis = (key.view(-1, CHUNK).amin(dim=1) < sentinel).to(torch.int32)
     kept_n = vis.sum().to(torch.int32).reshape(1)
     kept_list = torch.sort(1 - vis, stable=True).indices.to(torch.int32)
-    return PointWords(key, rg_w, b_w, kept_list, kept_n, n_tiles, sentinel)
+    return PointWords(key, rg_w, b_w, kept_list, kept_n, keys.n_tiles,
+                      sentinel)
 
 
 def segments_for(b: int) -> int:
@@ -371,8 +353,4 @@ def render(
     """
     words = point_words(pos, vel, init_color, param_vec, view_proj,
                         n_active, width=width, height=height)
-    tiles = render_tiles(words, plain=plain)
-    tiles_x, tiles_y = width // TILE_W, height // TILE_H
-    fb = tiles.view(tiles_y, tiles_x, 3, TILE_H, TILE_W)
-    fb = fb.permute(0, 3, 1, 4, 2).reshape(height, width, 3)
-    return torch.clamp(fb, 0.0, 1.0)
+    return tiles_to_frame(render_tiles(words, plain=plain), width, height)

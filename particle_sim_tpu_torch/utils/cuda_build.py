@@ -1,10 +1,13 @@
 """Build the CUDA kernels of ``csrc/`` with nvcc and load them with ctypes.
 
 The sources are compiled at first use into one shared library with a
-plain C interface (no PyTorch headers, so the build takes seconds):
+plain C interface (no PyTorch headers, so the build takes seconds): one
+nvcc per source, all started together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/torch_kernels/libpsim_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c -o <source>.o csrc/<source>.cu     # each
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o build/torch_kernels/libpsim_<hash>.so *.o
 
 The library lives in ``build/torch_kernels/`` beside the package and is
 named by a hash of the sources and flags, so an edited source is rebuilt
@@ -27,8 +30,9 @@ from typing import Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # argtypes of every exported function: pointers and the stream as
@@ -37,6 +41,8 @@ SIGNATURES = {
     "psim_step": (_P, _P, _P, _I64, _I, _P),
     "psim_compact": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     "psim_deposit": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "psim_pairwise": (_P, _P, _P, _P, _P, _I, _I, _P),
+    "psim_sorted_deposit": (_P, _P, _P, _P, _I, _I, _P),
 }
 
 
@@ -69,17 +75,39 @@ def build() -> Tuple[Path, float]:
     if out.exists():
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f".{out.stem}.{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    stem = f".{out.stem}.{os.getpid()}"
+    tmp = out.with_name(stem + ".so")
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{stem}.{src.stem}.o"
+        jobs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for src, _, proc in jobs:
+        text, _ = proc.communicate()
+        log.append(f"== {src.name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{text}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+             *[str(o) for o in objs]], capture_output=True, text=True)
+        if link.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
     # ptxas -v report (registers, shared memory, spills) beside the library
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    out.with_suffix(".log").write_text("".join(log))
     os.replace(tmp, out)  # atomic: a reader never sees a partial library
     return out, seconds
 

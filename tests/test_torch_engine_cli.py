@@ -21,7 +21,7 @@ from particle_sim_tpu.render.camera import Camera as JCamera
 
 from particle_sim_tpu_torch.app import cli
 from particle_sim_tpu_torch.core.params import (
-    Method, SimParams, SphereGeneration,
+    Method, PairwiseParams, SimParams, SphereGeneration,
 )
 from particle_sim_tpu_torch.engine import Engine, available_methods
 from particle_sim_tpu_torch.io import checkpoint as ckpt
@@ -237,21 +237,106 @@ def test_render_frame_renderers_agree():
     assert np.abs(a.astype(np.int16) - b.astype(np.int16)).max() <= 2
 
 
+def test_sorted_renderer_matches_scatter():
+    e = make_engine(n=3000)
+    e.step(SimParams(gravity=2.0, delta_time=0.05))
+    cam, p = Camera(aspect=2.0), SimParams(color_mode=1)
+    a = e.render_frame(cam, p, width=W, height=H, renderer="scatter")
+    b = e.render_frame(cam, p, width=W, height=H, renderer="sorted")
+    assert (a[..., :3].sum(-1) > 0).sum() > 100
+    assert np.abs(a.astype(np.int16) - b.astype(np.int16)).max() <= 1
+    with pytest.raises(ValueError, match="renderer"):
+        e.render_frame(cam, p, width=W, height=H, renderer="nope")
+
+
+# -- direct-sum gravity and masses ------------------------------------------------
+@pytest.mark.parametrize("masses,substeps", [(False, 1), (True, 1),
+                                             (True, 2)])
+def test_engine_pairwise_matches_jax(masses, substeps):
+    """Engine(pairwise=..., masses=...) steps to the JAX engine's state."""
+    n = 1500
+    m = np.ones(n, np.float32)
+    m[0] = 200.0
+    kw = dict(masses=m) if masses else {}
+    je = JEngine(particle_count=n, method=JMethod.JNP, substeps=substeps,
+                 pairwise=JPairwise(2.0, 0.5), **kw)
+    te = make_engine(n=n, substeps=substeps,
+                     pairwise=PairwiseParams(2.0, 0.5), **kw)
+    for i in range(4):
+        je.step(orbit_params(JSimParams, i))
+        te.step(orbit_params(SimParams, i))
+    np.testing.assert_allclose(te.state.positions(), je.state.positions(),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(te.state.velocities(), je.state.velocities(),
+                               rtol=1e-4, atol=1e-5)
+    assert not np.allclose(te.state.velocities(),
+                           make_engine(n=n).state.velocities())
+
+
+def test_pairwise_switches_between_steps():
+    """The server's solver events assign engine.pairwise between steps."""
+    e = make_engine(n=1024)
+    ref = make_engine(n=1024)
+    p = SimParams(delta_time=0.05)
+    e.pairwise = PairwiseParams(1.0, 0.5)
+    e.step(p)
+    ref.step(p)
+    assert not torch.equal(e.state.vel, ref.state.vel)   # gravity pulled
+    e.pairwise = None
+    e.state = ref.state
+    e.step(p)
+    ref2 = make_engine(n=1024)
+    ref2.step(p)
+    ref2.step(p)
+    assert torch.equal(e.state.pos, ref2.state.pos)
+
+
+def test_masses_kept_across_resize():
+    """Masses follow the JAX engine through shrink and grow: kept ones
+    stay, grown particles get mass 1, padding is 1."""
+    m = np.arange(1, 1501, dtype=np.float32)
+    je = JEngine(particle_count=1500, method=JMethod.JNP,
+                 pairwise=JPairwise(), masses=m)
+    te = make_engine(n=1500, pairwise=PairwiseParams(), masses=m)
+    for count in (700, 2600, 5000):
+        je.resize(count)
+        te.resize(count)
+        jm = np.asarray(je._masses_for_capacity())
+        tm = te._masses_for_capacity().numpy()
+        assert tm.shape == (te.capacity,) == jm.shape
+        np.testing.assert_array_equal(tm, jm)
+    assert te.masses is not None and float(te.masses[0]) == 1.0
+    assert (te.masses[700:].numpy() == 1.0).all()
+    with pytest.raises(ValueError, match="masses length"):
+        te.set_masses(np.ones(3))
+
+
+@pytest.mark.parametrize("max_points", [0, 700])
+def test_frame_arrays_match_jax(max_points):
+    """The stream pack (positions and brightness-premultiplied rgba8)
+    equals the JAX engine's, stride subsample included."""
+    je = JEngine(particle_count=2000, method=JMethod.JNP)
+    te = make_engine(n=2000)
+    for i in range(3):
+        je.step(orbit_params(JSimParams, i))
+        te.step(orbit_params(SimParams, i))
+    jp, jc = je.frame_arrays(orbit_params(JSimParams, 2), max_points)
+    tp, tc = te.frame_arrays(orbit_params(SimParams, 2), max_points)
+    assert tp.shape == jp.shape and tc.shape == jc.shape
+    assert tp.flags.c_contiguous and tc.flags.c_contiguous
+    np.testing.assert_allclose(tp, jp, rtol=1e-5, atol=1e-5)
+    assert np.abs(tc.astype(np.int16) - jc.astype(np.int16)).max() <= 1
+    dp, dc = te.frame_arrays_device(orbit_params(SimParams, 2), max_points)
+    assert dp.device == te.device and dc.dtype == torch.uint8
+
+
 # -- what is not ported, and devices ---------------------------------------------
 @pytest.mark.parametrize("kw", [
-    dict(pairwise=object()), dict(pm=object()), dict(pm2=object()),
-    dict(pmx=object()), dict(pm_persist=True), dict(masses=np.ones(10)),
-    dict(mesh=object())])
+    dict(pm=object()), dict(pm2=object()), dict(pmx=object()),
+    dict(pm_persist=True), dict(mesh=object())])
 def test_engine_not_ported_raises(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Engine(particle_count=10, device="cpu", **kw)
-
-
-def test_sorted_renderer_not_ported():
-    e = make_engine(n=1000)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        e.render_frame(Camera(), SimParams(), width=W, height=H,
-                       renderer="sorted")
 
 
 def test_engine_cuda_raises_without_cuda():
@@ -334,12 +419,56 @@ def test_checkpoint_roundtrip_preserves_trajectory(tmp_path):
 
 
 def test_checkpoint_with_solver_not_ported(tmp_path):
-    path = str(tmp_path / "pw.npz")
+    """A particle-mesh checkpoint still raises on load."""
+    from particle_sim_tpu.core.params import PMConfig as JPM
+
+    path = str(tmp_path / "pm.npz")
     je = JEngine(particle_count=256, method=JMethod.JNP,
-                 pairwise=JPairwise(3.0, 0.7))
+                 pairwise=JPairwise(3.0, 0.7), pm=JPM(grid=32))
     jckpt.save(path, je)
-    with pytest.raises(NotImplementedError, match="pairwise"):
+    with pytest.raises(NotImplementedError, match="pm"):
         ckpt.load(path, device="cpu")
+
+
+def test_checkpoint_pairwise_masses_jax_to_port(tmp_path):
+    path = str(tmp_path / "pw.npz")
+    m = np.ones(1200, np.float32)
+    m[0] = 400.0
+    je = JEngine(particle_count=1200, method=JMethod.JNP,
+                 pairwise=JPairwise(3.0, 0.7), masses=m)
+    for i in range(3):
+        je.step(orbit_params(JSimParams, i))
+    jckpt.save(path, je, step_index=3)
+    te, idx = ckpt.load(path, device="cpu")
+    assert idx == 3 and te.pairwise == PairwiseParams(3.0, 0.7)
+    np.testing.assert_array_equal(te.masses[:1200].numpy(), m)
+    np.testing.assert_array_equal(te.state.positions(), je.state.positions())
+    for i in range(3, 6):
+        je.step(orbit_params(JSimParams, i))
+        te.step(orbit_params(SimParams, i))
+    np.testing.assert_allclose(te.state.positions(), je.state.positions(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_checkpoint_pairwise_masses_port_to_jax(tmp_path):
+    path_t, path_j = str(tmp_path / "t.npz"), str(tmp_path / "j.npz")
+    m = np.linspace(0.5, 3.0, 1100).astype(np.float32)
+    te = make_engine(n=1100, pairwise=PairwiseParams(1.5, 0.4), masses=m)
+    te.step(SimParams(gravity=1.0))
+    te.resize(1500)                      # grown particles: mass 1
+    ckpt.save(path_t, te, step_index=1)
+    je, idx = jckpt.load(path_t)
+    assert idx == 1 and je.pairwise == JPairwise(1.5, 0.4)
+    want = np.concatenate([m, np.ones(400, np.float32)])
+    np.testing.assert_array_equal(
+        np.asarray(je._masses_for_capacity())[:1500], want)
+    jckpt.save(path_j, je, step_index=1)
+    meta = [json.loads(str(np.load(p)["meta"])) for p in (path_t, path_j)]
+    assert meta[0] == meta[1]
+    with np.load(path_t) as zt, np.load(path_j) as zj:
+        assert sorted(zt.files) == sorted(zj.files)
+        for k in ("positions", "velocities", "init_colors", "masses"):
+            np.testing.assert_array_equal(zt[k], zj[k])
 
 
 # -- the CLI ----------------------------------------------------------------------
@@ -378,10 +507,31 @@ def test_cli_checkpoint_and_resume(tmp_path, capsys):
     assert idx == 6 and e.particle_count == 2048
 
 
+def test_cli_pairwise_central_mass_sorted(tmp_path, capsys):
+    """--pairwise --central-mass with the sorted renderer on the CPU:
+    frames are written and the checkpoint holds the masses."""
+    frames, path = tmp_path / "frames", str(tmp_path / "c.npz")
+    rc = cli.main(["--device", "cpu", "--pairwise", "--central-mass", "1000",
+                   "--pairwise-g", "0.5", "--count", "2048", "--steps", "4",
+                   "--renderer", "sorted", "--render-every", "2", "--width",
+                   "256", "--height", "128", "--render-dir", str(frames),
+                   "--checkpoint-every", "4", "--checkpoint", path,
+                   "--stats-every", "0", "--gravity", "1.0"])
+    assert rc == 0
+    pngs = sorted(os.listdir(frames))
+    assert pngs == ["frame_000002.png", "frame_000004.png"]
+    assert read_png(str(frames / pngs[-1]))[..., :3].sum() > 0
+    done = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert done["done"] is True and done["steps"] == 4
+    e, _ = ckpt.load(path, device="cpu")
+    assert e.pairwise == PairwiseParams(0.5, 0.5)
+    assert float(e.masses[0]) == 1000.0 and float(e.masses[1:].max()) == 1.0
+    assert np.isfinite(e.state.positions()).all()
+
+
 @pytest.mark.parametrize("flags", [
-    ["--pairwise"], ["--pm"], ["--pm-persist"], ["--pm2-size", "24"],
-    ["--pmx-size", "6"], ["--mesh", "auto"], ["--central-mass", "5"],
-    ["--diagnostics"], ["--renderer", "sorted"]])
+    ["--pm"], ["--pm-persist"], ["--pm2-size", "24"], ["--pmx-size", "6"],
+    ["--mesh", "auto"], ["--diagnostics"]])
 def test_cli_not_ported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cli.main(["--device", "cpu", "--count", "1024", "--steps", "1",
@@ -402,12 +552,17 @@ def test_port_imports_no_jax(tmp_path):
         "import particle_sim_tpu_torch\n"
         "from particle_sim_tpu_torch.engine import Engine\n"
         "from particle_sim_tpu_torch.app import cli\n"
-        "from particle_sim_tpu_torch.ops import step_cuda\n"
+        "from particle_sim_tpu_torch.ops import pairwise_cuda, step_cuda\n"
         "from particle_sim_tpu_torch.render import raster_compact\n"
-        "from particle_sim_tpu_torch.io import checkpoint\n"
+        "from particle_sim_tpu_torch.render import raster_sorted\n"
+        "from particle_sim_tpu_torch.io import checkpoint, packer\n"
+        "from particle_sim_tpu_torch.app import server\n"
+        "packer.pack_f16(*server.StreamServer(Engine(1024, device='cpu'))"
+        ".engine.frame_arrays(particle_sim_tpu_torch.SimParams()))\n"
         f"cli.main(['--device', 'cpu', '--count', '1024', '--steps', '2',"
         f" '--render-every', '2', '--width', '256', '--height', '128',"
-        f" '--render-dir', {str(tmp_path)!r}, '--stats-every', '0'])\n"
+        f" '--render-dir', {str(tmp_path)!r}, '--stats-every', '0',"
+        f" '--pairwise', '--central-mass', '10', '--renderer', 'sorted'])\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'particle_sim_tpu'))\n"
         "assert not bad, bad\n"
