@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port (particle_sim_tpu_torch) on one
 NVIDIA GPU: builds the hand-written kernels, holds each against its plain
-PyTorch version, drives the headless CLI at 1M particles (the attractor)
-and at 65,536 (direct-sum gravity), drives the WebSocket server at 65,536,
-and times the kernels.
+PyTorch version, drives the headless CLI at 1M particles (the attractor),
+at 65,536 (direct-sum gravity) and at 1M (particle-mesh gravity), drives
+the WebSocket server at 65,536, and times the kernels.
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
@@ -43,19 +43,51 @@ Phases (each prints a line; any failure raises and exits non-zero):
      kernel vs plain (phase 7's bars) on the CLI's final state at the
      path's own shape, 65,536 @ 1280x720
   9. the WebSocket server at 65,536 in-process on an ephemeral port: a
-     "direct" solver event, then frames in wire modes 0, 1 and 2; checks
-     the headers, reflected_seq and the launch counts; then the compaction
-     and deposit kernels vs plain (phase 3's bars) on the server's state,
-     parameters and camera at its shape, 65,536 @ 1280x720
+     "direct" solver event, then frames in wire modes 0, 1 and 2, then a
+     "pm" solver event; checks the headers, reflected_seq, the status
+     ("solver": "pm") and the launch counts (the PM kernels' included);
+     then the compaction and deposit kernels vs plain (phase 3's bars) on
+     the server's state, parameters and camera at its shape, 65,536 @
+     1280x720 (its PM deposit and gather follow in phase 11)
  10. times: pairwise at 65,536 and the sorted deposit at 1M and 16M beside
      their plain versions, library call and bound (for the pairwise sum
      the largest of its FP32 issue, flop and rsqrt bounds, beside the
      FP32 instructions a pair in the kernel's SASS); the sorted, compact
      and scatter frames (these include the host: the compact frame reads
      one count back per frame)
+ 11. particle-mesh deposit and gather kernels vs plain at 1M (hollow
+     sphere, static box): G = 128 isolated with unit masses and with
+     masses, G = 128 periodic with a fifth of the particles outside the
+     box, G = 32, G = 96 (not a grid of the TPU kernels) and G = 256
+     (deposit |k - p| <= 1e-5 max|p|: f32 sums in atomic order; gather <=
+     1e-6 max|p|); pm_accel through the kernels vs the plain pm_accel_ref
+     (<= 1e-4 max|a|; padding 0) in those five and auto_box with masses;
+     the deposit and gather on phase 9's server state after its "pm"
+     event (65,536, G = 128); PM (G = 128, eps 5) vs the pairwise kernel
+     at 65,536 (filled sphere): rms relative error < 0.05
+ 12. the PM main path through the CLI at 1M: (a) the documented command
+     --pm --pm-auto-box --pairwise-g 0.08 --dt 0.004 --diagnostics, 600
+     steps; (b) --pm --central-mass 1000 --renderer sorted, 200 steps, a
+     frame every 100; checks the launch counts (deposit = gather = step =
+     steps, the mass deposit in (b); in (a) each diagnostics line adds a
+     deposit and a gather, the mesh potential's), a finite final state,
+     momentum 0 and the centre of mass in place, the diagnostics lines,
+     the frames; then deposit and gather vs plain on (b)'s final state
+     (the cloud after its collapse, much of it clamped onto the box's
+     faces): the deposit against a float64 sum of the same f32 corner
+     weights, within K u |p| for a cell of K contributions (the f32
+     summation bound), the gather within 1e-6 max|p|
+ 13. times: the PM deposit and gather kernels at 1M and 16,777,216 (G =
+     128, static box) and on (b)'s final state, beside their plain
+     versions, a library call (index_put_ of the 8N corner weights;
+     grid_sample, trilinear) and the bytes bound; the PM step's layers
+     (deposit, FFT solve, gather, momentum_clean, kick + step, the whole
+     step) and torch.sort of N int32 cell keys (the sort the TPU design
+     pays)
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.
+The line before the last is a JSON object with one entry per kernel (the
+launches of pm_deposit and pm_gather are phase 12's runs (a) and (b)
+together); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -98,14 +130,16 @@ def check_close(name, got, want, rtol, atol) -> float:
     import torch
 
     err = (got - want).abs()
-    bad = err > atol + rtol * want.abs()
+    lim = atol + rtol * want.abs()
+    bad = err > lim
     if not torch.isfinite(got).all():
         fail(f"{name}: non-finite output")
     if bad.any():
         i = int(bad.reshape(-1).nonzero()[0])
-        fail(f"{name}: {int(bad.sum())} elements outside rtol={rtol} "
-             f"atol={atol}; first at {i}: {float(got.reshape(-1)[i])} vs "
-             f"{float(want.reshape(-1)[i])}")
+        fail(f"{name}: {int(bad.sum())} elements outside the bar; first at "
+             f"{i}: {float(got.reshape(-1)[i])} vs "
+             f"{float(want.reshape(-1)[i])} (bar there "
+             f"{float(lim.reshape(-1)[i]):.4g})")
     return float(err.max())
 
 
@@ -222,6 +256,40 @@ def frame_pixels(key, n_tiles, width):
     return y * width + x, live
 
 
+def cic_corners(pos, n_active, box_min, cell, grid, periodic, masses=None):
+    """(flat cell index i64[8, N], weight f32[8, N]) of every particle's
+    8 CIC corners as pm.cic_deposit_ref forms them (dead particles weigh
+    0): the inputs of the deposit's library yardstick and of the per-cell
+    contribution counts."""
+    import torch
+
+    from particle_sim_tpu_torch.ops import pm
+
+    c = pm.cell_coords_dyn(pos, box_min, cell, grid, periodic)
+    i0, f = pm.cic_weights(c)
+    m = pm.live_mask(pos.shape[1], n_active, pos.device).float()
+    if masses is not None:
+        m = m * masses
+    idx, w = [], []
+    for cz, cy, cx in pm._CORNERS:
+        (wx, wy, wz), (iz, iy, ix) = pm._corner(i0, f, grid, periodic,
+                                               cz, cy, cx)
+        idx.append((iz * grid + iy) * grid + ix)
+        w.append(m * wx * wy * wz)
+    return torch.stack(idx), torch.stack(w)
+
+
+def momentum_and_com(start, end, vel, masses):
+    """(|sum m v| / sum m|v|, shift of the centre of mass) in float64."""
+    import numpy as np
+
+    mom = np.abs((masses[:, None] * vel.astype(np.float64)).sum(0)).max()
+    mom_rel = float(mom / (masses * np.linalg.norm(vel, axis=1)).sum())
+    com0 = (masses[:, None] * start).sum(0) / masses.sum()
+    com1 = (masses[:, None] * end.astype(np.float64)).sum(0) / masses.sum()
+    return mom_rel, float(np.linalg.norm(com1 - com0))
+
+
 # -- a minimal WebSocket client for phase 9 (every read has a timeout) ------------
 class WsClient:
     def __init__(self, port: int, timeout: float = 60.0):
@@ -300,11 +368,13 @@ def main() -> int:
     from particle_sim_tpu_torch.app import cli, server
     from particle_sim_tpu_torch.core import generate as gen
     from particle_sim_tpu_torch.core.params import (
-        Method, PairwiseParams, SimParams,
+        Method, PairwiseParams, PMConfig, SimParams,
     )
     from particle_sim_tpu_torch.core.state import ParticleState
     from particle_sim_tpu_torch.engine import Engine
-    from particle_sim_tpu_torch.ops import pairwise, pairwise_cuda, step_cuda
+    from particle_sim_tpu_torch.ops import (
+        pairwise, pairwise_cuda, pm, pm_cuda, step_cuda,
+    )
     from particle_sim_tpu_torch.render import raster, raster_compact as rc
     from particle_sim_tpu_torch.render import raster_sorted as rs
     from particle_sim_tpu_torch.render.camera import Camera
@@ -330,7 +400,7 @@ def main() -> int:
         print(f"  ptxas: {ln}")
 
     err = {"step": 0.0, "compact": 0.0, "deposit": 0.0, "pairwise": 0.0,
-           "sorted_deposit": 0.0}
+           "sorted_deposit": 0.0, "pm_deposit": 0.0, "pm_gather": 0.0}
     params = [SimParams(),
               SimParams(gravity=2.0),
               SimParams(is_mouse_dragging=True,
@@ -737,6 +807,8 @@ def main() -> int:
     rc.COMPACT_LAUNCHES = 0
     rc.DEPOSIT_LAUNCHES = 0
     step_cuda.LAUNCHES = 0
+    pm_cuda.DEPOSIT_LAUNCHES = 0
+    pm_cuda.GATHER_LAUNCHES = 0
     t0 = time.perf_counter()
     srv.start()
     try:
@@ -761,14 +833,27 @@ def main() -> int:
         modes[2] = ws.binary_until(lambda f: struct.unpack(
             "<I", f[4:8])[0] == 2 and struct.unpack(
             server.HEADER_FMT, f[:hdr])[7] >= 6, "mode 2, reflected_seq 6")
+        # the particle-mesh solver, as the viewer's solver menu sends it
+        ws.send({"type": "solver", "name": "pm", "g": 1.0, "softening": 2.0,
+                 "auto_box": False, "pm2_sizes": [], "pmx_size": 0,
+                 "seq": 7})
+        pm_frame = ws.binary_until(lambda f: struct.unpack(
+            server.HEADER_FMT, f[:hdr])[7] >= 7, "reflected_seq 7 (pm)")
         ws.close()
+        ws2 = WsClient(srv.port)
+        op, hello2 = ws2.frame()
+        hello2 = json.loads(hello2.decode()) if op == 0x1 else {}
+        ws2.close()
     finally:
         srv.stop()
     s_wall = time.perf_counter() - t0
+    srv_state, srv_pm = eng.state, eng.pm     # held against plain in phase 11
     s_launches = {"pairwise": pairwise_cuda.LAUNCHES,
                   "compact": rc.COMPACT_LAUNCHES,
                   "deposit": rc.DEPOSIT_LAUNCHES,
-                  "step": step_cuda.LAUNCHES}
+                  "step": step_cuda.LAUNCHES,
+                  "pm_deposit": pm_cuda.DEPOSIT_LAUNCHES,
+                  "pm_gather": pm_cuda.GATHER_LAUNCHES}
     summary = []
     for mode, frame in modes.items():
         (magic, fmode, count, fid, total, fps, upd, rseq, lat,
@@ -789,18 +874,24 @@ def main() -> int:
         h2, w2, 4)
     if (w2, h2) != (1280, 720) or int(img2[..., :3].max()) == 0:
         fail(f"server mode 2: {w2}x{h2}, black={img2[..., :3].max() == 0}")
-    if eng.pairwise != PairwiseParams(1.0, 0.5):
-        fail(f"server: the solver event did not switch the engine "
-             f"({eng.pairwise})")
-    if min(s_launches["pairwise"], s_launches["compact"],
-           s_launches["deposit"]) < 1:
+    if eng.pm != PMConfig(softening=2.0) \
+            or eng.pairwise != PairwiseParams(1.0, 2.0):
+        fail(f"server: the pm solver event did not switch the engine "
+             f"({eng.pm}, {eng.pairwise})")
+    if hello2.get("solver") != "pm":
+        fail(f"server: the status after the pm event says {hello2}")
+    if struct.unpack(server.HEADER_FMT, pm_frame[:hdr])[4] != N_GRAVITY:
+        fail("server: the frame after the pm event has the wrong count")
+    if min(s_launches.values()) < 1:
         fail(f"the server path missed a kernel: launches {s_launches}")
     # the compaction and deposit kernels at the server's own shapes: its
     # engine's state, parameters and camera, 65,536 points @ 1280x720
     check_compact(f"server state n={N_GRAVITY} 1280x720",
                   frame_args(eng.state, srv.params, srv.camera), 1280, 720,
                   min_lit=1)
-    print(f"phase 9 server at {N_GRAVITY}: {' | '.join(summary)}; "
+    print(f"phase 9 server at {N_GRAVITY}: {' | '.join(summary)}; then a "
+          f"\"pm\" solver event, reflected (seq 7), status solver "
+          f"{hello2.get('solver')!r}; "
           f"launches {s_launches} ({s_wall:.2f} s); compact (bit-exact) and "
           f"deposit == plain on its state, deposit max |err| so far "
           f"{err['deposit']:.3g}")
@@ -904,6 +995,326 @@ def main() -> int:
                        "compact: point_words", "kept_n host read", "compact",
                        "pair_table", "deposit"), layers)))
 
+    # -- phase 11: the PM kernels vs plain ----------------------------------------------
+    t0 = time.perf_counter()
+
+    def check_pm(label, pos, n_act, cfg, masses=None, exact_ref=False):
+        """Deposit (unit masses, and with ``masses`` when given) and gather
+        kernels vs their plain versions at cfg's grid and static box.
+        Deposit bar 1e-5 max|p| (f32 sums in atomic order). With
+        ``exact_ref`` the deposit is held instead against a float64 sum of
+        the same f32 corner weights (pm.cic_deposit_ref's terms, which the
+        kernel forms bit for bit), within K u |p| per cell, K its nonzero
+        contributions: an f32 sum of K non-negative terms in any order
+        lies within (K - 1) u of the exact sum (the recursive-summation
+        bound). Particles clamped onto one box edge add identical weights,
+        so there the rounding errors add up instead of averaging out.
+        Gather bar 1e-6 max|p| (the same weights in the same corner
+        order)."""
+        periodic = cfg.boundary == "periodic"
+        box, cell, g = cfg.box_min, cfg.cell_size, cfg.grid
+        notes = []
+        for m in ((None,) if masses is None else (None, masses)):
+            dk = pm_cuda.deposit(pos, n_act, box, cell, g, periodic=periodic,
+                                 masses=m)
+            dp = pm_cuda.deposit_plain(pos, n_act, box, cell, g,
+                                       periodic=periodic, masses=m)
+            torch.cuda.synchronize()
+            scale = float(dp.abs().max())
+            bar, k_note = 1e-5 * scale, ""
+            if exact_ref:
+                idx, w = cic_corners(pos, n_act, box, cell, g, periodic, m)
+                idx, w = idx.reshape(-1), w.reshape(-1).double()
+                dp = torch.zeros(g ** 3, dtype=torch.float64,
+                                 device=dev).index_add_(0, idx, w)
+                dp = dp.reshape(g, g, g)
+                counts = torch.bincount(idx, weights=(w != 0).double(),
+                                        minlength=g ** 3).reshape(g, g, g)
+                bar = counts * 2.0 ** -24 * dp
+                dk = dk.double()
+                worst = float(((dk - dp).abs() / bar.clamp_min(1e-300))
+                              .max())
+                k_note = (f" (float64 reference), hottest cell "
+                          f"{int(counts.max())} contributions, worst "
+                          f"|k - p| / (K u |p|) {worst:.4g}")
+            e = check_close(f"pm deposit {label}", dk, dp, 0.0, bar)
+            err["pm_deposit"] = max(err["pm_deposit"], e)
+            notes.append(f"deposit{'' if m is None else ' (masses)'} "
+                         f"{e:.3g} = {e / scale:.3g} of max|p| {scale:.6g}"
+                         f"{k_note}")
+        grids = pm.solve_accel(dp, cfg, cfg.softening)
+        gk = pm_cuda.gather(grids, pos, n_act, box, cell, periodic=periodic)
+        gp = pm_cuda.gather_plain(grids, pos, n_act, box, cell,
+                                  periodic=periodic)
+        torch.cuda.synchronize()
+        scale = float(gp.abs().max())
+        e = check_close(f"pm gather {label}", gk, gp, 0.0, 1e-6 * scale)
+        err["pm_gather"] = max(err["pm_gather"], e)
+        notes.append(f"gather {e:.3g} = {e / scale:.3g} of max|p| "
+                     f"{scale:.6g}")
+        print(f"  pm {label}: max |k - p|: " + "; ".join(notes))
+
+    def check_pm_accel(label, pos, n_act, cfg, masses=None) -> float:
+        """pm_cuda.pm_accel (kernels) vs pm.pm_accel_ref (plain): bar 1e-4
+        max|a| (the deposit's summation order, through the FFTs); padding
+        exactly 0. -> max error over max|a|."""
+        ak = pm_cuda.pm_accel(pos, n_act, 1.0, cfg, masses=masses)
+        ap = pm.pm_accel_ref(pos, n_act, 1.0, cfg.softening, cfg,
+                             masses=masses)
+        torch.cuda.synchronize()
+        scale = float(ap.abs().max())
+        e = check_close(f"pm_accel {label}", ak, ap, 0.0, 1e-4 * scale)
+        if not bool((ak[:, int(n_act):] == 0).all()):
+            fail(f"pm_accel {label}: padding is not 0")
+        print(f"  pm_accel {label}: max |k - p| {e:.3g} = "
+              f"{e / scale:.3g} of max|a| {scale:.6g}")
+        return e / scale
+
+    pm_st = states[1_000_000]
+    pm_pos, pm_n = pm_st.pos.reshape(3, -1), pm_st.n_active
+    cap1 = pm_pos.shape[1]
+    pm_masses = torch.from_numpy((np.random.default_rng(3).random(cap1)
+                                  + 0.5).astype(np.float32)).to(dev)
+    strays = pm_pos.clone()
+    strays[0, ::10] += 100.0          # a tenth of the particles out of the
+    strays[2, 5::10] -= 90.0          # box on +x, another tenth on -z
+    pm_cases = [
+        ("1M hollow sphere G=128 isolated", pm_pos, PMConfig(), pm_masses),
+        ("1M with strays G=128 periodic", strays,
+         PMConfig(boundary="periodic"), None),
+        ("1M hollow sphere G=32", pm_pos, PMConfig(grid=32, softening=8.0),
+         None),
+        ("1M hollow sphere G=96", pm_pos, PMConfig(grid=96), None),
+        ("1M hollow sphere G=256", pm_pos, PMConfig(grid=256), None)]
+    accel_rel = 0.0
+    for label, pos_c, cfg_c, m_c in pm_cases:
+        check_pm(label, pos_c, pm_n, cfg_c, masses=m_c)
+        accel_rel = max(accel_rel, check_pm_accel(label, pos_c, pm_n, cfg_c,
+                                                  masses=m_c))
+    accel_rel = max(accel_rel, check_pm_accel(
+        "1M hollow sphere G=128 auto_box, masses", pm_pos, pm_n,
+        PMConfig(auto_box=True), masses=pm_masses))
+    # the server path's own shape and data: its state after the "pm" event
+    check_pm(f"server state n={N_GRAVITY}", srv_state.pos.reshape(3, -1),
+             srv_state.n_active, srv_pm)
+    # PM against the direct sum (the pairwise kernel): the bar of
+    # tests/test_pm.py, rms relative error < 0.05
+    cfg5 = PMConfig(softening=5.0)
+    a_pm = pm_cuda.pm_accel(x, N_GRAVITY, 1.0, cfg5)
+    a_dir = pairwise_cuda.pairwise_accel(x.T, x, N_GRAVITY, 1.0, 5.0).T
+    torch.cuda.synchronize()
+    pm_rms = float((a_pm - a_dir).norm(dim=0).pow(2).mean().sqrt()
+                   / a_dir.norm(dim=0).mean())
+    if not pm_rms < 0.05:
+        fail(f"PM vs the direct sum at {N_GRAVITY}: rms relative error "
+             f"{pm_rms:.4g} (bar 0.05)")
+    print(f"phase 11 pm kernels == plain: deposit max |err| "
+          f"{err['pm_deposit']:.3g} (bar 1e-5 max|p|), gather max |err| "
+          f"{err['pm_gather']:.3g} (bar 1e-6 max|p|), pm_accel max "
+          f"{accel_rel:.3g} of max|a| (bar 1e-4); PM (G=128, eps 5) vs the "
+          f"pairwise kernel at {N_GRAVITY}: rms relative error {pm_rms:.4g} "
+          f"(bar 0.05) ({time.perf_counter() - t0:.1f} s)")
+
+    # -- phase 12: the PM main path through the CLI ------------------------------------
+    n_pm = 1_000_000
+    pm_runs = {}
+    for tag, steps_, extra in (
+            ("a", 600, ["--pm", "--pm-auto-box", "--pairwise-g", "0.08",
+                        "--dt", "0.004", "--diagnostics"]),
+            ("b", 200, ["--pm", "--central-mass", "1000", "--renderer",
+                        "sorted", "--render-every", "100", "--color-mode",
+                        "1"])):
+        with tempfile.TemporaryDirectory() as tmp:
+            frames = os.path.join(tmp, "frames")
+            final = os.path.join(tmp, "final.npz")
+            argv = ["--device", "cuda", "--count", str(n_pm), "--steps",
+                    str(steps_), *extra, "--width", "1280", "--height", "720",
+                    "--render-dir", frames, "--checkpoint-every", str(steps_),
+                    "--checkpoint", final, "--stats-every", "100"]
+            step_cuda.LAUNCHES = 0
+            rs.LAUNCHES = 0
+            pm_cuda.DEPOSIT_LAUNCHES = 0
+            pm_cuda.DEPOSIT_MASS_LAUNCHES = 0
+            pm_cuda.GATHER_LAUNCHES = 0
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc_code = cli.main(argv)
+            wall = time.perf_counter() - t0
+            got = {"pm_deposit": pm_cuda.DEPOSIT_LAUNCHES,
+                   "pm_deposit_mass": pm_cuda.DEPOSIT_MASS_LAUNCHES,
+                   "pm_gather": pm_cuda.GATHER_LAUNCHES,
+                   "step": step_cuda.LAUNCHES,
+                   "sorted_deposit": rs.LAUNCHES}
+            text = out.getvalue()
+            for ln in text.splitlines():
+                print(f"  cli ({tag}): {ln}")
+            if rc_code != 0:
+                fail(f"pm cli ({tag}) returned {rc_code}")
+            lines = [json.loads(ln) for ln in text.strip().splitlines()]
+            if lines[-1].get("done") is not True \
+                    or lines[-1].get("steps") != steps_:
+                fail(f"pm cli ({tag}): no final done line: {lines[-1]}")
+            pngs = (sorted(os.listdir(frames)) if os.path.isdir(frames)
+                    else [])
+            for name in pngs:
+                img = read_png(os.path.join(frames, name))
+                if img.shape != (720, 1280, 4) or int(img[..., :3].max()) == 0:
+                    fail(f"pm cli ({tag}) {name}: shape {img.shape}, black="
+                         f"{img[..., :3].max() == 0}")
+            with np.load(final) as z:
+                end = (z["positions"], z["velocities"], z["init_colors"],
+                       z["masses"] if "masses" in z.files else None)
+        pm_runs[tag] = (got, wall, lines, pngs, end)
+    start = gen.generate(n_pm)[0].astype(np.float64)
+    for tag, (got, wall, lines, pngs, (p_end, v_end, _, m_end)) \
+            in pm_runs.items():
+        steps_ = lines[-1]["steps"]
+        # each diagnostics line of (a) deposits and gathers once more
+        n_diag = sum("potential" in ln for ln in lines)
+        want = {"pm_deposit": steps_ + n_diag if tag == "a" else 0,
+                "pm_deposit_mass": 0 if tag == "a" else steps_,
+                "pm_gather": steps_ + n_diag, "step": steps_,
+                "sorted_deposit": 0 if tag == "a" else 2}
+        if got != want:
+            fail(f"the pm path ({tag}) missed a kernel: launches {got}, "
+                 f"expected {want}")
+        if p_end.shape != (n_pm, 3) or not (np.isfinite(p_end).all()
+                                            and np.isfinite(v_end).all()):
+            fail(f"pm path ({tag}): final state not finite or misshapen")
+        masses_np = (np.ones(n_pm) if m_end is None
+                     else m_end.astype(np.float64))
+        if tag == "b" and (masses_np[0] != 1000.0
+                           or masses_np[1:].max() != 1.0):
+            fail(f"pm path (b): masses not kept ({masses_np[:3]})")
+        if tag == "b" and len(pngs) != 2:
+            fail(f"pm path (b): expected 2 frames, got {pngs}")
+        mom_rel, com_shift = momentum_and_com(start, p_end, v_end, masses_np)
+        if not (mom_rel < 1e-3 and com_shift < 0.5):
+            fail(f"pm path ({tag}): |P| / sum m|v| = {mom_rel:.3g} (bar "
+                 f"1e-3), centre of mass moved {com_shift:.3g} (bar 0.5)")
+        stats = [ln for ln in lines if "step" in ln]
+        if tag == "a":
+            if [ln["step"] for ln in stats] != list(range(100, 601, 100)):
+                fail(f"pm path (a): stats lines {[ln.get('step') for ln in stats]}")
+            for ln in stats:
+                vals = [ln.get(k) for k in ("kinetic", "potential",
+                                            "total_energy", "mean_radius")]
+                if any(v is None or not np.isfinite(v) for v in vals) \
+                        or ln["potential"] >= 0:
+                    fail(f"pm path (a): diagnostics line {ln}")
+        r0 = float(np.linalg.norm(start, axis=1).mean())
+        r1 = float(np.linalg.norm(p_end, axis=1).mean())
+        diag_note = ""
+        if tag == "a":
+            diag_note = (", total energy " + " ".join(
+                f"{ln['total_energy']:.6g}" for ln in stats))
+        print(f"phase 12 pm main path ({tag}): cli {n_pm} x {steps_} steps "
+              f"in {wall:.2f} s, mean radius {r0:.4f} -> {r1:.4f}, "
+              f"|P| / sum m|v| {mom_rel:.3g}, centre of mass moved "
+              f"{com_shift:.3g}, {len(pngs)} frames, launches {got}"
+              f"{diag_note}")
+    # the deposit and gather kernels at the path's own shape and data: the
+    # final state of run (b) with its masses (after the collapse much of
+    # the cloud has left the box and is clamped onto its faces and edges)
+    p_end, v_end, c_end, m_end = pm_runs["b"][4]
+    b_state = ParticleState.from_arrays(p_end, v_end, c_end, device=dev)
+    b_pos = b_state.pos.reshape(3, -1)
+    b_masses = torch.ones(b_pos.shape[1], dtype=torch.float32, device=dev)
+    b_masses[:n_pm] = torch.from_numpy(m_end).to(dev)
+    check_pm("cli (b) final state", b_pos, b_state.n_active, PMConfig(),
+             masses=b_masses, exact_ref=True)
+    pm_launches = {k: pm_runs["a"][0][k] + pm_runs["b"][0][k]
+                   for k in ("pm_deposit", "pm_deposit_mass", "pm_gather")}
+
+    # -- phase 13: times of the PM kernels and layers -----------------------------------
+    pm_timing = {}
+    cfg = PMConfig()
+    g = cfg.grid
+    # dt = 0: the timed steps do the same work on the same state (with a
+    # time step, G = 1 and N unit masses collapse the shell within the
+    # timing and the deposit slows as the cells fill)
+    pv_pm = torch.from_numpy(SimParams(delta_time=0.0).pack()).to(dev)
+    pp_pm = torch.from_numpy(PairwiseParams(1.0, cfg.softening).pack()).to(dev)
+    for label, st, masses_t in (("n=1000000", states[1_000_000], None),
+                                ("n=16777216", states[16_777_216], None),
+                                ("cli (b) final state n=1000000, masses",
+                                 b_state, b_masses)):
+        posn, na = st.pos.reshape(3, -1), st.n_active
+        n = posn.shape[1]
+        box_t, cell_t = pm_cuda.static_box(tuple(cfg.box_min),
+                                           float(cfg.cell_size), dev)
+        big = n > 2_000_000
+        inner = 3 if big else 10
+        idx, w = cic_corners(posn, na, box_t, cell_t, g, False, masses_t)
+        idx_f, w_f = idx.reshape(-1), w.reshape(-1).contiguous()
+        pdk_ms, pdp_ms, pdl_ms = median_ms(
+            [lambda: pm_cuda.deposit(posn, na, box_t, cell_t, g,
+                                     periodic=False, masses=masses_t),
+             lambda: pm_cuda.deposit_plain(posn, na, box_t, cell_t, g,
+                                           periodic=False, masses=masses_t),
+             lambda: torch.zeros(g ** 3, device=dev).index_put_(
+                 (idx_f,), w_f, accumulate=True)],
+            reps=5, inner=inner, lead_ms=inner * (4.0 if big else 0.5))
+        rho = pm_cuda.deposit(posn, na, box_t, cell_t, g, periodic=False,
+                              masses=masses_t)
+        grids = pm.solve_accel(rho, cfg, cfg.softening)
+        cc = pm.cell_coords_dyn(posn, box_t, cell_t, g, False)
+        norm = (cc / (g - 1) * 2.0 - 1.0).T.reshape(1, 1, 1, n, 3)
+        norm = norm.contiguous()
+        lib_grids = grids[None]
+        pgl_max = float((torch.nn.functional.grid_sample(
+            lib_grids, norm, mode="bilinear", padding_mode="border",
+            align_corners=True).reshape(3, n)[:, :int(na)]
+            - pm_cuda.gather(grids, posn, na, box_t, cell_t,
+                             periodic=False)[:, :int(na)]).abs().max())
+        pgk_ms, pgp_ms, pgl_ms = median_ms(
+            [lambda: pm_cuda.gather(grids, posn, na, box_t, cell_t,
+                                    periodic=False),
+             lambda: pm_cuda.gather_plain(grids, posn, na, box_t, cell_t,
+                                          periodic=False),
+             lambda: torch.nn.functional.grid_sample(
+                 lib_grids, norm, mode="bilinear", padding_mode="border",
+                 align_corners=True)],
+            reps=5, inner=inner, lead_ms=inner * (4.0 if big else 0.5))
+        pd_bound = bytes_ms(n * (12 + (0 if masses_t is None else 4))
+                           + 4 * g ** 3)
+        pg_bound = bytes_ms(n * 24 + 12 * g ** 3)
+        pm_timing[label] = (pdk_ms, pdp_ms, pdl_ms, pd_bound, pgk_ms, pgp_ms,
+                            pgl_ms, pg_bound)
+        print(f"phase 13 pm deposit {label} G={g}: kernel {pdk_ms:.5f} ms | "
+              f"plain {pdp_ms:.5f} ms | index_put_ of the 8N corner weights "
+              f"{pdl_ms:.5f} ms | bound {pd_bound:.5f} ms "
+              f"({pd_bound / pdk_ms:.1%})")
+        print(f"phase 13 pm gather {label} G={g}: kernel {pgk_ms:.5f} ms | "
+              f"plain {pgp_ms:.5f} ms | grid_sample (trilinear, "
+              f"align_corners; max |diff| {pgl_max:.3g}) {pgl_ms:.5f} ms | "
+              f"bound {pg_bound:.5f} ms ({pg_bound / pgk_ms:.1%})")
+        if masses_t is not None:
+            continue
+        # the PM step's layers (device times), and the sort the TPU design
+        # pays and this one does not
+        acc = pm_cuda.gather(grids, posn, na, box_t, cell_t, periodic=False)
+        keys = idx[0].to(torch.int32)          # the lower corner's cell
+        pk, vk = st.pos.clone(), st.vel.clone()
+        layers = median_ms(
+            [lambda: pm_cuda.deposit(posn, na, box_t, cell_t, g,
+                                     periodic=False),
+             lambda: pm.solve_accel(rho, cfg, cfg.softening),
+             lambda: pm_cuda.gather(grids, posn, na, box_t, cell_t,
+                                    periodic=False),
+             lambda: pm.momentum_clean(acc, na),
+             lambda: step_cuda.step(pk, vk.add_(acc.reshape(vk.shape)
+                                                * pv_pm[0]), pv_pm),
+             lambda: pm_cuda.step_pm(pk, vk, pv_pm, pp_pm, na, cfg),
+             lambda: torch.sort(keys)],
+            reps=5, inner=inner, lead_ms=inner * (8.0 if big else 2.0))
+        names = ("deposit", "FFT solve", "gather", "momentum_clean",
+                 "kick + step", "whole PM step", "torch.sort of N int32 "
+                 "cell keys (not on the path)")
+        print(f"  layers {label} G={g}: " + " | ".join(
+            f"{nm} {ms:.5f} ms" for nm, ms in zip(names, layers)))
+
     src = "particle_sim_tpu_torch/csrc/"
     kernels = [
         {"name": "step", "route": "cuda", "source": src + "step.cu",
@@ -937,6 +1348,25 @@ def main() -> int:
          "ms": sd_timing[1_000_000][0], "plain_ms": sd_timing[1_000_000][1],
          "bound_ms": sd_timing[1_000_000][3], "bound_by": "bytes",
          "library_ms": sd_timing[1_000_000][2]},
+        # one CUDA template: the unit-mass instantiation replaces :247, the
+        # mass one _deposit_kernel_mass (:253); launches of both, phase 12
+        {"name": "pm_deposit", "route": "cuda", "source": src + "pm.cu",
+         "replaces": "particle_sim_tpu/ops/pm_pallas.py:247",
+         "launches": pm_launches["pm_deposit"]
+         + pm_launches["pm_deposit_mass"],
+         "max_abs_err": err["pm_deposit"],
+         "ms": pm_timing["n=1000000"][0],
+         "plain_ms": pm_timing["n=1000000"][1],
+         "bound_ms": pm_timing["n=1000000"][3], "bound_by": "bytes",
+         "library_ms": pm_timing["n=1000000"][2]},
+        {"name": "pm_gather", "route": "cuda", "source": src + "pm.cu",
+         "replaces": "particle_sim_tpu/ops/pm_pallas.py:259",
+         "launches": pm_launches["pm_gather"],
+         "max_abs_err": err["pm_gather"],
+         "ms": pm_timing["n=1000000"][4],
+         "plain_ms": pm_timing["n=1000000"][5],
+         "bound_ms": pm_timing["n=1000000"][7], "bound_by": "bytes",
+         "library_ms": pm_timing["n=1000000"][6]},
     ]
     print(gpu_name_and_limit())
     print(json.dumps({"kernels": kernels}))

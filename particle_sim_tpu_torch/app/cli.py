@@ -1,11 +1,11 @@
-"""Headless command line: scripted attractor input, optional direct-sum
-self-gravity, periodic frame renders to PNG, periodic checkpoints, stats
-to stdout.
+"""Headless command line: scripted attractor input, optional self-gravity
+(direct sum or particle mesh), periodic frame renders to PNG, periodic
+checkpoints, stats (and physics diagnostics) to stdout.
 
 Counterpart of ``particle_sim_tpu/app/cli.py``, with the same flags and
 the same stats and ``done`` JSON lines, plus ``--device {cuda,cpu}``. The
-flags of parts not ported yet (the particle-mesh solvers, diagnostics,
-the multi-device mesh) are accepted by the parser and raise
+flags of parts not ported yet (the pm2/pmx solvers, the persistent PM
+state, the multi-device mesh) are accepted by the parser and raise
 ``NotImplementedError`` naming the ROADMAP.md item that ports them.
 
 Examples:
@@ -15,6 +15,9 @@ Examples:
     python -m particle_sim_tpu_torch.app.cli --device cuda --pairwise \
         --central-mass 1000 --count 65536 --steps 200 --renderer sorted \
         --render-every 100
+    python -m particle_sim_tpu_torch.app.cli --device cuda --count 1000000 \
+        --steps 600 --pm --pm-auto-box --pairwise-g 0.08 --dt 0.004 \
+        --diagnostics
 """
 
 from __future__ import annotations
@@ -66,18 +69,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pairwise-softening", type=float, default=0.5)
     p.add_argument("--central-mass", type=float, default=0.0,
                    help="give particle 0 this source mass (heavy central "
-                        "body for --pairwise runs)")
-    # particle-mesh solvers (not ported yet: each raises NotImplementedError)
-    p.add_argument("--pm", action="store_true")
-    p.add_argument("--pm-grid", type=int, default=128)
-    p.add_argument("--pm-softening", type=float, default=2.0)
+                        "body for --pairwise/--pm runs)")
+    # particle-mesh solver (O(N) self-gravity; implies --pairwise physics)
+    p.add_argument("--pm", action="store_true",
+                   help="solve the gravity with the particle-mesh FFT "
+                        "solver (millions of particles per frame)")
+    p.add_argument("--pm-grid", type=int, default=128,
+                   help="cells per axis (kernels: 32, 64, 128, 256)")
+    p.add_argument("--pm-softening", type=float, default=2.0,
+                   help="Plummer eps of the PM solver; keep >= ~2 cell "
+                        "sizes")
     p.add_argument("--pm-box", type=float, nargs=4,
                    default=[-64.0, -64.0, -64.0, 128.0],
                    metavar=("XMIN", "YMIN", "ZMIN", "SIZE"))
     p.add_argument("--pm-boundary", choices=["isolated", "periodic"],
                    default="isolated")
-    p.add_argument("--pm-auto-box", action="store_true")
+    p.add_argument("--pm-auto-box", action="store_true",
+                   help="track the cloud with a box recomputed every step "
+                        "(--pm-softening is then in CELL units)")
     p.add_argument("--pm-gradient", choices=["exact", "fd"], default="exact")
+    # not ported yet: each raises NotImplementedError
     p.add_argument("--pm2-size", type=float, nargs="+", default=[0.0])
     p.add_argument("--pm2-window", type=float, nargs=3, default=None,
                    metavar=("X", "Y", "Z"))
@@ -117,9 +128,7 @@ def _refuse_not_ported(args) -> None:
             ("mesh", args.mesh != "none"),
             ("pm_persist", args.pm_persist),
             ("pm2", args.pm2_size[0] > 0.0),
-            ("pmx", args.pmx_size > 0.0),
-            ("pm", args.pm),
-            ("diagnostics", args.diagnostics)):
+            ("pmx", args.pmx_size > 0.0)):
         if given:
             raise not_ported(feature)
 
@@ -131,7 +140,7 @@ def main(argv=None) -> int:
     import torch
 
     from ..core.params import (
-        Method, PairwiseParams, SimParams, SphereGeneration,
+        Method, PairwiseParams, PMConfig, SimParams, SphereGeneration,
     )
     from ..engine import Engine
     from ..io import checkpoint as ckpt
@@ -148,6 +157,7 @@ def main(argv=None) -> int:
               f"({engine.particle_count} particles)", file=sys.stderr)
         ignored = [name for name, given in (
             ("--count", args.count),
+            ("--pm", args.pm),
             ("--pairwise", args.pairwise),
             ("--substeps", args.substeps != 1),
             ("--generation", args.generation != "hollow"),
@@ -156,6 +166,14 @@ def main(argv=None) -> int:
             print(f"note: {', '.join(ignored)} ignored on --resume "
                   "(the checkpoint's configuration wins)", file=sys.stderr)
     else:
+        pm_cfg = None
+        if args.pm:
+            pm_cfg = PMConfig(
+                grid=args.pm_grid,
+                box_min=tuple(args.pm_box[:3]), box_size=args.pm_box[3],
+                softening=args.pm_softening,
+                boundary=args.pm_boundary, gradient=args.pm_gradient,
+                auto_box=args.pm_auto_box)
         engine = Engine(
             particle_count=args.count,
             method=method,
@@ -164,8 +182,11 @@ def main(argv=None) -> int:
                              else SphereGeneration.FILLED),
             device=args.device,
             substeps=args.substeps,
-            pairwise=(PairwiseParams(args.pairwise_g, args.pairwise_softening)
-                      if args.pairwise else None),
+            pairwise=(PairwiseParams(
+                args.pairwise_g,
+                args.pm_softening if args.pm else args.pairwise_softening)
+                      if (args.pairwise or args.pm) else None),
+            pm=pm_cfg,
         )
 
     if args.central_mass > 0.0:
@@ -210,7 +231,16 @@ def main(argv=None) -> int:
             print(f"checkpointed -> {args.checkpoint}", file=sys.stderr)
 
         if args.stats_every and (i + 1) % args.stats_every == 0:
-            print(json.dumps({"step": i + 1, **engine.stats.snapshot()}))
+            line = {"step": i + 1, **engine.stats.snapshot()}
+            if args.diagnostics:
+                d = engine.diagnostics(potential=(args.pairwise or args.pm))
+                if ((args.pairwise or args.pm) and d.potential is None
+                        and i + 1 <= args.stats_every):
+                    print("note: potential unavailable (N too large for "
+                          "the direct sum and no PM config: use --pm)",
+                          file=sys.stderr)
+                line.update(d.as_dict())
+            print(json.dumps(line))
 
     # final sync so the last step's cost is visible
     if engine.device.type == "cuda":

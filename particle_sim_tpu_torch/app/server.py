@@ -31,12 +31,16 @@ event-arrival -> frame-built time for it.
 Method names on the wire keep the protocol's vocabulary, which the shared
 viewer's selector uses: "jnp" names the plain path (``Method.TORCH``) and
 "pallas" the kernel path (``Method.CUDA``), the enums' values 0 and 1 in
-both packages. The solver event switches the direct sum on ("direct")
-and off ("off"); the particle-mesh solvers ("pm", "pm_persist") are not
-ported, so those events are rejected with a logged warning and the
-solver stays as it was.
+both packages. The solver event switches self-gravity to the direct sum
+("direct"), the per-frame particle mesh ("pm") or off ("off"). The parts
+not ported yet, the persistent PM state ("pm_persist") and a "pm" event
+asking for a pm2 refinement stack (``pm2_sizes``) or an exact window
+(``pmx_size`` > 0), are rejected with a logged warning naming their
+ROADMAP.md item, and the solver stays as it was.
 
     python -m particle_sim_tpu_torch.app.server --device cuda --count 65536
+    python -m particle_sim_tpu_torch.app.server --device cuda --pm \
+        --count 1000000
 """
 
 from __future__ import annotations
@@ -54,7 +58,9 @@ from typing import Optional
 
 import numpy as np
 
-from ..core.params import Method, PairwiseParams, SimParams, SphereGeneration
+from ..core.params import (
+    Method, PairwiseParams, PMConfig, SimParams, SphereGeneration,
+)
 from ..engine import Engine, available_methods
 from ..engine.engine import not_ported
 from ..io import packer
@@ -266,22 +272,50 @@ class StreamServer:
                 for k, v in upd.items():
                     setattr(self.camera, k, v)
             elif t == "solver":
-                # runtime self-gravity switch: direct sum on or off
+                # runtime self-gravity switch: off / particle mesh / direct
                 name = ev.get("name", "off")
-                if name in ("pm", "pm_persist"):
+                g = float(ev.get("g", 1.0))
+                eps = float(ev.get("softening", 2.0))
+                if name == "pm_persist":
                     logger.warning("solver event rejected: %s (keeping the "
-                                   "current solver)", not_ported("pm"))
+                                   "current solver)",
+                                   not_ported("pm_persist"))
+                elif name == "pm":
+                    self._apply_pm_solver_event(ev, g, eps)
                 elif name == "direct":
-                    self.engine.pairwise = PairwiseParams(
-                        float(ev.get("g", 1.0)),
-                        float(ev.get("softening", 2.0)))
+                    self.engine.pm = None
+                    self.engine.pairwise = PairwiseParams(g, eps)
                 else:
+                    self.engine.pm = None
                     self.engine.pairwise = None
             # every event can change what the next frame shows (pause flag,
             # reset state, camera pose in raster mode, color mode, ...):
             # bump the version so the pack loop re-streams even while the
             # sim is paused (a paused engine stops bumping it in _sim_loop)
             self._state_version += 1
+
+    def _apply_pm_solver_event(self, ev: dict, g: float, eps: float) -> None:
+        """Validate the whole "pm" event before committing any of it: a
+        refinement stack or an exact window (not ported) rejects the event
+        with a warning, and the running solver is kept."""
+        try:
+            sizes = [float(x) for x in ev.get("pm2_sizes", [])]
+            pmx_size = float(ev.get("pmx_size", 0.0))
+            new_pm = PMConfig(softening=eps,
+                              auto_box=bool(ev.get("auto_box", False)))
+        except (TypeError, ValueError) as e:
+            logger.warning("solver event rejected: %s (keeping the current "
+                           "solver)", e)
+            return
+        for feature, given in (("pm2", bool(sizes)), ("pmx", pmx_size > 0.0)):
+            if given:
+                logger.warning("solver event rejected: %s (keeping the "
+                               "current solver)", not_ported(feature))
+                return
+        eng = self.engine
+        eng.pm = new_pm
+        eng.pairwise = PairwiseParams(g, eps)
+        eng.pm_persist = False
 
     # -- frame production -----------------------------------------------------
     def _build_frame(self) -> bytes:
@@ -343,9 +377,12 @@ class StreamServer:
             if stepped:
                 # paused frames are identical: don't re-pack/re-stream them
                 self._state_version += 1
+            # sleep at least a little even when the step outlasted the frame
+            # budget (a particle-mesh step on the CPU takes ~1 s): the lock
+            # is not fair, and an immediate re-acquire would starve the
+            # event, hello and pack threads
             elapsed = time.perf_counter() - t0
-            if elapsed < self.target_dt:
-                time.sleep(self.target_dt - elapsed)
+            time.sleep(max(self.target_dt - elapsed, 1e-3))
 
     def _pack_loop(self) -> None:
         """Builds outgoing frames from the newest state, decoupled from the
@@ -410,16 +447,19 @@ class StreamServer:
         the server's state."""
         eng = self.engine
         pw = eng.pairwise
+        solver = ("pm" if eng.pm is not None
+                  else "direct" if pw else "off")
         return {
             "type": "hello",
             "methods": [WIRE_METHOD[m] for m in available_methods(eng.device)],
             "method": WIRE_METHOD[eng.method],
             "count": eng.particle_count,
             "paused": eng.is_paused(),
-            "solver": "direct" if pw else "off",
+            "solver": solver,
             "solver_g": pw.gravitational_constant if pw else 1.0,
-            "solver_softening": pw.softening if pw else 2.0,
-            # the particle-mesh fields of the protocol: no PM solver here
+            "solver_softening": (eng.pm.softening if eng.pm is not None
+                                 else pw.softening if pw else 2.0),
+            # the pm2 / pmx fields of the protocol: not ported, always off
             "pm2_sizes": [],
             "pm2_softenings": [],
             "pmx_size": 0,
@@ -578,12 +618,13 @@ def build_parser():
     ap.add_argument("--raster-size", default="1280x720",
                     help="raster-mode framebuffer, WxH (snapped to the "
                     "128x8 tile grid)")
-    # particle-mesh solvers: not ported yet, each raises
-    ap.add_argument("--pm", action="store_true")
-    ap.add_argument("--pm-persist", action="store_true")
-    ap.add_argument("--no-two-tier", action="store_true")
+    ap.add_argument("--pm", action="store_true",
+                    help="self-gravity by the particle-mesh solver")
     ap.add_argument("--pm-g", type=float, default=1.0)
     ap.add_argument("--pm-softening", type=float, default=2.0)
+    # not ported yet: each raises NotImplementedError
+    ap.add_argument("--pm-persist", action="store_true")
+    ap.add_argument("--no-two-tier", action="store_true")
     ap.add_argument("--pm2-size", type=float, nargs="+", default=[0.0])
     ap.add_argument("--pm2-softening", type=float, nargs="+", default=[0.5])
     return ap
@@ -596,8 +637,7 @@ def make_server(argv=None) -> StreamServer:
     ap = build_parser()
     args = ap.parse_args(argv)
     for feature, given in (("pm_persist", args.pm_persist),
-                           ("pm2", args.pm2_size[0] > 0.0),
-                           ("pm", args.pm)):
+                           ("pm2", args.pm2_size[0] > 0.0)):
         if given:
             raise not_ported(feature)
     m = re.fullmatch(r"(\d+)x(\d+)", args.raster_size.strip().lower())
@@ -605,8 +645,11 @@ def make_server(argv=None) -> StreamServer:
         ap.error(f"--raster-size must be WxH (got {args.raster_size!r})")
     method = {"auto": None, "torch": Method.TORCH,
               "cuda": Method.CUDA}[args.method]
-    engine = Engine(particle_count=args.count, method=method,
-                    device=args.device)
+    engine = Engine(
+        particle_count=args.count, method=method, device=args.device,
+        pm=PMConfig(softening=args.pm_softening) if args.pm else None,
+        pairwise=(PairwiseParams(args.pm_g, args.pm_softening)
+                  if args.pm else None))
     server = StreamServer(engine, host=args.host, port=args.port,
                           target_fps=args.fps)
     server.max_points = args.max_points

@@ -4,6 +4,7 @@ from .params import (
     Method,
     PARAM_VEC_SIZE,
     PairwiseParams,
+    PMConfig,
     SimParams,
     SPHERE_RADIUS,
     SphereGeneration,
@@ -19,6 +20,7 @@ __all__ = [
     "PARAM_VEC_SIZE",
     "PairwiseParams",
     "ParticleState",
+    "PMConfig",
     "SPHERE_RADIUS",
     "SimParams",
     "SphereGeneration",

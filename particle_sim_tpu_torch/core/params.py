@@ -6,9 +6,9 @@ both packages and the CUDA step kernel reads it straight from device
 memory (parameter edits never rebuild or re-specialise anything). The
 enums keep their integer values, so checkpoints cross between packages.
 
-The attractor configuration and the direct-sum gravity configuration
-(``PairwiseParams``) are carried here; the particle-mesh configuration
-(``PMConfig``) arrives with its solver.
+The attractor configuration, the direct-sum gravity configuration
+(``PairwiseParams``) and the particle-mesh configuration (``PMConfig``)
+are carried here.
 """
 
 from __future__ import annotations
@@ -115,3 +115,50 @@ class PairwiseParams:
         return np.array(
             [self.gravitational_constant, self.softening], dtype=np.float32
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class PMConfig:
+    """Particle-mesh solver configuration (ops/pm.py, ops/pm_cuda.py).
+
+    PM solves the same softened gravity as PairwiseParams' direct sum, at
+    O(N + G^3 log G): CIC deposit -> FFT Poisson -> CIC gather. The fields
+    are fixed per solver (they shape the grids and the cached Green's
+    function spectra); the per-step G constant stays in
+    PairwiseParams.pack(). The same fields and defaults as the JAX
+    package's PMConfig, so checkpoints carry it across.
+
+    grid:      cells per axis (the CUDA kernels take any size; the JAX
+               package's TPU kernels take 32/64/128/256).
+    box_min:   world coords of the grid origin.
+    box_size:  world extent per axis; cell size h = box_size/grid. Default
+               box spans [-64, 64)^3 around the radius-50 generation sphere
+               with margin, h = 1.
+    softening: Plummer eps (fixed per solver: it shapes the kernel
+               spectra, unlike PairwiseParams.softening). Resolve eps >=
+               ~2h or short-range forces fall below mesh resolution.
+    boundary:  'isolated' (vacuum, Hockney doubled grid — parity with the
+               direct sum) or 'periodic' (closed-form Fourier kernel,
+               ~8x cheaper FFTs, periodic images).
+    gradient:  'exact' (three inverse vector-kernel FFTs) or 'fd' (one
+               potential FFT + central differences).
+    auto_box:  True -> ignore box_min/box_size and track the live cloud
+               with a cubic box recomputed on the device every step
+               (auto-zoom). ``softening`` is then in CELL units (the
+               physical eps = softening * cell_size shrinks as the cloud
+               does), because the cached spectra must be box-independent.
+               Adaptive softening changes the energy budget through deep
+               collapses; use the static box for strict energy studies.
+    """
+
+    grid: int = 128
+    box_min: Tuple[float, float, float] = (-64.0, -64.0, -64.0)
+    box_size: float = 128.0
+    softening: float = 2.0
+    boundary: str = "isolated"
+    gradient: str = "exact"
+    auto_box: bool = False
+
+    @property
+    def cell_size(self) -> float:
+        return self.box_size / self.grid

@@ -1,9 +1,10 @@
 """Engine — the headless application layer: the attractor, optionally
-with direct-sum self-gravity.
+with self-gravity by the direct sum or the particle mesh.
 
-Counterpart of ``particle_sim_tpu/engine/engine.py`` for the attractor and
-the all-pairs gravity solver (``pairwise``, with per-particle source
-``masses``). Lifecycle, as there:
+Counterpart of ``particle_sim_tpu/engine/engine.py`` for the attractor,
+the all-pairs gravity solver (``pairwise``) and the per-frame
+particle-mesh solver (``pm``), with per-particle source ``masses``.
+Lifecycle, as there:
 
   * **method selection**: ``Method.CUDA`` (the hand-written step kernel)
     needs a CUDA device; ``Method.TORCH`` (plain PyTorch) runs on any
@@ -18,6 +19,11 @@ the all-pairs gravity solver (``pairwise``, with per-particle source
     (ops/pairwise_cuda.py: the pairwise kernel, then the step kernel, on
     ``Method.CUDA``; the plain ops/pairwise.py on ``Method.TORCH``). The
     attribute may be swapped between steps (the server's solver events).
+  * **pm**: a ``PMConfig`` solves the same gravity with the particle-mesh
+    solver instead (ops/pm_cuda.py: the deposit and gather kernels around
+    a cuFFT solve, then the step kernel, on ``Method.CUDA`` at any grid
+    size; the plain ops/pm.py on ``Method.TORCH``). Its G constant comes
+    from ``pairwise``, defaulted to (1.0, pm.softening).
   * **masses**: f32 source masses, kept across resizes; grown particles
     get mass 1.
 
@@ -26,8 +32,9 @@ another device behind the caller's back, and asking for ``"cuda"``
 without CUDA raises. The CUDA method steps the planes in place.
 
 Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP.md
-item that ports them: the particle-mesh solvers (``pm``, ``pm2``, ``pmx``,
-``pm_persist=True``) and the multi-device ``mesh``.
+item that ports them: the multi-level and window-exact PM solvers
+(``pm2``, ``pmx``), the persistent cell-sorted PM state
+(``pm_persist=True``) and the multi-device ``mesh``.
 """
 
 from __future__ import annotations
@@ -39,9 +46,11 @@ import numpy as np
 import torch
 
 from ..core import generate as gen
-from ..core.params import Method, PairwiseParams, SimParams, SphereGeneration
+from ..core.params import (
+    Method, PairwiseParams, PMConfig, SimParams, SphereGeneration,
+)
 from ..core.state import LANE, ParticleState, capacity_rows, grow_state
-from ..ops import pairwise, pairwise_cuda, step_cuda, step_ref
+from ..ops import pairwise, pairwise_cuda, pm, pm_cuda, step_cuda, step_ref
 from ..render import raster, raster_compact, raster_sorted
 from ..render.camera import Camera
 from .stats import FrameStats
@@ -49,13 +58,12 @@ from .stats import FrameStats
 DEFAULT_COUNT_TORCH = 100_000
 DEFAULT_COUNT_CUDA = 1_000_000
 
+
 #: Where in ROADMAP.md each feature that is not ported yet is queued.
 NOT_PORTED = {
-    "pm": "ROADMAP.md queue 1 items 9-10 (ops/pm.py, ops/pm_pallas.py)",
     "pm2": "ROADMAP.md queue 1 item 11 (ops/pm2.py)",
     "pmx": "ROADMAP.md queue 1 item 12 (ops/pmx.py)",
     "pm_persist": "ROADMAP.md queue 1 item 13 (ops/pm_persist.py)",
-    "diagnostics": "ROADMAP.md queue 1 item 14 (ops/diagnostics.py)",
     "mesh": "ROADMAP.md queue 1 item 15 (parallel/)",
 }
 
@@ -97,20 +105,31 @@ class Engine:
         device="cuda",
         substeps: int = 1,
         pairwise: Optional[PairwiseParams] = None,
-        pm=None,
+        pm: Optional[PMConfig] = None,
         pm2=None,
         pmx=None,
         pm_persist: Union[bool, str] = "auto",
         masses=None,
         mesh=None,
     ):
-        for feature, given in (("pm", pm is not None),
-                               ("pm2", pm2 is not None),
+        """``pm``: solve the gravity with the per-frame particle-mesh
+        solver instead of the direct sum; the G constant still comes from
+        ``pairwise`` (defaulted to ``PairwiseParams(1.0, pm.softening)``
+        if omitted), the softening from ``pm.softening``.
+
+        ``pm_persist``: "auto" and False are accepted and resolve to the
+        per-frame path at every count (:meth:`persist_resolved`); the JAX
+        engine's "auto" goes persistent at 4M particles and more (its
+        ``PERSIST_AUTO_MIN_N``), a mode not ported yet, like True."""
+        for feature, given in (("pm2", pm2 is not None),
                                ("pmx", pmx is not None),
                                ("pm_persist", pm_persist is True),
                                ("mesh", mesh is not None)):
             if given:
                 raise not_ported(feature)
+        if pm_persist not in ("auto", False):
+            raise ValueError(f"pm_persist must be 'auto', True or False, "
+                             f"got {pm_persist!r}")
         if substeps < 1:
             raise ValueError(f"substeps must be >= 1, got {substeps}")
         self.device = _resolve_device(device)
@@ -128,7 +147,11 @@ class Engine:
         self.method = method
         self.generation_mode = generation_mode
         self.substeps = substeps
+        if pm is not None and pairwise is None:
+            pairwise = PairwiseParams(1.0, pm.softening)
         self.pairwise = pairwise
+        self.pm = pm
+        self.pm_persist = pm_persist
         self.paused = False
         self.stats = FrameStats()
         self.state = self._generate_state(particle_count)
@@ -195,7 +218,9 @@ class Engine:
         pv = self._param_vec(params)
         t0 = time.perf_counter()
         st = self.state
-        if self.pairwise is not None:
+        if self.pm is not None:
+            self._step_pm(pv)
+        elif self.pairwise is not None:
             pp = self._param_vec(self.pairwise.pack())   # (G, softening)
             masses = self._masses_for_capacity()
             pos, vel = st.pos, st.vel
@@ -218,6 +243,24 @@ class Engine:
                                        init_color=st.init_color,
                                        n_active=st.n_active)
         self.stats.record_update(time.perf_counter() - t0)
+
+    def _step_pm(self, pv: torch.Tensor) -> None:
+        """``substeps`` particle-mesh steps: the kernels on Method.CUDA
+        (in place), the plain solver on Method.TORCH."""
+        cfg, st = self.pm, self.state
+        pp = self._param_vec((self.pairwise or PairwiseParams(
+            1.0, cfg.softening)).pack())
+        masses = self._masses_for_capacity()
+        pos, vel = st.pos, st.vel
+        for _ in range(self.substeps):
+            if self.method == Method.CUDA:
+                pm_cuda.step_pm(pos, vel, pv, pp, st.n_active, cfg,
+                                masses=masses)
+            else:
+                pos, vel = pm.step_pm_ref(pos, vel, pv, pp, st.n_active, cfg,
+                                          masses=masses)
+        self.state = ParticleState(pos=pos, vel=vel, init_color=st.init_color,
+                                   n_active=st.n_active)
 
     def step_synced(self, params: Union[SimParams, np.ndarray]) -> None:
         """step() + device sync, recording the device time."""
@@ -284,6 +327,29 @@ class Engine:
         self.method = method
         self.state = self._generate_state(count)
         self.paused = was_paused
+
+    # -- particle-mesh mode and diagnostics ------------------------------------
+    def persist_resolved(self) -> bool:
+        """Whether a step right now would run the persistent cell-sorted PM
+        mode: always False here (the mode is not ported; "auto" and False
+        run the per-frame path, where the JAX engine's "auto" would turn
+        persistent at 4M particles and more)."""
+        return False
+
+    def diagnostics(self, potential: bool = False):
+        """Physics observables (ops/diagnostics.py): kinetic energy,
+        momentum, mean radius, max speed; ``potential=True`` adds the
+        gravitational potential (exact at small N, the mesh estimate with
+        a PM config at large N)."""
+        from ..ops import diagnostics as diag
+
+        g = (self.pairwise.gravitational_constant if self.pairwise else 0.0)
+        eps = (self.pm.softening if self.pm
+               else self.pairwise.softening if self.pairwise else 2.0)
+        return diag.measure(
+            self.state.pos, self.state.vel, self.state.n_active,
+            g_const=g, softening=eps, pm_cfg=self.pm, potential=potential,
+            masses=self._masses_for_capacity())
 
     # -- output ---------------------------------------------------------------
     def colors_rgba(self, params: Union[SimParams, np.ndarray]) -> np.ndarray:

@@ -3,21 +3,23 @@
 Counterpart of ``particle_sim_tpu/io/checkpoint.py`` with the same file
 format (``FORMAT_VERSION = 1``: one .npz holding positions, velocities
 and init colors sliced to the active count, an optional ``masses``
-array, and a JSON ``meta`` with the same keys, ``pairwise`` included), so
-a file saved by either package loads in the other. A checkpoint whose
-configuration needs a part not ported yet (a particle-mesh solver)
-raises ``NotImplementedError`` on load.
+array, and a JSON ``meta`` with the same keys, ``pairwise`` and ``pm``
+included), so a file saved by either package loads in the other. A
+checkpoint whose configuration needs a part not ported yet (the pm2 or
+pmx solvers, ``pm_persist: true``) raises ``NotImplementedError`` on
+load.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 from typing import Optional
 
 import numpy as np
 
-from ..core.params import Method, PairwiseParams, SphereGeneration
+from ..core.params import Method, PairwiseParams, PMConfig, SphereGeneration
 from ..core.state import ParticleState
 from ..engine import Engine
 from ..engine.engine import not_ported
@@ -38,9 +40,10 @@ def save(path: str, engine: Engine, step_index: int = 0) -> None:
         "pairwise": (
             [engine.pairwise.gravitational_constant, engine.pairwise.softening]
             if engine.pairwise else None),
-        # the particle-mesh solvers are not ported: always off here
-        "pm": None,
-        "pm_persist": "auto",
+        "pm": dataclasses.asdict(engine.pm) if engine.pm else None,
+        # the raw mode ("auto" | False), not its resolution
+        "pm_persist": engine.pm_persist,
+        # the multi-level and window-exact solvers are not ported
         "pm2": None,
         "pmx": None,
         "two_tier": True,
@@ -75,12 +78,16 @@ def load(path: str, method: Optional[Method] = None, *,
         init_colors = z["init_colors"]
         masses = z["masses"] if "masses" in z.files else None
 
-    for key in ("pm", "pm2", "pmx"):
+    for key in ("pm2", "pmx"):
         if meta.get(key):
             raise not_ported(key)
-    if meta.get("pm_persist") is True:
+    pm_persist = meta.get("pm_persist", False)
+    if pm_persist is True:
         raise not_ported("pm_persist")
     pair = meta.get("pairwise")
+    pm_meta = meta.get("pm")
+    if pm_meta:
+        pm_meta["box_min"] = tuple(pm_meta["box_min"])
     engine = Engine(
         particle_count=1,  # placeholder; the state is replaced below
         method=method if method is not None else Method(meta["method"]),
@@ -88,6 +95,8 @@ def load(path: str, method: Optional[Method] = None, *,
         device=device,
         substeps=meta.get("substeps", 1),
         pairwise=PairwiseParams(*pair) if pair else None,
+        pm=PMConfig(**pm_meta) if pm_meta else None,
+        pm_persist=pm_persist,
     )
     engine.state = ParticleState.from_arrays(positions, velocities,
                                              init_colors, device=device)

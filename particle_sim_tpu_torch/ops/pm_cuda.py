@@ -1,0 +1,250 @@
+"""Particle-mesh gravity on the hand-written CUDA kernels (csrc/pm.cu).
+
+Counterpart of ``particle_sim_tpu/ops/pm_pallas.py``: ``pm_accel`` and
+``step_pm``, with the deposit and gather kernels behind :func:`deposit`
+and :func:`gather`. The TPU path sorts particles by cell for its one-hot
+matmul kernels and un-sorts the accelerations; here both kernels take the
+particles in their own order (one thread each, float atomics for the
+deposit), so there is no sort, no tiling by grid and any grid size works.
+
+Each wrapper takes its plain version (:func:`deposit_plain`,
+:func:`gather_plain`, wrapping ``pm.cic_deposit_ref`` /
+``pm.cic_gather_ref``) for CPU tensors only; on CUDA tensors it launches
+its kernel or raises. ``box_min`` and ``cell`` may be tensors on the
+device (the auto-box path computes them there), so no step reads anything
+back to the host.
+
+Two intended differences from the TPU kernels, both toward the plain
+version: the CIC weights are float32 (no bf16 one-hots, no 10-bit
+fractions), and periodic mode wraps the last cell's upper corner to cell
+0 as the plain version does (the sorted TPU path clamps into the last
+cell). A non-finite acceleration grid comes out non-finite per component
+at the particles that read it (the TPU's un-sort pack poisons all three
+components of such a particle together).
+
+:func:`step_pm` updates ``pos`` and ``vel`` IN PLACE on CUDA, like
+``pairwise_cuda.step_pairwise``: the kernels' accelerations, a plain
+``vel += acc*dt``, then the attractor step kernel.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from ..core import params as P
+from ..utils import cuda_build
+from . import pm, step_cuda
+
+#: Kernel launches in this process: the deposit with unit masses, the
+#: deposit with masses, and the gather.
+DEPOSIT_LAUNCHES = 0
+DEPOSIT_MASS_LAUNCHES = 0
+GATHER_LAUNCHES = 0
+
+
+def _check(pos: torch.Tensor, masses, live) -> None:
+    if not isinstance(pos, torch.Tensor):
+        raise TypeError("pos must be a torch.Tensor")
+    if pos.dtype != torch.float32 or pos.ndim != 2 or pos.shape[0] != 3:
+        raise ValueError(f"pos must be float32[3, N], got {pos.dtype} "
+                         f"{tuple(pos.shape)}")
+    if not pos.is_contiguous():
+        raise ValueError("pos must be contiguous")
+    n = pos.shape[1]
+    for name, t, dtype in (("masses", masses, torch.float32),
+                           ("live", live, torch.bool)):
+        if t is None:
+            continue
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if t.device != pos.device or t.dtype != dtype or t.shape != (n,):
+            raise ValueError(f"{name} must be {dtype}[{n}] on {pos.device}, "
+                             f"got {t.dtype}{list(t.shape)} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _plain_cfg(grid: int, periodic: bool) -> "P.PMConfig":
+    return P.PMConfig(grid=grid,
+                      boundary="periodic" if periodic else "isolated")
+
+
+def _device_args(pos, n_active, box_min, cell):
+    dev = pos.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if pos.shape[1] * 3 >= 2 ** 31:
+        raise ValueError(f"{pos.shape[1]} particles: too many for int32 "
+                         "indexing")
+    na = torch.as_tensor(n_active, dtype=torch.int32, device=dev).reshape(1)
+    bmin = torch.as_tensor(box_min, dtype=torch.float32,
+                           device=dev).reshape(3).contiguous()
+    cell_t = torch.as_tensor(cell, dtype=torch.float32, device=dev).reshape(1)
+    return na, bmin, cell_t
+
+
+@functools.lru_cache(maxsize=16)
+def static_box(box_min: tuple, cell: float, device: torch.device) -> tuple:
+    """(box_min f32[3], cell f32[1]) of a static box on ``device``, made
+    once: an upload from pageable host memory on every call would wait
+    for the steps queued before it."""
+    return (torch.tensor(box_min, dtype=torch.float32, device=device),
+            torch.tensor([cell], dtype=torch.float32, device=device))
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+# -- deposit --------------------------------------------------------------------
+def deposit_plain(pos, n_active, box_min, cell, grid: int, *, periodic: bool,
+                  masses=None, live=None) -> torch.Tensor:
+    """The plain PyTorch version of :func:`deposit` (pm.cic_deposit_ref)."""
+    coords = pm.cell_coords_dyn(pos, box_min, cell, grid, periodic)
+    cfg = _plain_cfg(grid, periodic)
+    if live is not None:
+        m = live.to(torch.float32)
+        if masses is not None:
+            m = m * masses
+        return pm.cic_deposit_ref(pos, pos.shape[1], cfg, coords=coords,
+                                  masses=m)
+    return pm.cic_deposit_ref(pos, n_active, cfg, coords=coords,
+                              masses=masses)
+
+
+def deposit(pos: torch.Tensor, n_active, box_min, cell, grid: int, *,
+            periodic: bool, masses=None, live=None) -> torch.Tensor:
+    """f32[G, G, G] CIC mass grid of the particles ``pos`` (f32[3, N]).
+
+    Particles with index < ``n_active`` deposit (``live``, bool[N],
+    overrides that: for slot orders other than the identity), with mass
+    ``masses`` (f32[N]) or 1. ``box_min`` (3 values) and ``cell`` (the
+    cell size) may be tuples, floats or device tensors. ``periodic``
+    wraps coordinates and the last cell's upper corner (pm.cell_coords_dyn);
+    otherwise they clamp into the grid."""
+    global DEPOSIT_LAUNCHES, DEPOSIT_MASS_LAUNCHES
+    _check(pos, masses, live)
+    if pos.device.type == "cpu":
+        return deposit_plain(pos, n_active, box_min, cell, grid,
+                             periodic=periodic, masses=masses, live=live)
+    na, bmin, cell_t = _device_args(pos, n_active, box_min, cell)
+    rho = torch.zeros((grid, grid, grid), dtype=torch.float32,
+                      device=pos.device)
+    lib = cuda_build.library()
+    stream = torch.cuda.current_stream(pos.device).cuda_stream
+    with torch.cuda.device(pos.device):
+        err = lib.psim_pm_deposit(
+            pos.data_ptr(), pos.shape[1], na.data_ptr(), _ptr(live),
+            _ptr(masses), bmin.data_ptr(), cell_t.data_ptr(), grid,
+            pm.clamp_limit(grid, periodic), int(periodic), rho.data_ptr(),
+            stream)
+    if masses is None:
+        DEPOSIT_LAUNCHES += 1
+    else:
+        DEPOSIT_MASS_LAUNCHES += 1
+    cuda_build.check(err, "pm deposit")
+    return rho
+
+
+# -- gather ----------------------------------------------------------------------
+def _check_grids(grids: torch.Tensor, pos: torch.Tensor) -> int:
+    if (not isinstance(grids, torch.Tensor) or grids.dtype != torch.float32
+            or grids.ndim != 4 or grids.shape[0] not in (1, 3)
+            or not grids.shape[1] == grids.shape[2] == grids.shape[3]):
+        raise ValueError("grids must be float32[C, G, G, G], C = 1 or 3")
+    if grids.device != pos.device or not grids.is_contiguous():
+        raise ValueError(f"grids must be contiguous on {pos.device}")
+    return grids.shape[1]
+
+
+def gather_plain(grids, pos, n_active, box_min, cell, *, periodic: bool,
+                 live=None) -> torch.Tensor:
+    """The plain PyTorch version of :func:`gather` (pm.cic_gather_ref, dead
+    particles set to 0)."""
+    g = grids.shape[1]
+    coords = pm.cell_coords_dyn(pos, box_min, cell, g, periodic)
+    acc = pm.cic_gather_ref(grids, pos, _plain_cfg(g, periodic),
+                            coords=coords)
+    if live is None:
+        live = pm.live_mask(pos.shape[1], n_active, pos.device)
+    return torch.where(live[None], acc, 0.0)
+
+
+def gather(grids: torch.Tensor, pos: torch.Tensor, n_active, box_min, cell,
+           *, periodic: bool, live=None) -> torch.Tensor:
+    """f32[C, N] trilinear (CIC) interpolation of the grids f32[C, G, G, G]
+    (C = 3 acceleration components, or 1: a potential) at the particles,
+    in their original order; dead particles get exactly 0. Arguments as in
+    :func:`deposit`."""
+    global GATHER_LAUNCHES
+    g = _check_grids(grids, pos)
+    _check(pos, None, live)
+    if pos.device.type == "cpu":
+        return gather_plain(grids, pos, n_active, box_min, cell,
+                            periodic=periodic, live=live)
+    na, bmin, cell_t = _device_args(pos, n_active, box_min, cell)
+    out = torch.empty((grids.shape[0], pos.shape[1]), dtype=torch.float32,
+                      device=pos.device)
+    lib = cuda_build.library()
+    stream = torch.cuda.current_stream(pos.device).cuda_stream
+    with torch.cuda.device(pos.device):
+        err = lib.psim_pm_gather(
+            grids.data_ptr(), grids.shape[0], pos.data_ptr(), pos.shape[1],
+            na.data_ptr(),
+            _ptr(live), bmin.data_ptr(), cell_t.data_ptr(), g,
+            pm.clamp_limit(g, periodic), int(periodic), out.data_ptr(),
+            stream)
+    GATHER_LAUNCHES += 1
+    cuda_build.check(err, "pm gather")
+    return out
+
+
+# -- the pipeline --------------------------------------------------------------------
+def pm_accel(pos_flat: torch.Tensor, n_active, g_const, cfg: "P.PMConfig",
+             *, masses=None) -> torch.Tensor:
+    """f32[3, N] PM acceleration through the deposit and gather kernels
+    (the plain versions on CPU tensors), at any grid size. ``cfg.auto_box``
+    solves in cell units inside a box
+    tracking the cloud (computed on the device) and rescales by 1/h^2, as
+    pm.pm_accel_ref does. ``masses`` f32[N] weights the deposit (the
+    sources); the gather gives an acceleration field."""
+    if cfg.auto_box:
+        # coords clamp into the traced box in either boundary mode, as in
+        # pm.pm_accel_ref: the upper corner never needs the wrap
+        box_min, cell = pm.auto_box(pos_flat, n_active, cfg.grid)
+        rho = deposit(pos_flat, n_active, box_min, cell, cfg.grid,
+                      periodic=False, masses=masses)
+        grids = pm.solve_accel(rho, cfg, cfg.softening, cell_size=1.0)
+        acc = gather(grids, pos_flat, n_active, box_min, cell,
+                     periodic=False)
+        acc = pm.momentum_clean(acc, n_active, masses)
+        return (g_const / (cell * cell)) * acc
+    periodic = cfg.boundary == "periodic"
+    box_min, cell = static_box(tuple(cfg.box_min), float(cfg.cell_size),
+                               pos_flat.device)
+    rho = deposit(pos_flat, n_active, box_min, cell, cfg.grid,
+                  periodic=periodic, masses=masses)
+    grids = pm.solve_accel(rho, cfg, cfg.softening)
+    acc = gather(grids, pos_flat, n_active, box_min, cell, periodic=periodic)
+    return g_const * pm.momentum_clean(acc, n_active, masses)
+
+
+def step_pm(pos: torch.Tensor, vel: torch.Tensor, param_vec: torch.Tensor,
+            pair_vec: torch.Tensor, n_active, cfg: "P.PMConfig", *,
+            masses=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One PM step on (3, R, LANE) planes, in place (the plain
+    pm.step_pm_ref on CPU tensors, copied back). -> (pos, vel), the same
+    tensors."""
+    if pos.device.type == "cpu":
+        p, v = pm.step_pm_ref(pos, vel, param_vec, pair_vec, n_active, cfg,
+                              masses=masses)
+        pos.copy_(p)
+        vel.copy_(v)
+        return pos, vel
+    acc = pm_accel(pos.reshape(3, -1), n_active, pair_vec[0], cfg,
+                   masses=masses)
+    vel.add_(acc.reshape(vel.shape) * param_vec[P.P_DT])
+    return step_cuda.step(pos, vel, param_vec)

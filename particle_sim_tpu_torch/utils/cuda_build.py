@@ -34,7 +34,8 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                   ctypes.c_float)
 # argtypes of every exported function: pointers and the stream as
 # c_void_p, or ctypes would pass them as 32-bit ints and cut them
 SIGNATURES = {
@@ -43,6 +44,9 @@ SIGNATURES = {
     "psim_deposit": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
     "psim_pairwise": (_P, _P, _P, _P, _P, _I, _I, _P),
     "psim_sorted_deposit": (_P, _P, _P, _P, _I, _I, _P),
+    "psim_pm_deposit": (_P, _I, _P, _P, _P, _P, _P, _I, _F, _I, _P, _P),
+    "psim_pm_gather": (_P, _I, _P, _I, _P, _P, _P, _P, _I, _F, _I, _P,
+                       _P),
 }
 
 

@@ -21,7 +21,7 @@ from particle_sim_tpu.render.camera import Camera as JCamera
 
 from particle_sim_tpu_torch.app import cli
 from particle_sim_tpu_torch.core.params import (
-    Method, PairwiseParams, SimParams, SphereGeneration,
+    Method, PairwiseParams, PMConfig, SimParams, SphereGeneration,
 )
 from particle_sim_tpu_torch.engine import Engine, available_methods
 from particle_sim_tpu_torch.io import checkpoint as ckpt
@@ -332,8 +332,8 @@ def test_frame_arrays_match_jax(max_points):
 
 # -- what is not ported, and devices ---------------------------------------------
 @pytest.mark.parametrize("kw", [
-    dict(pm=object()), dict(pm2=object()), dict(pmx=object()),
-    dict(pm_persist=True), dict(mesh=object())])
+    dict(pm=PMConfig(grid=32), pm_persist=True), dict(pm2=object()),
+    dict(pmx=object()), dict(pm_persist=True), dict(mesh=object())])
 def test_engine_not_ported_raises(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Engine(particle_count=10, device="cpu", **kw)
@@ -419,15 +419,27 @@ def test_checkpoint_roundtrip_preserves_trajectory(tmp_path):
 
 
 def test_checkpoint_with_solver_not_ported(tmp_path):
-    """A particle-mesh checkpoint still raises on load."""
+    """A per-frame particle-mesh checkpoint loads; one that asks for the
+    persistent PM state or a pm2 stack still raises on load."""
     from particle_sim_tpu.core.params import PMConfig as JPM
 
     path = str(tmp_path / "pm.npz")
     je = JEngine(particle_count=256, method=JMethod.JNP,
                  pairwise=JPairwise(3.0, 0.7), pm=JPM(grid=32))
     jckpt.save(path, je)
-    with pytest.raises(NotImplementedError, match="pm"):
-        ckpt.load(path, device="cpu")
+    te, _ = ckpt.load(path, device="cpu")
+    assert te.pm == PMConfig(grid=32) and te.pm_persist == "auto"
+    with np.load(path) as z:
+        arrays = {k: z[k] for k in z.files}
+    meta = json.loads(str(arrays["meta"]))
+    for key, value, feature in (("pm_persist", True, "pm_persist"),
+                                ("pm2", {"window_size": 24.0}, "pm2")):
+        bad = str(tmp_path / f"{key}.npz")
+        np.savez(bad, **{**arrays, "meta": json.dumps({**meta,
+                                                       key: value})})
+        with pytest.raises(NotImplementedError, match="ROADMAP.md.*"
+                           + feature):
+            ckpt.load(bad, device="cpu")
 
 
 def test_checkpoint_pairwise_masses_jax_to_port(tmp_path):
@@ -530,8 +542,8 @@ def test_cli_pairwise_central_mass_sorted(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--pm"], ["--pm-persist"], ["--pm2-size", "24"], ["--pmx-size", "6"],
-    ["--mesh", "auto"], ["--diagnostics"]])
+    ["--pm", "--pm-persist"], ["--pm-persist"], ["--pm2-size", "24"],
+    ["--pmx-size", "6"], ["--mesh", "auto"], ["--pm", "--mesh", "auto"]])
 def test_cli_not_ported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cli.main(["--device", "cpu", "--count", "1024", "--steps", "1",

@@ -22,7 +22,9 @@ from particle_sim_tpu.io import packer as jpacker
 
 from particle_sim_tpu_torch.app import server
 from particle_sim_tpu_torch.core import generate as gen
-from particle_sim_tpu_torch.core.params import Method, PairwiseParams
+from particle_sim_tpu_torch.core.params import (
+    Method, PairwiseParams, PMConfig,
+)
 from particle_sim_tpu_torch.core.state import ParticleState
 from particle_sim_tpu_torch.engine import Engine
 from particle_sim_tpu_torch.io import packer
@@ -289,15 +291,31 @@ def test_solver_events_switch_pairwise(caplog):
                       "softening": 0.3})
     assert eng.pairwise == PairwiseParams(2.0, 0.3)
     assert srv.hello()["solver"] == "direct"
-    # the particle-mesh solvers are not ported: rejected, solver kept
+    srv.handle_event({"type": "solver", "name": "pm", "g": 1.5,
+                      "softening": 3.0, "auto_box": True})
+    assert eng.pm == PMConfig(softening=3.0, auto_box=True)
+    assert eng.pairwise == PairwiseParams(1.5, 3.0)
+    hello = srv.hello()
+    assert hello["solver"] == "pm" and hello["solver_softening"] == 3.0
+    # the persistent state, a pm2 stack and an exact window are not
+    # ported: each rejected whole, the solver kept
     with caplog.at_level(logging.WARNING, logger=server.logger.name):
-        srv.handle_event({"type": "solver", "name": "pm", "g": 1.0,
-                          "softening": 3.0})
         srv.handle_event({"type": "solver", "name": "pm_persist"})
-    assert eng.pairwise == PairwiseParams(2.0, 0.3)
-    assert sum("ROADMAP.md" in r.getMessage() for r in caplog.records) == 2
+        srv.handle_event({"type": "solver", "name": "pm", "g": 9.0,
+                          "softening": 5.0, "pm2_sizes": [24.0],
+                          "pm2_softenings": [0.5]})
+        srv.handle_event({"type": "solver", "name": "pm", "g": 9.0,
+                          "softening": 5.0, "pmx_size": 6.0})
+    assert eng.pm == PMConfig(softening=3.0, auto_box=True)
+    assert eng.pairwise == PairwiseParams(1.5, 3.0)
+    assert sum("ROADMAP.md" in r.getMessage() for r in caplog.records) == 3
+    srv.handle_event({"type": "solver", "name": "direct", "g": 2.0,
+                      "softening": 0.3})
+    assert eng.pm is None and srv.hello()["solver"] == "direct"
+    srv.handle_event({"type": "solver", "name": "pm"})
     srv.handle_event({"type": "solver", "name": "off"})
-    assert eng.pairwise is None and srv.hello()["solver"] == "off"
+    assert eng.pairwise is None and eng.pm is None
+    assert srv.hello()["solver"] == "off"
 
 
 def test_camera_event_rejects_non_finite_whole():
@@ -365,8 +383,14 @@ def test_make_server_flags():
                             "300x200", "--max-points", "777"])
     assert s.wire_mode == 2 and s.raster_size == (384, 200)
     assert s.max_points == 777 and s.engine.particle_count == 1024
-    assert s.engine.device.type == "cpu"
-    for flags in (["--pm"], ["--pm-persist"], ["--pm2-size", "24"]):
+    assert s.engine.device.type == "cpu" and s.engine.pm is None
+    s = server.make_server(["--device", "cpu", "--count", "1024", "--pm",
+                            "--pm-g", "0.5", "--pm-softening", "3.0"])
+    assert s.engine.pm == PMConfig(softening=3.0)
+    assert s.engine.pairwise == PairwiseParams(0.5, 3.0)
+    assert s.hello()["solver"] == "pm"
+    for flags in (["--pm", "--pm-persist"], ["--pm-persist"],
+                  ["--pm2-size", "24"]):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             server.make_server(["--device", "cpu", *flags])
 
