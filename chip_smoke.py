@@ -84,10 +84,34 @@ Phases (each prints a line; any failure raises and exits non-zero):
      (deposit, FFT solve, gather, momentum_clean, kick + step, the whole
      step) and torch.sort of N int32 cell keys (the sort the TPU design
      pays)
+ 14. the tensor-core all-pairs force (pairwise_cuda.pairwise_accel_mxu, no
+     entry point calls it) at 65,536 (filled sphere, G = 2.5, eps 0.5):
+     the square, 60,000 active with poisoned padding, 65,536 x 32,768 at
+     j_base 32,768, 32,768 x 65,536 and 1,000 x 777 with 700 active;
+     against its plain version (within twice the plain version's own
+     distance from the direct sum: both are the expanded f32 form) and
+     against the pairwise kernel at the JAX bar, max |dA| / (|A| + 1e-2)
+     < 0.05 per component; its SASS must hold HMMA (both products on the
+     tensor cores); times beside the pairwise kernel, plain and the
+     bound (the largest of its FP32, rsqrt and TF32 tensor-core bounds)
+ 15. the merge sort (psort.sort: block-sort and merge-round kernels, no
+     entry point calls it) on the PM forward-sort words (cell key, idx,
+     packed fractions[, mass]) at 1M and 16M (hollow sphere, G = 128),
+     the un-sort words (2 x uint32 with keys up to 2^32 - 1 at 16M; idx
+     + 3 f32), the raster tile keys of the 1M @ 1280x720 frame with an
+     index payload, tests/test_psort.py's distributions at 131,072, the
+     ragged lengths 1,000,448 and 80,000, and uint32 keys at and above
+     2^31 with key-max entries: every word equal to the plain version's
+     and to a stable torch.sort's (so keys exact and (key, payload)
+     multisets equal), launch counts as the lengths predict, no
+     torch.sort route taken; then times of the block sort, the first and
+     last merge rounds and the whole sort at 1M and 16M beside plain,
+     torch.sort + index_select and the bytes bound
 
 The line before the last is a JSON object with one entry per kernel (the
 launches of pm_deposit and pm_gather are phase 12's runs (a) and (b)
-together); the last line is {"ok": true, "device": {...}}.
+together; those of pairwise_mxu, block_sort and merge_round the drives
+of phases 14 and 15); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -118,6 +142,13 @@ PAIR_FP32_INSTRS = 12
 FP32_INSTRS_PER_S = FP32_FLOPS_PER_S / 2
 RSQRT_PER_S = FP32_FLOPS_PER_S / 16
 N_GRAVITY = 65_536             # BASELINE.json config 3: all-pairs gravity
+TF32_FLOPS_PER_S = 495e12      # H100 SXM data sheet, dense TF32 tensor cores
+# the tensor-core force's work a pair (csrc/pairwise_mxu.cu): FP32 r2 = 5
+# adds, the cube 2 mul, the TF32 split of w 1 sub, the stage sum 1 add
+# (9 instructions), one rsqrt, and 4 mma.sync a 16 x 8 tile of pairs
+# (three m16n8k8 at 2,048 flops, one m16n8k4 at 1,024): 56 flops a pair
+MXU_PAIR_FP32_INSTRS = 9
+MXU_PAIR_TC_FLOPS = 56
 
 
 def fail(msg: str) -> None:
@@ -193,6 +224,26 @@ def median_ms(fns, *, reps: int = 7, inner: int = 10,
     return [statistics.median(t) for t in times]
 
 
+def mxu_plain_split(xi, xj, g, eps, r2_dtype, s_dtype):
+    """accel f32[3, Ni] of the matrix-product form with every source
+    active (as pairwise.pairwise_accel_mxu_ref computes it), but r^2 formed
+    in ``r2_dtype`` and S summed in ``s_dtype``: which of the two f32
+    cancellations sets the plain version's error."""
+    import torch
+
+    xr = xi.to(r2_dtype).T
+    xi2e = (xr * xr).sum(1, keepdim=True) + eps * eps
+    s = torch.zeros((4, xi.shape[1]), dtype=s_dtype, device=xi.device)
+    ones = torch.ones((1, xj.shape[1]), dtype=s_dtype, device=xi.device)
+    aug = torch.cat([xj.to(s_dtype), ones]) * g
+    for j0 in range(0, xj.shape[1], 256):
+        xs = xj[:, j0:j0 + 256].to(r2_dtype)
+        r2 = (xr * -2.0) @ xs + xi2e + (xs * xs).sum(0)[None, :]
+        inv = torch.rsqrt(r2)
+        s += aug[:, j0:j0 + 256] @ (inv * inv * inv).to(s_dtype).T
+    return (s[:3] - xi.to(s_dtype) * s[3:4]).float()
+
+
 def cargs_of(words):
     return (words.key, words.rg, words.b, words.kept_list, words.kept_n)
 
@@ -224,10 +275,9 @@ def flops_ms(flops: float) -> float:
     return flops / FP32_FLOPS_PER_S * 1e3
 
 
-def pairwise_sass_counts(lib_path) -> tuple:
-    """(FP32 instructions, MUFU.RSQ) in the pairwise kernel's machine code
-    (cuobjdump -sass of the built library); the kernel takes one rsqrt a
-    pair, so their ratio is the FP32 instructions a pair."""
+def sass_counts(lib_path, kernel: str) -> dict:
+    """Counts of FP32 instructions (FADD, FMUL, FFMA), MUFU.RSQ and HMMA
+    in one kernel's machine code (cuobjdump -sass of the built library)."""
     import re
 
     from particle_sim_tpu_torch.utils import cuda_build
@@ -237,9 +287,10 @@ def pairwise_sass_counts(lib_path) -> tuple:
                           capture_output=True, text=True, timeout=120,
                           check=True).stdout
     body = next(s for s in sass.split("Function : ")[1:]
-                if "pairwise_kernel" in s.split()[0])
-    return (len(re.findall(r"\b(?:FADD|FMUL|FFMA)\b", body)),
-            len(re.findall(r"\bMUFU\.RSQ\b", body)))
+                if kernel in s.split()[0])
+    return {"fp32": len(re.findall(r"\b(?:FADD|FMUL|FFMA)\b", body)),
+            "rsq": len(re.findall(r"\bMUFU\.RSQ\b", body)),
+            "hmma": len(re.findall(r"\bHMMA\b", body))}
 
 
 def frame_pixels(key, n_tiles, width):
@@ -373,7 +424,7 @@ def main() -> int:
     from particle_sim_tpu_torch.core.state import ParticleState
     from particle_sim_tpu_torch.engine import Engine
     from particle_sim_tpu_torch.ops import (
-        pairwise, pairwise_cuda, pm, pm_cuda, step_cuda,
+        pairwise, pairwise_cuda, pm, pm_cuda, psort, step_cuda,
     )
     from particle_sim_tpu_torch.render import raster, raster_compact as rc
     from particle_sim_tpu_torch.render import raster_sorted as rs
@@ -400,7 +451,8 @@ def main() -> int:
         print(f"  ptxas: {ln}")
 
     err = {"step": 0.0, "compact": 0.0, "deposit": 0.0, "pairwise": 0.0,
-           "sorted_deposit": 0.0, "pm_deposit": 0.0, "pm_gather": 0.0}
+           "sorted_deposit": 0.0, "pm_deposit": 0.0, "pm_gather": 0.0,
+           "pairwise_mxu": 0.0, "sort": 0.0}
     params = [SimParams(),
               SimParams(gravity=2.0),
               SimParams(is_mouse_dragging=True,
@@ -906,7 +958,8 @@ def main() -> int:
     pw_rsqrt = pairs / RSQRT_PER_S * 1e3
     pw_bound = max(pw_flops, pw_issue, pw_rsqrt)
     pw_clock = PAIR_FP32_INSTRS * pairs / (132 * 128 * clk_mhz * 1e6) * 1e3
-    sass_fp32, sass_rsq = pairwise_sass_counts(path)
+    pw_sass = sass_counts(path, "pairwise_kernel")
+    sass_fp32, sass_rsq = pw_sass["fp32"], pw_sass["rsq"]
     (pw_ms,) = median_ms(
         [lambda: pairwise_cuda.pairwise_accel(x.T, x, N_GRAVITY, 1.0, 0.5)],
         reps=7, inner=5, lead_ms=5 * 4.0)
@@ -1315,6 +1368,284 @@ def main() -> int:
         print(f"  layers {label} G={g}: " + " | ".join(
             f"{nm} {ms:.5f} ms" for nm, ms in zip(names, layers)))
 
+    # -- phase 14: the tensor-core all-pairs force -----------------------------
+    t0 = time.perf_counter()
+    mx_g, mx_eps = 2.5, 0.5
+    mx_cases = [("square", x, x, N_GRAVITY, 0),
+                ("60000 active, poisoned padding", poisoned, poisoned,
+                 60_000, 0),
+                ("65536 x 32768, j_base 32768", x, x[:, half:].contiguous(),
+                 N_GRAVITY, half),
+                ("32768 x 65536", x[:, :half].contiguous(), x, N_GRAVITY, 0),
+                ("1000 x 777, 700 active", x[:, :1000].contiguous(),
+                 x[:, :777].contiguous(), 700, 0)]
+    # the drive: every case once through the kernel's wrapper
+    pairwise_cuda.MXU_LAUNCHES = 0
+    mx_got = [pairwise_cuda.pairwise_accel_mxu(xi_, xj_, na, mx_g, mx_eps,
+                                               j_base=jb)
+              for _, xi_, xj_, na, jb in mx_cases]
+    torch.cuda.synchronize()
+    mx_launches = pairwise_cuda.MXU_LAUNCHES
+    if mx_launches != len(mx_cases):
+        fail(f"pairwise_mxu: {mx_launches} launches for {len(mx_cases)} "
+             f"calls")
+    mx_rel = 0.0
+    for (label, xi_, xj_, na, jb), got in zip(mx_cases, mx_got):
+        want = pairwise.pairwise_accel_mxu_ref(xi_, xj_, na, mx_g, mx_eps,
+                                               j_base=jb)
+        direct = pairwise_cuda.pairwise_accel(xi_.T, xj_, na, mx_g, mx_eps,
+                                              j_base=jb).T
+        torch.cuda.synchronize()
+        # both are the expanded f32 form: the bar is twice the plain
+        # version's own distance from the direct sum (the pairwise kernel)
+        plain_err = float((want - direct).abs().max())
+        e = check_close(f"pairwise_mxu {label}", got, want, 0.0,
+                        2.0 * plain_err)
+        err["pairwise_mxu"] = max(err["pairwise_mxu"], e)
+        rel = float(((got - direct).abs() / (direct.abs() + 1e-2)).max())
+        rel_plain = float(((want - direct).abs()
+                           / (direct.abs() + 1e-2)).max())
+        rel_norm = float(((got - direct).norm(dim=0)
+                          / (direct.norm(dim=0) + 1e-2)).max())
+        if not rel < 0.05:
+            fail(f"pairwise_mxu {label}: max |dA| / (|A| + 1e-2) {rel:.4g} "
+                 f"against the pairwise kernel (bar 0.05)")
+        mx_rel = max(mx_rel, rel)
+        print(f"  pairwise_mxu {label}: max |k - p| {e:.3g} (bar "
+              f"{2.0 * plain_err:.3g}, max|p| {float(want.abs().max()):.4g});"
+              f" against the pairwise kernel max |dA| / (|A| + 1e-2) "
+              f"{rel:.4g} a component (plain {rel_plain:.4g}), "
+              f"{rel_norm:.3g} a particle (|dA| / (|A| + 1e-2))")
+    # the plain version's error on the square case, split by its source
+    direct = pairwise_cuda.pairwise_accel(x.T, x, N_GRAVITY, mx_g, mx_eps).T
+    budget = []
+    for r2_dt, s_dt in ((torch.float32, torch.float32),
+                        (torch.float64, torch.float32),
+                        (torch.float32, torch.float64)):
+        a = mxu_plain_split(x, x, mx_g, mx_eps, r2_dt, s_dt)
+        budget.append(float(((a - direct).abs()
+                             / (direct.abs() + 1e-2)).max()))
+    print(f"  pairwise_mxu plain version's error, square case, max |dA| / "
+          f"(|A| + 1e-2) against the pairwise kernel: f32 throughout "
+          f"{budget[0]:.4g}; r^2 in float64 {budget[1]:.4g}; S in float64 "
+          f"{budget[2]:.4g}")
+    mx_sass = sass_counts(path, "pairwise_mxu_kernel")
+    if mx_sass["hmma"] == 0:
+        fail(f"pairwise_mxu: no HMMA in its SASS ({mx_sass})")
+    mx_ms, mxd_ms, mxo_ms = median_ms(
+        [lambda: pairwise_cuda.pairwise_accel_mxu(x, x, N_GRAVITY, mx_g,
+                                                  mx_eps),
+         lambda: pairwise_cuda.pairwise_accel(x.T, x, N_GRAVITY, mx_g,
+                                              mx_eps),
+         lambda: (pairwise_cuda.hilbert_order(x),
+                  pairwise_cuda.inlier_box(x))],
+        reps=7, inner=5, lead_ms=5 * 8.0)
+    (mxp_ms,) = median_ms(
+        [lambda: pairwise.pairwise_accel_mxu_ref(x, x, N_GRAVITY, mx_g,
+                                                 mx_eps)], reps=3, inner=1)
+    mx_fp32 = MXU_PAIR_FP32_INSTRS * pairs / FP32_INSTRS_PER_S * 1e3
+    mx_rsqrt = pairs / RSQRT_PER_S * 1e3
+    mx_tc = MXU_PAIR_TC_FLOPS * pairs / TF32_FLOPS_PER_S * 1e3
+    mx_bound = max(mx_fp32, mx_rsqrt, mx_tc)
+    print(f"phase 14 pairwise_mxu at {N_GRAVITY}: {len(mx_cases)} cases, "
+          f"max |k - p| {err['pairwise_mxu']:.3g}, against the pairwise "
+          f"kernel max {mx_rel:.4g} a component (bar 0.05); SASS "
+          f"{mx_sass['hmma']} HMMA, {mx_sass['rsq']} MUFU.RSQ, "
+          f"{mx_sass['fp32']} FP32 ({time.perf_counter() - t0:.1f} s)")
+    print(f"phase 14 pairwise_mxu {N_GRAVITY}^2: kernel {mx_ms:.4f} ms "
+          f"({pairs / mx_ms * 1e3:.4g} pairs/s, {mx_bound / mx_ms:.1%} of the "
+          f"bound; of it the wrapper's Hilbert order and inlier box "
+          f"{mxo_ms:.4f} ms) | pairwise kernel {mxd_ms:.4f} ms | plain "
+          f"{mxp_ms:.3f} ms "
+          f"| bound {mx_bound:.4f} ms (largest of: {MXU_PAIR_FP32_INSTRS} "
+          f"FP32 instructions/pair at 128/SM/clock {mx_fp32:.4f} ms; rsqrt "
+          f"at 16/SM/clock {mx_rsqrt:.4f} ms; {MXU_PAIR_TC_FLOPS} TF32 "
+          f"tensor-core flops/pair at 495 TFLOP/s {mx_tc:.4f} ms) | "
+          f"library: none")
+
+    # -- phase 15: the merge sort -----------------------------------------------
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(15)
+
+    def pm_sort_words(st, masses=None):
+        """pm_pallas.pm_sort's operands at G = 128 (static box): cell key
+        (dead particles: G^3), original index, 10-bit fractions packed in
+        one int32[, mass]."""
+        cfg = PMConfig()
+        g = cfg.grid
+        posf = st.pos.reshape(3, -1)
+        c = pm.cell_coords_dyn(posf, cfg.box_min, cfg.cell_size, g, False)
+        fl = torch.floor(c)
+        i0, fq = fl.to(torch.int32), torch.round((c - fl) * 1023.0).to(
+            torch.int32)
+        idx = torch.arange(posf.shape[1], dtype=torch.int32, device=dev)
+        key = torch.where(idx < st.n_active,
+                          (i0[2] * g + i0[1]) * g + i0[0], g ** 3)
+        words = [key, idx, fq[0] | (fq[1] << 10) | (fq[2] << 20)]
+        return words + ([masses] if masses is not None else [])
+
+    def u32(v):
+        """uint32 tensor of int64 values in [0, 2^32)."""
+        return torch.where(v >= 1 << 31, v - (1 << 32), v).to(
+            torch.int32).view(torch.uint32)
+
+    def dev_words(*arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in arrays]
+
+    pm1 = pm_sort_words(states[1_000_000])
+    pm16 = pm_sort_words(states[16_777_216])
+    m1 = torch.from_numpy((rng.random(pm1[0].shape[0]) + 0.5).astype(
+        np.float32)).to(dev)
+    # the un-sort words: idx_s << 8 | 8 bits of exponent and mantissa, and
+    # one 32-bit word (2^24 particles reach keys of 2^32 - 1); above 2^24
+    # particles the un-sort carries idx and the three f32 accelerations
+    fwd16 = torch.sort(pm16[0], stable=True).indices.to(torch.int32)
+    uns16 = [u32((fwd16.long() << 8) | torch.randint(
+                 0, 256, fwd16.shape, device=dev)),
+             u32(torch.randint(0, 1 << 32, fwd16.shape, device=dev))]
+    fwd1 = torch.sort(pm1[0], stable=True).indices.to(torch.int32)
+    uns1 = [fwd1] + list(torch.randn((3, fwd1.shape[0]), device=dev))
+    tk = raster.tile_keys(*frame_args(states[1_000_000],
+                                      SimParams(color_mode=1),
+                                      Camera(aspect=1280 / 720)),
+                          width=1280, height=720).key
+    sort_cases = [
+        ("PM forward sort 1M (key, idx, frac)", pm1),
+        ("PM forward sort 1M with mass", pm1 + [m1]),
+        ("PM forward sort 16M (key, idx, frac)", pm16),
+        ("PM un-sort 16M (2 x uint32)", uns16),
+        ("PM un-sort 1M (idx, 3 x f32)", uns1),
+        ("raster tile keys 1M @ 1280x720 + index", [tk, torch.arange(
+            tk.shape[0], dtype=torch.int32, device=dev)])]
+    n_d = 131_072                 # tests/test_psort.py's distributions
+    r2 = np.random.default_rng(2)
+    dists = {
+        "duplicates": r2.integers(0, 50, n_d),
+        "all_equal": np.full(n_d, 7),
+        "sorted": np.sort(r2.integers(0, 1 << 30, n_d)),
+        "reversed": np.sort(r2.integers(0, 1 << 30, n_d))[::-1],
+        "clustered": (r2.integers(0, 4, n_d) * (1 << 28)
+                      + r2.integers(0, 100, n_d))}
+    tail = np.sort(r2.integers(0, 1 << 21, n_d))
+    tail[n_d // 2:] = 0xFFFFFFFF
+    r2.shuffle(tail)
+    dists["sentinel_tail"] = tail
+    for name, keys in dists.items():
+        sort_cases.append((f"{name} {n_d}", dev_words(
+            keys.astype(np.uint32), np.arange(n_d, dtype=np.int32))))
+    for n in (1_000_448, 80_000):
+        sort_cases.append((f"ragged {n}", dev_words(
+            rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32),
+            np.arange(n, dtype=np.int32))))
+    big = rng.integers(1 << 31, 1 << 32, 1_000_000, dtype=np.uint64)
+    big[rng.random(big.shape[0]) < 0.01] = 0xFFFFFFFF
+    sort_cases.append(("uint32 keys >= 2^31 with key max 1M", dev_words(
+        big.astype(np.uint32), np.arange(big.shape[0], dtype=np.int32))))
+
+    def rounds(n):
+        r, run = 0, psort.SEG
+        while run < n:
+            r, run = r + 1, run * 2
+        return r
+
+    # the drive: every case once through psort.sort
+    psort.BLOCK_LAUNCHES = psort.MERGE_LAUNCHES = psort.LIBRARY_CALLS = 0
+    sorted_out = [psort.sort(ops) for _, ops in sort_cases]
+    torch.cuda.synchronize()
+    sort_launches = {"block_sort": psort.BLOCK_LAUNCHES,
+                     "merge_round": psort.MERGE_LAUNCHES}
+    want_launches = {"block_sort": len(sort_cases), "merge_round": sum(
+        rounds(ops[0].shape[0]) for _, ops in sort_cases)}
+    if sort_launches != want_launches or psort.LIBRARY_CALLS:
+        fail(f"sort: launches {sort_launches}, expected {want_launches}; "
+             f"torch.sort route taken {psort.LIBRARY_CALLS} times")
+    for (label, ops), got in zip(sort_cases, sorted_out):
+        order = torch.sort(psort.ordered_key(ops[0]), stable=True).indices
+        plain = psort.sort_ref(ops)
+        for w, (o, g_, p_) in enumerate(zip(ops, got, plain)):
+            gi = g_.view(torch.int32)
+            if not torch.equal(gi, p_.view(torch.int32)):
+                fail(f"sort {label}: word {w} differs from plain")
+            if not torch.equal(gi, o.view(torch.int32)[order]):
+                fail(f"sort {label}: word {w} differs from a stable "
+                     f"torch.sort")
+        # the first and last key (an int32 key's order value is key + 2^31)
+        k = psort.ordered_key(got[0])[[0, -1]] - (
+            1 << 31 if got[0].dtype == torch.int32 else 0)
+        print(f"  sort {label}: n {ops[0].shape[0]}, {len(ops)} words, "
+              f"{ops[0].dtype}, keys {int(k[0])}..{int(k[1])}, "
+              f"{rounds(ops[0].shape[0])} merge rounds: == plain, == stable "
+              f"torch.sort")
+    # outside the contract: the torch.sort route, counted
+    lib_k = dev_words(rng.integers(0, 4, 5000).astype(np.uint32),
+                      rng.integers(0, 4, 5000).astype(np.uint32))
+    two = psort.sort(lib_k, num_keys=2)
+    f64 = psort.sort([lib_k[0], torch.arange(5000, dtype=torch.float64,
+                                             device=dev)])
+    two_key = psort.ordered_key(two[0]) * 4 + psort.ordered_key(two[1])
+    if psort.LIBRARY_CALLS != 2 or not bool((two_key[1:] >= two_key[:-1])
+                                            .all()) \
+            or f64[1].dtype != torch.float64:
+        fail(f"sort: torch.sort route ({psort.LIBRARY_CALLS} calls)")
+
+    def lib_sort(ops, width=None):
+        """One torch.sort of the key (of each full row of ``width`` when
+        given: the block sort's function), the payloads gathered by its
+        indices."""
+        key = ops[0] if ops[0].dtype == torch.int32 else psort.ordered_key(
+            ops[0])
+        n_use = key.shape[0] if width is None else (
+            key.shape[0] // width * width)
+        key = key[:n_use].view(-1, width or n_use)
+        order = torch.sort(key, dim=-1).indices
+        return [torch.take_along_dim(o[:n_use].view(torch.int32).view(
+            key.shape), order, -1) for o in ops[1:]]
+
+    sort_timing = {}
+    for label, ops in (("1M", pm1), ("16M", pm16)):
+        n, words = ops[0].shape[0], len(ops)
+        big_ = n > 2_000_000
+        blk = psort.block_sort(ops)
+        # the last round's input: runs [0, L) and [L, n) sorted
+        last_run = psort.SEG << (rounds(n) - 1)
+        halves = [psort.sort([o[:last_run] for o in ops]),
+                  psort.sort([o[last_run:] for o in ops])]
+        last_in = [torch.cat([a, b]) for a, b in zip(*halves)]
+        inner = 3 if big_ else 10
+        b_ms, m1_ms, ml_ms, s_ms, bl_ms, ml_lib_ms, sl_ms = median_ms(
+            [lambda: psort.block_sort(ops),
+             lambda: psort.merge_round(blk, psort.SEG),
+             lambda: psort.merge_round(last_in, last_run),
+             lambda: psort.sort(ops),
+             lambda: lib_sort(ops, psort.SEG),
+             lambda: lib_sort(last_in),
+             lambda: lib_sort(ops)],
+            reps=5, inner=inner, lead_ms=inner * (6.0 if big_ else 0.5))
+        bp_ms, mlp_ms, sp_ms = median_ms(
+            [lambda: psort.block_sort_ref(ops),
+             lambda: psort.merge_round_ref(last_in, last_run),
+             lambda: psort.sort_ref(ops)], reps=3, inner=1)
+        launch_bound = bytes_ms(8 * words * n)   # every word read + written
+        r = rounds(n)
+        sort_timing[label] = dict(block=b_ms, block_plain=bp_ms,
+                                  block_lib=bl_ms, merge=ml_ms,
+                                  merge_plain=mlp_ms, merge_lib=ml_lib_ms,
+                                  bound=launch_bound)
+        print(f"phase 15 sort {label} PM forward-sort words ({words} x "
+              f"int32, n {n}): block sort {b_ms:.4f} ms (plain {bp_ms:.3f}, "
+              f"torch.sort of the full {psort.SEG}-rows + gather "
+              f"{bl_ms:.4f}) | merge "
+              f"round L={psort.SEG} {m1_ms:.4f} ms, L={last_run} {ml_ms:.4f} "
+              f"ms (plain {mlp_ms:.3f}, torch.sort + gather {ml_lib_ms:.4f}) "
+              f"| whole sort ({r} rounds) {s_ms:.4f} ms (plain {sp_ms:.3f}) | "
+              f"torch.sort(key) + index_select {sl_ms:.4f} ms | bound a "
+              f"launch {launch_bound:.4f} ms, the sort "
+              f"{(1 + r) * launch_bound:.4f} ms (bytes)")
+    print(f"phase 15 sort: {len(sort_cases)} cases == plain and == stable "
+          f"torch.sort, launches {sort_launches}, torch.sort route only "
+          f"outside the contract ({time.perf_counter() - t0:.1f} s)")
+
     src = "particle_sim_tpu_torch/csrc/"
     kernels = [
         {"name": "step", "route": "cuda", "source": src + "step.cu",
@@ -1367,6 +1698,28 @@ def main() -> int:
          "plain_ms": pm_timing["n=1000000"][5],
          "bound_ms": pm_timing["n=1000000"][7], "bound_by": "bytes",
          "library_ms": pm_timing["n=1000000"][6]},
+        {"name": "pairwise_mxu", "route": "cuda",
+         "source": src + "pairwise_mxu.cu",
+         "replaces": "particle_sim_tpu/ops/pairwise_pallas.py:179",
+         "launches": mx_launches, "max_abs_err": err["pairwise_mxu"],
+         "ms": mx_ms, "plain_ms": mxp_ms, "bound_ms": mx_bound,
+         "bound_by": "operations", "library_ms": None},
+        # both at the 16M PM forward-sort words; merge_round: the last
+        # round (two runs of 8M)
+        {"name": "block_sort", "route": "cuda", "source": src + "psort.cu",
+         "replaces": "particle_sim_tpu/ops/psort.py:232",
+         "launches": sort_launches["block_sort"],
+         "max_abs_err": err["sort"], "ms": sort_timing["16M"]["block"],
+         "plain_ms": sort_timing["16M"]["block_plain"],
+         "bound_ms": sort_timing["16M"]["bound"], "bound_by": "bytes",
+         "library_ms": sort_timing["16M"]["block_lib"]},
+        {"name": "merge_round", "route": "cuda", "source": src + "psort.cu",
+         "replaces": "particle_sim_tpu/ops/psort.py:289",
+         "launches": sort_launches["merge_round"],
+         "max_abs_err": err["sort"], "ms": sort_timing["16M"]["merge"],
+         "plain_ms": sort_timing["16M"]["merge_plain"],
+         "bound_ms": sort_timing["16M"]["bound"], "bound_by": "bytes",
+         "library_ms": sort_timing["16M"]["merge_lib"]},
     ]
     print(gpu_name_and_limit())
     print(json.dumps({"kernels": kernels}))

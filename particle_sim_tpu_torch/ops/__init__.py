@@ -1,1 +1,2 @@
-"""Attractor physics: the plain PyTorch stepper and the CUDA kernel."""
+"""Physics, gravity and sort: the plain PyTorch versions and the wrappers
+of their CUDA kernels."""

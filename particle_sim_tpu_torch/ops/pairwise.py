@@ -17,6 +17,15 @@ sources are masked through ``g_valid``.
 This is the reference the CUDA kernel (ops/pairwise_cuda.py) is held to.
 The receivers are taken in chunks, so memory stays O(chunk x Nj) where
 the jnp oracle builds the whole N x N tensor (~51 GB at 65,536).
+
+:func:`pairwise_accel_mxu_ref` is the plain version of the matrix-product
+formulation (``pairwise_pallas.pairwise_accel_mxu``, the counterpart of
+csrc/pairwise_mxu.cu): the same sum with r^2 expanded as
+|xi|^2 + |xj|^2 - 2 xi.xj, so both O(N^2) contractions are matrix
+products. The expansion cancels terms of size |x|^2 in f32: on the
+filled sphere of radius 50 it sits up to 0.01 a component (1e-2 floor)
+from the direct sum at 2,048 particles and up to ~0.1 at 65,536, where
+the direct form stays near 1e-3.
 """
 
 from __future__ import annotations
@@ -83,6 +92,71 @@ def pairwise_accel(
                         masses=masses, device=dev)
     eps = torch.as_tensor(softening, dtype=torch.float32, device=dev)
     return accel_from_weights(x_nx3, x_3xn, gv, eps * eps)
+
+
+#: ``|xj|^2`` of a masked source in the matrix-product form: r^2 ~ 1e30, so
+#: its weight rsqrt(r^2)^3 underflows to 0 (or a denormal that meets a
+#: zeroed source row): it adds exactly 0.
+MASK_BIG = 1e30
+
+
+def mxu_source_terms(src_flat: torch.Tensor, n_active, g_const, *,
+                     j_base: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(xj2 f32[Nj], xj_aug f32[4, Nj]) of the matrix-product form:
+    ``|xj|^2 + (1 - valid) * MASK_BIG`` and ``G * valid * [x, y, z, 1]``,
+    valid = ``j_base + j < n_active`` (the JAX wrapper's O(N) terms)."""
+    dev = src_flat.device
+    n_j = src_flat.shape[1]
+    j = torch.arange(n_j, dtype=torch.int32, device=dev) + int(j_base)
+    valid = (j < torch.as_tensor(n_active, device=dev)).to(torch.float32)
+    g = torch.as_tensor(g_const, dtype=torch.float32, device=dev)
+    xj2 = (src_flat * src_flat).sum(0) + (1.0 - valid) * MASK_BIG
+    ones = torch.ones((1, n_j), dtype=torch.float32, device=dev)
+    xj_aug = torch.cat([src_flat, ones], 0) * (g * valid)[None, :]
+    return xj2, xj_aug
+
+
+def pairwise_accel_mxu_ref(
+    pos_flat: torch.Tensor,   # f32[3, Ni] receivers (component rows)
+    src_flat: torch.Tensor,   # f32[3, Nj] sources
+    n_active,                 # active count among GLOBAL sources
+    g_const,
+    softening,
+    *,
+    j_base: int = 0,          # global index of src_flat's first column
+) -> torch.Tensor:
+    """f32[3, Ni] accelerations in the matrix-product form (the plain
+    version of csrc/pairwise_mxu.cu), in the JAX kernel's order:
+
+        r2 = -2 xi.xj + (|xi|^2 + eps^2) + xj2;  w = rsqrt(r2)^3
+        S  = xj_aug @ w^T                        (4, Ni), over source chunks
+        a  = S[:3] - xi * S[3]
+
+    Both products run in full f32: TF32 is switched off for the call
+    (``torch.backends.cuda.matmul.allow_tf32 = False``) and restored
+    after. Sources are taken in chunks of CHUNK_PAIRS / Ni, so memory
+    stays O(Ni x chunk)."""
+    dev = pos_flat.device
+    n_i, n_j = pos_flat.shape[1], src_flat.shape[1]
+    xj2, xj_aug = mxu_source_terms(src_flat, n_active, g_const,
+                                   j_base=j_base)
+    eps = torch.as_tensor(softening, dtype=torch.float32, device=dev)
+    xi = pos_flat.T
+    xi2e = (xi * xi).sum(1, keepdim=True) + eps * eps     # (Ni, 1)
+    xi_m2 = xi * -2.0
+    s = torch.zeros((4, n_i), dtype=torch.float32, device=dev)
+    cols = max(1, CHUNK_PAIRS // max(n_i, 1))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for j0 in range(0, n_j, cols):
+            sl = slice(j0, j0 + cols)
+            r2 = xi_m2 @ src_flat[:, sl] + xi2e + xj2[None, sl]
+            inv = torch.rsqrt(r2)
+            s += xj_aug[:, sl] @ (inv * inv * inv).T
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    return s[:3] - pos_flat * s[3:4]
 
 
 def step_pairwise(

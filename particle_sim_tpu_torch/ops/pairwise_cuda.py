@@ -1,9 +1,12 @@
 """All-pairs gravity on the hand-written CUDA kernel (csrc/pairwise.cu).
 
 Counterpart of ``particle_sim_tpu/ops/pairwise_pallas.py`` (its
-``pairwise_accel`` and ``step_pairwise``), with the same arguments.
-:func:`pairwise_accel` takes the plain version (ops/pairwise.py) for CPU
-tensors, and on CUDA tensors launches the kernel or raises.
+``pairwise_accel``, ``pairwise_accel_mxu`` and ``step_pairwise``), with
+the same arguments. :func:`pairwise_accel` and :func:`pairwise_accel_mxu`
+(the matrix-product form on the tensor cores, csrc/pairwise_mxu.cu; no
+entry point uses it, as in the JAX package) take their plain versions
+(ops/pairwise.py) for CPU tensors, and on CUDA tensors launch their
+kernels or raise.
 
 :func:`step_pairwise` is the direct-sum step: the kernel's accelerations,
 then a plain ``vel += acc*dt``, then the attractor step kernel
@@ -23,6 +26,8 @@ from . import pairwise, step_cuda
 
 #: Kernel launches made by :func:`pairwise_accel` in this process.
 LAUNCHES = 0
+#: Kernel launches made by :func:`pairwise_accel_mxu` in this process.
+MXU_LAUNCHES = 0
 
 
 def _check(x_nx3, x_3xn, masses) -> None:
@@ -79,6 +84,120 @@ def pairwise_accel(x_nx3: torch.Tensor, x_3xn: torch.Tensor, n_active,
     LAUNCHES += 1
     cuda_build.check(err, "pairwise")
     return out
+
+
+def _spread_bits(v: torch.Tensor) -> torch.Tensor:
+    """The 10 low bits of ``v`` (int32) moved to every third bit."""
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    return (v | (v << 2)) & 0x09249249
+
+
+def hilbert_order(pos_flat: torch.Tensor, bits: int = 8) -> torch.Tensor:
+    """int64[N] permutation putting the points f32[3, N] in Hilbert-curve
+    order over their bounding box, 2^bits (<= 1,024) cells an axis:
+    consecutive cells on the curve are neighbours, so any run of
+    consecutive points is a compact region (a Morton curve jumps across
+    the box at its octant boundaries). Skilling's transpose form
+    ("Programming the Hilbert curve", AIP Conf. Proc. 707, 2004), on all
+    points at once."""
+    p = torch.nan_to_num(pos_flat)
+    lo = p.amin(1, keepdim=True)
+    span = (p.amax(1, keepdim=True) - lo).clamp_min(1e-30)
+    top = (1 << bits) - 1
+    q = ((p - lo) / span * top).clamp(0.0, top).to(torch.int32)
+    x = [q[0], q[1], q[2]]
+    bit = 1 << (bits - 1)
+    while bit > 1:                       # undo the excess work
+        low = bit - 1
+        for i in range(3):
+            flip = (x[i] & bit) != 0
+            if i == 0:
+                x[0] = torch.where(flip, x[0] ^ low, x[0])
+                continue
+            t = torch.where(flip, 0, (x[0] ^ x[i]) & low)
+            x[0] = x[0] ^ torch.where(flip, low, t)
+            x[i] = x[i] ^ t
+        bit >>= 1
+    x[1] = x[1] ^ x[0]                   # Gray encode
+    x[2] = x[2] ^ x[1]
+    t = torch.zeros_like(x[0])
+    bit = 1 << (bits - 1)
+    while bit > 1:
+        t = torch.where((x[2] & bit) != 0, t ^ (bit - 1), t)
+        bit >>= 1
+    # interleave, high bits first: bit b of x[i] to bit 3b + 2 - i
+    return torch.argsort((_spread_bits(x[0] ^ t) << 2)
+                         | (_spread_bits(x[1] ^ t) << 1)
+                         | _spread_bits(x[2] ^ t))
+
+
+def inlier_box(pos_flat: torch.Tensor) -> torch.Tensor:
+    """f32[6] (lo xyz, hi xyz): the median of each coordinate -/+ 8 times
+    its median absolute deviation, estimated on at most ~4,096 evenly
+    strided points. Receivers outside it (padding parked far from the
+    cloud) are left out of the MXU kernel's block centres."""
+    p = torch.nan_to_num(pos_flat[:, ::max(1, pos_flat.shape[1] // 4096)])
+    med = p.median(dim=1).values
+    mad = (p - med[:, None]).abs().median(dim=1).values
+    return torch.cat([med - 8.0 * mad, med + 8.0 * mad]).contiguous()
+
+
+def pairwise_accel_mxu(pos_flat: torch.Tensor, src_flat: torch.Tensor,
+                       n_active, g_const, softening, *, j_base: int = 0,
+                       tile_i: int = 512, tile_j: int = 1024) -> torch.Tensor:
+    """f32[3, Ni] accelerations of the receivers ``pos_flat`` (f32[3, Ni])
+    from the sources ``src_flat`` (f32[3, Nj], global index j_base + j), in
+    the matrix-product form of ``pairwise_pallas.pairwise_accel_mxu``, on
+    the tensor-core kernel csrc/pairwise_mxu.cu. ``tile_i`` and ``tile_j``
+    are the TPU kernel's tiling hints, accepted for the same signature; the
+    kernel's tiles are fixed (16 receivers a warp, 256 sources a stage)
+    and they are ignored."""
+    global MXU_LAUNCHES
+    del tile_i, tile_j
+    for name, t in (("pos_flat", pos_flat), ("src_flat", src_flat)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.ndim != 2 or t.shape[0] != 3:
+            raise ValueError(f"{name} must be [3, N], got {tuple(t.shape)}")
+    dev = pos_flat.device
+    if src_flat.device != dev:
+        raise ValueError(f"src_flat on {src_flat.device}, pos_flat on {dev}")
+    if dev.type == "cpu":
+        return pairwise.pairwise_accel_mxu_ref(pos_flat, src_flat, n_active,
+                                               g_const, softening,
+                                               j_base=j_base)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    n_i, n_j = pos_flat.shape[1], src_flat.shape[1]
+    if max(n_i, n_j) * 4 >= 2 ** 31:
+        raise ValueError(f"{n_i} x {n_j} pairs: too many for int32 indexing")
+    if n_i == 0:
+        return torch.zeros((3, 0), dtype=torch.float32, device=dev)
+    # receivers in Hilbert order, so each block's receivers lie close
+    # together and the kernel's centred coordinates are small
+    order = hilbert_order(pos_flat)
+    xi = pos_flat[:, order].contiguous()
+    xj = src_flat.contiguous()
+    box = inlier_box(pos_flat)
+    gv = pairwise.source_weights(n_j, n_active, g_const, j_base=j_base,
+                                 device=dev).contiguous()
+    eps = torch.as_tensor(softening, dtype=torch.float32, device=dev)
+    eps_sq = (eps * eps).reshape(1)
+    out = torch.empty((3, n_i), dtype=torch.float32, device=dev)
+    lib = cuda_build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.psim_pairwise_mxu(xi.data_ptr(), xj.data_ptr(),
+                                    gv.data_ptr(), eps_sq.data_ptr(),
+                                    box.data_ptr(), out.data_ptr(), n_i,
+                                    n_j, stream)
+    MXU_LAUNCHES += 1
+    cuda_build.check(err, "pairwise_mxu")
+    return torch.empty_like(out).index_copy_(1, order, out)
 
 
 def step_pairwise(pos: torch.Tensor, vel: torch.Tensor,

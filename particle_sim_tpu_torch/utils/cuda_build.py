@@ -47,6 +47,12 @@ SIGNATURES = {
     "psim_pm_deposit": (_P, _I, _P, _P, _P, _P, _P, _I, _F, _I, _P, _P),
     "psim_pm_gather": (_P, _I, _P, _I, _P, _P, _P, _P, _I, _F, _I, _P,
                        _P),
+    "psim_pairwise_mxu": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # key in, 3 payloads in, key out, 3 payloads out (NULL where unused),
+    # n, [run,] payload count, key flip (0 or INT_MIN), stream
+    "psim_block_sort": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "psim_merge_round": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _P),
 }
 
 
