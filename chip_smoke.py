@@ -59,9 +59,11 @@ Phases (each prints a line; any failure raises and exits non-zero):
      sphere, static box): G = 128 isolated with unit masses and with
      masses, G = 128 periodic with a fifth of the particles outside the
      box, G = 32, G = 96 (not a grid of the TPU kernels) and G = 256
-     (deposit |k - p| <= 1e-5 max|p|: f32 sums in atomic order; gather <=
-     1e-6 max|p|); pm_accel through the kernels vs the plain pm_accel_ref
-     (<= 1e-4 max|a|; padding 0) in those five and auto_box with masses;
+     (deposit |k - p| <= 1e-5 max|p|: f32 sums in another order; gather
+     <= 1e-6 max|p| on the solve's own layout, interleaved grids or dense
+     planes, and on dense planes); pm_accel through the kernels vs the
+     plain pm_accel_ref (<= 1e-4 max|a|; padding 0) in those five and
+     auto_box with masses;
      the deposit and gather on phase 9's server state after its "pm"
      event (65,536, G = 128); PM (G = 128, eps 5) vs the pairwise kernel
      at 65,536 (filled sphere): rms relative error < 0.05
@@ -80,10 +82,10 @@ Phases (each prints a line; any failure raises and exits non-zero):
  13. times: the PM deposit and gather kernels at 1M and 16,777,216 (G =
      128, static box) and on (b)'s final state, beside their plain
      versions, a library call (index_put_ of the 8N corner weights;
-     grid_sample, trilinear) and the bytes bound; the PM step's layers
-     (deposit, FFT solve, gather, momentum_clean, kick + step, the whole
-     step) and torch.sort of N int32 cell keys (the sort the TPU design
-     pays)
+     grid_sample, trilinear, on dense planes) and the bytes bound; the PM
+     step's layers (deposit, FFT solve, gather, momentum_clean, kick +
+     step, the whole step) and torch.sort of N int32 cell keys (the sort
+     the TPU design pays)
  14. the tensor-core all-pairs force (pairwise_cuda.pairwise_accel_mxu, no
      entry point calls it) at 65,536 (filled sphere, G = 2.5, eps 0.5):
      the square, 60,000 active with poisoned padding, 65,536 x 32,768 at
@@ -1095,16 +1097,25 @@ def main() -> int:
             notes.append(f"deposit{'' if m is None else ' (masses)'} "
                          f"{e:.3g} = {e / scale:.3g} of max|p| {scale:.6g}"
                          f"{k_note}")
+        # the solve's own layout (the interleaved view, or dense planes for
+        # periodic 'exact'), then the same values as dense planes: both of
+        # the gather kernel's paths
         grids = pm.solve_accel(dp, cfg, cfg.softening)
-        gk = pm_cuda.gather(grids, pos, n_act, box, cell, periodic=periodic)
+        layout = pm_cuda.grid_layout(grids, pos)
         gp = pm_cuda.gather_plain(grids, pos, n_act, box, cell,
                                   periodic=periodic)
         torch.cuda.synchronize()
         scale = float(gp.abs().max())
-        e = check_close(f"pm gather {label}", gk, gp, 0.0, 1e-6 * scale)
+        e = 0.0
+        for gr in (grids, grids.contiguous()):
+            gk = pm_cuda.gather(gr, pos, n_act, box, cell, periodic=periodic)
+            torch.cuda.synchronize()
+            e = max(e, check_close(
+                f"pm gather {label} ({pm_cuda.grid_layout(gr, pos)})", gk,
+                gp, 0.0, 1e-6 * scale))
         err["pm_gather"] = max(err["pm_gather"], e)
-        notes.append(f"gather {e:.3g} = {e / scale:.3g} of max|p| "
-                     f"{scale:.6g}")
+        notes.append(f"gather ({layout} and planar) {e:.3g} = "
+                     f"{e / scale:.3g} of max|p| {scale:.6g}")
         print(f"  pm {label}: max |k - p|: " + "; ".join(notes))
 
     def check_pm_accel(label, pos, n_act, cfg, masses=None) -> float:
@@ -1315,7 +1326,8 @@ def main() -> int:
         cc = pm.cell_coords_dyn(posn, box_t, cell_t, g, False)
         norm = (cc / (g - 1) * 2.0 - 1.0).T.reshape(1, 1, 1, n, 3)
         norm = norm.contiguous()
-        lib_grids = grids[None]
+        # the yardstick reads dense planes, as grid_sample takes them
+        lib_grids = grids.contiguous()[None]
         pgl_max = float((torch.nn.functional.grid_sample(
             lib_grids, norm, mode="bilinear", padding_mode="border",
             align_corners=True).reshape(3, n)[:, :int(na)]

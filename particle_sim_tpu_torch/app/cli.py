@@ -88,6 +88,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="track the cloud with a box recomputed every step "
                         "(--pm-softening is then in CELL units)")
     p.add_argument("--pm-gradient", choices=["exact", "fd"], default="exact")
+    p.add_argument("--no-two-tier", action="store_true",
+                   help="the persistent PM's repair strategy: full sort "
+                        "only (kept on the engine and in checkpoints; no "
+                        "effect on the per-frame PM)")
     # not ported yet: each raises NotImplementedError
     p.add_argument("--pm2-size", type=float, nargs="+", default=[0.0])
     p.add_argument("--pm2-window", type=float, nargs=3, default=None,
@@ -98,8 +102,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pmx-softening", type=float, default=0.1)
     p.add_argument("--pmx-capacity", type=int, default=65536)
     p.add_argument("--pm-persist", action="store_true")
-    p.add_argument("--no-two-tier", action="store_true",
-                   help="persistent-PM repair strategy (only with --pm)")
     # rendering
     p.add_argument("--render-every", type=int, default=0)
     p.add_argument("--render-dir", default="frames")
@@ -159,6 +161,7 @@ def main(argv=None) -> int:
             ("--count", args.count),
             ("--pm", args.pm),
             ("--pairwise", args.pairwise),
+            ("--no-two-tier", args.no_two_tier),
             ("--substeps", args.substeps != 1),
             ("--generation", args.generation != "hollow"),
         ) if given]
@@ -187,6 +190,7 @@ def main(argv=None) -> int:
                 args.pm_softening if args.pm else args.pairwise_softening)
                       if (args.pairwise or args.pm) else None),
             pm=pm_cfg,
+            two_tier=not args.no_two_tier,
         )
 
     if args.central_mass > 0.0:

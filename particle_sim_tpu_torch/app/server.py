@@ -36,7 +36,9 @@ both packages. The solver event switches self-gravity to the direct sum
 not ported yet, the persistent PM state ("pm_persist") and a "pm" event
 asking for a pm2 refinement stack (``pm2_sizes``) or an exact window
 (``pmx_size`` > 0), are rejected with a logged warning naming their
-ROADMAP.md item, and the solver stays as it was.
+ROADMAP.md item, and the solver stays as it was. A "pm" event's
+``two_tier`` field sets the engine's flag of that name (the persistent
+PM's repair strategy), which the hello reports.
 
     python -m particle_sim_tpu_torch.app.server --device cuda --count 65536
     python -m particle_sim_tpu_torch.app.server --device cuda --pm \
@@ -316,6 +318,10 @@ class StreamServer:
         eng.pm = new_pm
         eng.pairwise = PairwiseParams(g, eps)
         eng.pm_persist = False
+        if "two_tier" in ev:
+            # the persistent PM's repair strategy, kept for when that mode
+            # is ported (the JAX server sets it from the same field)
+            eng.two_tier = bool(ev["two_tier"])
 
     # -- frame production -----------------------------------------------------
     def _build_frame(self) -> bytes:
@@ -464,7 +470,7 @@ class StreamServer:
             "pm2_softenings": [],
             "pmx_size": 0,
             "pmx_softening": 0,
-            "two_tier": True,
+            "two_tier": bool(eng.two_tier),
             "wire_mode": {0: "planar", 1: "compact",
                           2: "raster"}[self.wire_mode],
             "raster_size": list(self.raster_size),
@@ -622,9 +628,12 @@ def build_parser():
                     help="self-gravity by the particle-mesh solver")
     ap.add_argument("--pm-g", type=float, default=1.0)
     ap.add_argument("--pm-softening", type=float, default=2.0)
+    ap.add_argument("--no-two-tier", action="store_true",
+                    help="the persistent PM's repair strategy: full sort "
+                    "only (kept on the engine; no effect on the per-frame "
+                    "PM)")
     # not ported yet: each raises NotImplementedError
     ap.add_argument("--pm-persist", action="store_true")
-    ap.add_argument("--no-two-tier", action="store_true")
     ap.add_argument("--pm2-size", type=float, nargs="+", default=[0.0])
     ap.add_argument("--pm2-softening", type=float, nargs="+", default=[0.5])
     return ap
@@ -649,7 +658,8 @@ def make_server(argv=None) -> StreamServer:
         particle_count=args.count, method=method, device=args.device,
         pm=PMConfig(softening=args.pm_softening) if args.pm else None,
         pairwise=(PairwiseParams(args.pm_g, args.pm_softening)
-                  if args.pm else None))
+                  if args.pm else None),
+        two_tier=not args.no_two_tier)
     server = StreamServer(engine, host=args.host, port=args.port,
                           target_fps=args.fps)
     server.max_points = args.max_points

@@ -6,10 +6,10 @@
 // bf16 one-hot matmuls per (grid tile, chunk, corner family) from a pair
 // table, with CIC fractions quantised to 10 bits and a second sort (with a
 // shared-exponent pack) to bring the accelerations back to particle order.
-// The H100 has fast float atomics in L2, so none of that is carried over:
+// The H100 has float atomics in L2, so none of that is carried over:
 //
-//   deposit: rho[iz, iy, ix] += m * wx * wy * wz over the 8 CIC corners,
-//            one atomicAdd each, into a zeroed f32[G, G, G] grid;
+//   deposit: rho[iz, iy, ix] += m * wx * wy * wz over the 8 CIC corners
+//            into a zeroed f32[G, G, G] grid;
 //   gather:  out[c, i] = sum over the 8 corners of wx * wy * wz * grid[c, ...]
 //            for the 3 acceleration grids (or the one potential grid of the
 //            diagnostics), written in the original order.
@@ -25,10 +25,10 @@
 // the plain version computes it. Every weight product is rounded in the
 // plain version's order with __fmul_rn / __fadd_rn (no fma contraction), so
 // the weights are bit-identical and the gather, which sums the corners in
-// the plain version's order, is bit-identical too; the deposit's sums come
-// in atomic order, so it agrees to float32 summation order. Deposit and
-// gather share cic_setup, so their weights are identical, which is what
-// momentum conservation needs.
+// the plain version's order, is bit-identical too. The deposit's sums come
+// in another order (a pre-sum, then atomics), so it agrees to float32
+// summation order. Deposit and gather share cic_setup, so their weights are
+// identical, which is what momentum conservation needs.
 //
 // Dead particles (i >= n_active, or live[i] == 0 when a live mask is given)
 // deposit nothing and gather exactly 0. A non-finite acceleration grid comes
@@ -37,16 +37,43 @@
 // onto the grid so no access leaves it (float-to-int conversion of NaN
 // gives 0 in PTX).
 //
-// What bounds it on the H100: bytes. The deposit reads 12 B of position a
-// particle (+4 B of mass) and writes the 4*G^3 B grid; the gather reads 12 B
-// of position and the 12*G^3 B of grids and writes 12 B a particle. At
-// G = 128 the grid (8 MB) and the three acceleration grids (24 MB) stay in
-// the 50 MB L2, so the 8 atomics and 24 reads a particle are L2 traffic.
-// Atomics on one address serialise: a collapsed cloud, many particles in a
-// few cells, is the deposit's worst case (chip_smoke.py times both).
+// What bounds them on the H100 (measured by tools/pm_variants.py, which
+// times the earlier one-atomic-a-corner, one-load-a-plane design beside
+// this one):
+//
+// deposit: L2 atomic operations. At G = 128 the grid (8 MB) lives in the
+//   50 MB L2 and the kernel's time grows with the count of atomic
+//   operations, not their bytes (8, 6 and 5 operations a particle took
+//   0.116, 0.089 and 0.075 ms at 1M), and operations on one address form
+//   one serial chain (a collapsed cloud, ~80k contributions in one cell).
+//   So it issues fewer of them:
+//   - the two x-neighbour corners (ix, ix + 1) go as one float4 atomicAdd
+//     (zeros in the other two lanes) when they lie in one aligned 16-byte
+//     word, as they do for 3 of 4 lower cells: 5 operations a particle on
+//     average instead of 8;
+//   - the lanes of a warp whose lower cell is the same (__match_any_sync
+//     on it; the 8 corners follow from it) sum their 8 corner weights by a
+//     shuffle tree, and one lane adds the group's sums;
+//   - a block in which some warp found such a group merges its warps'
+//     groups in a shared-memory table keyed by the cell before its atomics.
+//     A block of spread particles finds none and skips the table, so the
+//     spread case pays one match and two votes a warp.
+// gather: load requests. One thread a particle reads 8 corners of 3
+//   components. With three planar grids that is 24 scalar loads, each its
+//   own L1/L2 sector request (neighbouring threads hit unrelated cells), and
+//   the loads alone took 0.060 of the kernel's 0.070 ms at 1M. The solve
+//   writes the acceleration grids interleaved instead, f32[G, G, G, 4]
+//   (x, y, z, pad; pm.interleaved_view), so a corner is one 16-byte load
+//   and the two x neighbours share a 32-byte sector: 8 loads a particle.
+//   Dense planes (the potential, C = 1, and the periodic 'exact' solve's
+//   output) keep the scalar loads.
 #include "common.cuh"
 
 #define PM_BLOCK 256
+#define FULL_WARP 0xffffffffu
+// shared-memory merge table of the deposit: more slots than a block has
+// particles, so an insertion always finds its cell or a free slot
+#define PM_SLOTS 512
 
 namespace {
 
@@ -55,6 +82,10 @@ struct Cic {
   int hi[3];   // upper corner cell per axis, wrapped in periodic mode
   float f[3];  // fractional offsets
 };
+
+__device__ __forceinline__ int upper_cell(int k, int g, bool periodic) {
+  return k + 1 < g ? k + 1 : periodic ? 0 : g - 1;
+}
 
 __device__ __forceinline__ Cic cic_setup(const float* __restrict__ pos,
                                          size_t n, size_t i,
@@ -78,18 +109,94 @@ __device__ __forceinline__ Cic cic_setup(const float* __restrict__ pos,
     const float fl = floorf(c);
     int k = (int)fl;
     k = min(max(k, 0), g - 1);
-    int k1 = k + 1;
-    if (k1 >= g) k1 = periodic ? 0 : g - 1;
     r.lo[a] = k;
-    r.hi[a] = k1;
+    r.hi[a] = upper_cell(k, g, periodic);
     r.f[a] = __fsub_rn(c, fl);
   }
   return r;
 }
 
+// the corners of a lower cell's flat index, as cic_setup forms them
+__device__ __forceinline__ Cic cic_of_cell(int key, int g, bool periodic) {
+  Cic c = {};
+  const int lo[3] = {key % g, (key / g) % g, key / (g * g)};
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    c.lo[a] = lo[a];
+    c.hi[a] = upper_cell(lo[a], g, periodic);
+  }
+  return c;
+}
+
 __device__ __forceinline__ bool alive(int i, const int* __restrict__ n_active,
                                       const uint8_t* __restrict__ live) {
   return live != nullptr ? __ldg(live + i) != 0 : i < __ldg(n_active);
+}
+
+// The CIC weight of each corner (cz, cy, cx), cx fastest: m * wx * wy * wz
+// (wx * wy * wz with kMass false), left to right.
+template <bool kMass>
+__device__ __forceinline__ void corner_weights(const Cic& c, float m,
+                                               float w[8]) {
+#pragma unroll
+  for (int corner = 0; corner < 8; ++corner) {
+    const int cz = corner >> 2, cy = (corner >> 1) & 1, cx = corner & 1;
+    const float wx = cx ? c.f[0] : __fsub_rn(1.0f, c.f[0]);
+    const float wy = cy ? c.f[1] : __fsub_rn(1.0f, c.f[1]);
+    const float wz = cz ? c.f[2] : __fsub_rn(1.0f, c.f[2]);
+    w[corner] = __fmul_rn(__fmul_rn(kMass ? __fmul_rn(m, wx) : wx, wy), wz);
+  }
+}
+
+// Sum w[8] over the lanes of `peers` (the calling lane's group) by a
+// shuffle tree: each round a lane of even rank takes the sums of the next
+// remaining peer, and the odd ranks drop out. Every lane of the warp calls
+// it. True on the group's lowest lane, which then holds the group's sums.
+__device__ __forceinline__ bool group_sum(unsigned peers, float w[8]) {
+  const int lane = threadIdx.x & 31;
+  const unsigned lower = peers & ((1u << lane) - 1u);
+  unsigned rank = __popc(lower);
+  unsigned rest = peers & ~lower & ~(1u << lane);   // the higher peers
+  while (__any_sync(FULL_WARP, rest != 0u)) {
+    const int next = __ffs(rest) - 1;
+    const int src = next < 0 ? lane : next;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float t = __shfl_sync(FULL_WARP, w[k], src);
+      if (next >= 0) w[k] = __fadd_rn(w[k], t);
+    }
+    rest &= ~__ballot_sync(FULL_WARP, rank & 1u);
+    rank >>= 1;
+  }
+  return lower == 0u;
+}
+
+// The 8 corners' atomics. An x pair (ix, ix + 1) inside one aligned
+// 16-byte word goes as one float4 reduction (rho is 16-byte aligned; the
+// other two lanes add +0, which changes no value), any other as two
+// scalars (the word's last lane, or the periodic seam's wrap).
+__device__ __forceinline__ void add_corners(float* __restrict__ rho,
+                                            const Cic& c, int g,
+                                            const float w[8]) {
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {   // (cz, cy); its corners 2p (cx 0), 2p + 1
+    const int iy = (p & 1) ? c.hi[1] : c.lo[1];
+    const int iz = (p >> 1) ? c.hi[2] : c.lo[2];
+    const size_t row = ((size_t)iz * g + iy) * g;
+    const size_t k0 = row + c.lo[0], k1 = row + c.hi[0];
+    const float a = w[2 * p], b = w[2 * p + 1];
+    const int r = (int)(k0 & 3);
+    if (k1 == k0 + 1 && r != 3) {
+      const float4 v = make_float4(r == 0 ? a : 0.0f,
+                                   r == 0 ? b : r == 1 ? a : 0.0f,
+                                   r == 1 ? b : r == 2 ? a : 0.0f,
+                                   r == 2 ? b : 0.0f);
+      atomicAdd(reinterpret_cast<float4*>(rho + (k0 - r)), v);
+    } else {
+      atomicAdd(rho + k0, a);
+      atomicAdd(rho + k1, b);
+    }
+  }
 }
 
 template <bool kMass>
@@ -98,29 +205,57 @@ __global__ void __launch_bounds__(PM_BLOCK) pm_deposit_kernel(
     const uint8_t* __restrict__ live, const float* __restrict__ masses,
     const float* __restrict__ box_min, const float* __restrict__ cell_p,
     int g, float hi, int periodic, float* __restrict__ rho) {
+  __shared__ int slot_cell[PM_SLOTS];
+  __shared__ float slot_w[8][PM_SLOTS];
   const int i = blockIdx.x * PM_BLOCK + threadIdx.x;
-  if (i >= n || !alive(i, n_active, live)) return;
-  const Cic c = cic_setup(pos, (size_t)n, (size_t)i, box_min, __ldg(cell_p),
-                          g, hi, periodic != 0);
-  const float m = kMass ? __ldg(masses + i) : 1.0f;
+  // every thread runs to the end: the warp and block votes need them all
+  const bool on = i < n && alive(i, n_active, live);
+  Cic c = {};
+  float w[8] = {};
+  int cell = -1;   // dead lanes group among themselves and add nothing
+  if (on) {
+    c = cic_setup(pos, (size_t)n, (size_t)i, box_min, __ldg(cell_p), g, hi,
+                  periodic != 0);
+    corner_weights<kMass>(c, kMass ? __ldg(masses + i) : 1.0f, w);
+    cell = (c.lo[2] * g + c.lo[1]) * g + c.lo[0];
+  }
+  const unsigned peers = __match_any_sync(FULL_WARP, cell);
+  const bool grouped = cell >= 0 && __popc(peers) > 1;
+  const bool adds = group_sum(peers, w) && cell >= 0;
+  if (!__syncthreads_or(grouped)) {
+    if (adds) add_corners(rho, c, g, w);
+    return;
+  }
+  for (int s = threadIdx.x; s < PM_SLOTS; s += PM_BLOCK) {
+    slot_cell[s] = -1;
 #pragma unroll
-  for (int corner = 0; corner < 8; ++corner) {  // (cz, cy, cx), cx fastest
-    const int cz = corner >> 2, cy = (corner >> 1) & 1, cx = corner & 1;
-    const float wx = cx ? c.f[0] : __fsub_rn(1.0f, c.f[0]);
-    const float wy = cy ? c.f[1] : __fsub_rn(1.0f, c.f[1]);
-    const float wz = cz ? c.f[2] : __fsub_rn(1.0f, c.f[2]);
-    // m * wx * wy * wz, left to right; m * wx == wx for unit masses
-    const float w = __fmul_rn(__fmul_rn(kMass ? __fmul_rn(m, wx) : wx, wy),
-                              wz);
-    const int ix = cx ? c.hi[0] : c.lo[0];
-    const int iy = cy ? c.hi[1] : c.lo[1];
-    const int iz = cz ? c.hi[2] : c.lo[2];
-    atomicAdd(rho + ((size_t)iz * g + iy) * g + ix, w);
+    for (int k = 0; k < 8; ++k) slot_w[k][s] = 0.0f;
+  }
+  __syncthreads();
+  if (adds) {
+    unsigned s = ((unsigned)cell * 2654435761u) >> 23;   // 9 bits
+    for (;;) {
+      const int prev = atomicCAS(&slot_cell[s], -1, cell);
+      if (prev == -1 || prev == cell) break;
+      s = (s + 1) & (PM_SLOTS - 1);
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) atomicAdd(&slot_w[k][s], w[k]);
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < PM_SLOTS; s += PM_BLOCK) {
+    const int key = slot_cell[s];
+    if (key < 0) continue;
+    float ws[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) ws[k] = slot_w[k][s];
+    add_corners(rho, cic_of_cell(key, g, periodic != 0), g, ws);
   }
 }
 
+// dense planes f32[C, G, G, G]: one scalar load a corner and plane
 template <int C>
-__global__ void __launch_bounds__(PM_BLOCK) pm_gather_kernel(
+__global__ void __launch_bounds__(PM_BLOCK) pm_gather_planar_kernel(
     const float* __restrict__ grids, const float* __restrict__ pos, int n,
     const int* __restrict__ n_active, const uint8_t* __restrict__ live,
     const float* __restrict__ box_min, const float* __restrict__ cell_p,
@@ -133,25 +268,53 @@ __global__ void __launch_bounds__(PM_BLOCK) pm_gather_kernel(
   if (alive(i, n_active, live)) {
     const Cic c = cic_setup(pos, (size_t)n, (size_t)i, box_min,
                             __ldg(cell_p), g, hi, periodic != 0);
+    float w[8];
+    corner_weights<false>(c, 1.0f, w);
     const size_t g3 = (size_t)g * g * g;
 #pragma unroll
     for (int corner = 0; corner < 8; ++corner) {
-      const int cz = corner >> 2, cy = (corner >> 1) & 1, cx = corner & 1;
-      const float wx = cx ? c.f[0] : __fsub_rn(1.0f, c.f[0]);
-      const float wy = cy ? c.f[1] : __fsub_rn(1.0f, c.f[1]);
-      const float wz = cz ? c.f[2] : __fsub_rn(1.0f, c.f[2]);
-      const float w = __fmul_rn(__fmul_rn(wx, wy), wz);
-      const int ix = cx ? c.hi[0] : c.lo[0];
-      const int iy = cy ? c.hi[1] : c.lo[1];
-      const int iz = cz ? c.hi[2] : c.lo[2];
+      const int ix = (corner & 1) ? c.hi[0] : c.lo[0];
+      const int iy = ((corner >> 1) & 1) ? c.hi[1] : c.lo[1];
+      const int iz = (corner >> 2) ? c.hi[2] : c.lo[2];
       const size_t k = ((size_t)iz * g + iy) * g + ix;
 #pragma unroll
       for (int ch = 0; ch < C; ++ch)
-        acc[ch] = __fadd_rn(acc[ch], __fmul_rn(w, __ldg(grids + ch * g3 + k)));
+        acc[ch] = __fadd_rn(acc[ch],
+                            __fmul_rn(w[corner], __ldg(grids + ch * g3 + k)));
     }
   }
 #pragma unroll
   for (int ch = 0; ch < C; ++ch) out[ch * (size_t)n + i] = acc[ch];
+}
+
+// interleaved f32[G, G, G, 4] (x, y, z, pad): one 16-byte load a corner
+__global__ void __launch_bounds__(PM_BLOCK) pm_gather_interleaved_kernel(
+    const float4* __restrict__ grid4, const float* __restrict__ pos, int n,
+    const int* __restrict__ n_active, const uint8_t* __restrict__ live,
+    const float* __restrict__ box_min, const float* __restrict__ cell_p,
+    int g, float hi, int periodic, float* __restrict__ out) {
+  const int i = blockIdx.x * PM_BLOCK + threadIdx.x;
+  if (i >= n) return;
+  float ax = 0.0f, ay = 0.0f, az = 0.0f;
+  if (alive(i, n_active, live)) {
+    const Cic c = cic_setup(pos, (size_t)n, (size_t)i, box_min,
+                            __ldg(cell_p), g, hi, periodic != 0);
+    float w[8];
+    corner_weights<false>(c, 1.0f, w);
+#pragma unroll
+    for (int corner = 0; corner < 8; ++corner) {
+      const int ix = (corner & 1) ? c.hi[0] : c.lo[0];
+      const int iy = ((corner >> 1) & 1) ? c.hi[1] : c.lo[1];
+      const int iz = (corner >> 2) ? c.hi[2] : c.lo[2];
+      const float4 v = __ldg(grid4 + ((size_t)iz * g + iy) * g + ix);
+      ax = __fadd_rn(ax, __fmul_rn(w[corner], v.x));
+      ay = __fadd_rn(ay, __fmul_rn(w[corner], v.y));
+      az = __fadd_rn(az, __fmul_rn(w[corner], v.z));
+    }
+  }
+  out[i] = ax;
+  out[(size_t)n + i] = ay;
+  out[2 * (size_t)n + i] = az;
 }
 
 }  // namespace
@@ -159,12 +322,15 @@ __global__ void __launch_bounds__(PM_BLOCK) pm_gather_kernel(
 // pos: float32[3, n] planes; n_active: int32[1]; live: uint8[n] or NULL
 // (NULL: i < n_active); masses: float32[n] or NULL (unit masses);
 // box_min: float32[3]; cell: float32[1] (all on the device); hi: the
-// clamp limit; periodic: 0/1; rho: float32[g, g, g], zeroed by the caller.
+// clamp limit; periodic: 0/1; rho: float32[g, g, g], zeroed by the caller
+// and 16-byte aligned; g^3 < 2^31.
 PSIM_EXPORT int psim_pm_deposit(const float* pos, int n, const int* n_active,
                                 const uint8_t* live, const float* masses,
                                 const float* box_min, const float* cell,
                                 int g, float hi, int periodic, float* rho,
                                 cudaStream_t stream) {
+  if (reinterpret_cast<uintptr_t>(rho) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
   const int blocks = (n + PM_BLOCK - 1) / PM_BLOCK;
   if (blocks > 0) {
     if (masses != nullptr) {
@@ -180,22 +346,31 @@ PSIM_EXPORT int psim_pm_deposit(const float* pos, int n, const int* n_active,
   return (int)cudaGetLastError();
 }
 
-// grids: float32[channels, g, g, g] with channels 1 (a potential) or 3 (the
-// acceleration components); out: float32[channels, n]; the rest as above.
+// grids: float32[channels, g, g, g] planes with channels 1 (a potential) or
+// 3 (the acceleration components), or with interleaved = 1 the three
+// acceleration grids as float32[g, g, g, 4], 16-byte aligned; out:
+// float32[channels, n]; the rest as above.
 PSIM_EXPORT int psim_pm_gather(const float* grids, int channels,
-                               const float* pos, int n, const int* n_active,
-                               const uint8_t* live, const float* box_min,
-                               const float* cell, int g, float hi,
-                               int periodic, float* out,
+                               int interleaved, const float* pos, int n,
+                               const int* n_active, const uint8_t* live,
+                               const float* box_min, const float* cell, int g,
+                               float hi, int periodic, float* out,
                                cudaStream_t stream) {
   if (channels != 1 && channels != 3) return (int)cudaErrorInvalidValue;
+  if (interleaved && (channels != 3 ||
+                      reinterpret_cast<uintptr_t>(grids) % 16 != 0))
+    return (int)cudaErrorInvalidValue;
   const int blocks = (n + PM_BLOCK - 1) / PM_BLOCK;
   if (blocks > 0) {
-    if (channels == 3) {
-      pm_gather_kernel<3><<<blocks, PM_BLOCK, 0, stream>>>(
+    if (interleaved) {
+      pm_gather_interleaved_kernel<<<blocks, PM_BLOCK, 0, stream>>>(
+          reinterpret_cast<const float4*>(grids), pos, n, n_active, live,
+          box_min, cell, g, hi, periodic, out);
+    } else if (channels == 3) {
+      pm_gather_planar_kernel<3><<<blocks, PM_BLOCK, 0, stream>>>(
           grids, pos, n, n_active, live, box_min, cell, g, hi, periodic, out);
     } else {
-      pm_gather_kernel<1><<<blocks, PM_BLOCK, 0, stream>>>(
+      pm_gather_planar_kernel<1><<<blocks, PM_BLOCK, 0, stream>>>(
           grids, pos, n, n_active, live, box_min, cell, g, hi, periodic, out);
     }
   }

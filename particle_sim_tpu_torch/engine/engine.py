@@ -109,6 +109,7 @@ class Engine:
         pm2=None,
         pmx=None,
         pm_persist: Union[bool, str] = "auto",
+        two_tier: bool = True,
         masses=None,
         mesh=None,
     ):
@@ -120,7 +121,12 @@ class Engine:
         ``pm_persist``: "auto" and False are accepted and resolve to the
         per-frame path at every count (:meth:`persist_resolved`); the JAX
         engine's "auto" goes persistent at 4M particles and more (its
-        ``PERSIST_AUTO_MIN_N``), a mode not ported yet, like True."""
+        ``PERSIST_AUTO_MIN_N``), a mode not ported yet, like True.
+
+        ``two_tier``: the persistent PM's repair strategy, kept as
+        ``engine.two_tier`` and carried through checkpoints and the
+        server's ``"pm"`` events as the JAX engine carries it. It changes
+        no physics until the persistent PM is ported."""
         for feature, given in (("pm2", pm2 is not None),
                                ("pmx", pmx is not None),
                                ("pm_persist", pm_persist is True),
@@ -152,6 +158,7 @@ class Engine:
         self.pairwise = pairwise
         self.pm = pm
         self.pm_persist = pm_persist
+        self.two_tier = bool(two_tier)
         self.paused = False
         self.stats = FrameStats()
         self.state = self._generate_state(particle_count)

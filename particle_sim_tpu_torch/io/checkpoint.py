@@ -46,7 +46,7 @@ def save(path: str, engine: Engine, step_index: int = 0) -> None:
         # the multi-level and window-exact solvers are not ported
         "pm2": None,
         "pmx": None,
-        "two_tier": True,
+        "two_tier": engine.two_tier,
     }
     arrays = dict(
         positions=state.positions(),
@@ -97,6 +97,7 @@ def load(path: str, method: Optional[Method] = None, *,
         pairwise=PairwiseParams(*pair) if pair else None,
         pm=PMConfig(**pm_meta) if pm_meta else None,
         pm_persist=pm_persist,
+        two_tier=meta.get("two_tier", True),
     )
     engine.state = ParticleState.from_arrays(positions, velocities,
                                              init_colors, device=device)

@@ -257,30 +257,56 @@ def _irfftn_octant(spec: torch.Tensor, g: int) -> torch.Tensor:
     return torch.fft.irfft(x, n=2 * g, dim=2)[:, :, :g]    # x spatial (c2r)
 
 
+def interleaved_view(buf: torch.Tensor) -> torch.Tensor:
+    """The f32[3, G, G, G] view of an interleaved f32[G, G, G, 4] buffer
+    (x, y, z, pad a cell): the JAX layout by index, while a cell's three
+    components lie in one 16-byte word, which the gather kernel
+    (ops/pm_cuda.py) loads at once. The pad lane is never read as a
+    value."""
+    return buf[..., :3].permute(3, 0, 1, 2)
+
+
+def _interleaved_buffer(g: int, device) -> torch.Tensor:
+    return torch.empty((g, g, g, 4), dtype=torch.float32, device=device)
+
+
 def _irfftn_octant_batch(specs: torch.Tensor, g: int) -> torch.Tensor:
-    """_irfftn_octant over a leading batch axis in one set of transforms."""
+    """_irfftn_octant over a leading batch axis in one set of transforms,
+    written into an interleaved buffer (the one copy out of the
+    transform's padded output) -> its f32[3, G, G, G] view."""
     x = torch.fft.ifft(specs, dim=1)[:, :g]
     x = torch.fft.ifft(x, dim=2)[:, :, :g]
-    # contiguous: the gather kernel reads the grids as dense planes
-    return torch.fft.irfft(x, n=2 * g, dim=3)[..., :g].contiguous()
+    x = torch.fft.irfft(x, n=2 * g, dim=3)[..., :g]
+    out = _interleaved_buffer(g, x.device)
+    out[..., :3].copy_(x.permute(1, 2, 3, 0))
+    return interleaved_view(out)
 
 
 def _fd_gradient(phi: torch.Tensor, h: float) -> torch.Tensor:
-    """-grad(phi) via 4th-order central differences; f32[3, G, G, G].
-    Differences wrap circularly: exact for periodic mode; for isolated
-    mode the wrap touches only the outermost two grid layers."""
+    """-grad(phi) via 4th-order central differences; the f32[3, G, G, G]
+    view of an interleaved buffer (interleaved_view). Differences wrap
+    circularly: exact for periodic mode; for isolated mode the wrap
+    touches only the outermost two grid layers."""
     def diff(axis):
         p1 = torch.roll(phi, 1, dims=axis)
         m1 = torch.roll(phi, -1, dims=axis)
         p2 = torch.roll(phi, 2, dims=axis)
         m2 = torch.roll(phi, -2, dims=axis)
         return (8.0 * (p1 - m1) - (p2 - m2)) / (12.0 * h)
-    return torch.stack([diff(2), diff(1), diff(0)])
+    out = _interleaved_buffer(phi.shape[0], phi.device)
+    for c, axis in enumerate((2, 1, 0)):
+        out[..., c] = diff(axis)
+    return interleaved_view(out)
 
 
 def solve_accel(rho: torch.Tensor, cfg: "P.PMConfig", softening,
                 cell_size=None, kernels=None) -> torch.Tensor:
     """f32[3, G, G, G] acceleration grids (unit G_const) from the mass grid.
+
+    The isolated solves and the 'fd' gradients return the view of an
+    interleaved buffer (interleaved_view), written by the copy that ends
+    the solve anyway; the periodic 'exact' solve, whose inverse transform
+    writes dense planes, returns them as they are.
 
     ``cell_size`` overrides the config's static h (the auto-box path
     solves in cell units, h = 1). ``kernels``: base_kernels_device()

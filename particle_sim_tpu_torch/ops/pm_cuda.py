@@ -6,6 +6,10 @@ and :func:`gather`. The TPU path sorts particles by cell for its one-hot
 matmul kernels and un-sorts the accelerations; here both kernels take the
 particles in their own order (one thread each, float atomics for the
 deposit), so there is no sort, no tiling by grid and any grid size works.
+The deposit sums the corner weights of particles that share a cell before
+its atomics; the gather reads the acceleration grids in the interleaved
+layout that ``pm.solve_accel`` writes (:func:`grid_layout`); csrc/pm.cu
+says why.
 
 Each wrapper takes its plain version (:func:`deposit_plain`,
 :func:`gather_plain`, wrapping ``pm.cic_deposit_ref`` /
@@ -127,6 +131,8 @@ def deposit(pos: torch.Tensor, n_active, box_min, cell, grid: int, *,
     otherwise they clamp into the grid."""
     global DEPOSIT_LAUNCHES, DEPOSIT_MASS_LAUNCHES
     _check(pos, masses, live)
+    if grid ** 3 >= 2 ** 31:
+        raise ValueError(f"grid {grid}: too large for int32 cell indices")
     if pos.device.type == "cpu":
         return deposit_plain(pos, n_active, box_min, cell, grid,
                              periodic=periodic, masses=masses, live=live)
@@ -150,14 +156,30 @@ def deposit(pos: torch.Tensor, n_active, box_min, cell, grid: int, *,
 
 
 # -- gather ----------------------------------------------------------------------
-def _check_grids(grids: torch.Tensor, pos: torch.Tensor) -> int:
+def grid_layout(grids: torch.Tensor, pos: torch.Tensor) -> str:
+    """"planar" for a contiguous f32[C, G, G, G] (C = 1 or 3), or
+    "interleaved" for the f32[3, G, G, G] view of an f32[G, G, G, 4]
+    buffer (pm.interleaved_view, what pm.solve_accel returns for most
+    modes: one 16-byte load a corner in the kernel). Anything else
+    raises ValueError."""
     if (not isinstance(grids, torch.Tensor) or grids.dtype != torch.float32
             or grids.ndim != 4 or grids.shape[0] not in (1, 3)
             or not grids.shape[1] == grids.shape[2] == grids.shape[3]):
         raise ValueError("grids must be float32[C, G, G, G], C = 1 or 3")
-    if grids.device != pos.device or not grids.is_contiguous():
-        raise ValueError(f"grids must be contiguous on {pos.device}")
-    return grids.shape[1]
+    if grids.device != pos.device:
+        raise ValueError(f"grids must be on {pos.device}")
+    if grids.is_contiguous():
+        return "planar"
+    g = grids.shape[1]
+    if (grids.shape[0] == 3 and grids.stride() == (1, 4 * g * g, 4 * g, 4)
+            and grids.data_ptr() % 16 == 0
+            and grids.untyped_storage().nbytes()
+            >= grids.storage_offset() * 4 + 16 * g ** 3):
+        return "interleaved"
+    raise ValueError("grids must be a contiguous float32[C, G, G, G] or "
+                     "the f32[3, G, G, G] view of an f32[G, G, G, 4] "
+                     f"buffer (pm.interleaved_view); got strides "
+                     f"{grids.stride()}")
 
 
 def gather_plain(grids, pos, n_active, box_min, cell, *, periodic: bool,
@@ -177,10 +199,12 @@ def gather(grids: torch.Tensor, pos: torch.Tensor, n_active, box_min, cell,
            *, periodic: bool, live=None) -> torch.Tensor:
     """f32[C, N] trilinear (CIC) interpolation of the grids f32[C, G, G, G]
     (C = 3 acceleration components, or 1: a potential) at the particles,
-    in their original order; dead particles get exactly 0. Arguments as in
+    in their original order; dead particles get exactly 0. The grids are
+    planar or interleaved (:func:`grid_layout`). Arguments as in
     :func:`deposit`."""
     global GATHER_LAUNCHES
-    g = _check_grids(grids, pos)
+    layout = grid_layout(grids, pos)
+    g = grids.shape[1]
     _check(pos, None, live)
     if pos.device.type == "cpu":
         return gather_plain(grids, pos, n_active, box_min, cell,
@@ -192,8 +216,8 @@ def gather(grids: torch.Tensor, pos: torch.Tensor, n_active, box_min, cell,
     stream = torch.cuda.current_stream(pos.device).cuda_stream
     with torch.cuda.device(pos.device):
         err = lib.psim_pm_gather(
-            grids.data_ptr(), grids.shape[0], pos.data_ptr(), pos.shape[1],
-            na.data_ptr(),
+            grids.data_ptr(), grids.shape[0], int(layout == "interleaved"),
+            pos.data_ptr(), pos.shape[1], na.data_ptr(),
             _ptr(live), bmin.data_ptr(), cell_t.data_ptr(), g,
             pm.clamp_limit(g, periodic), int(periodic), out.data_ptr(),
             stream)

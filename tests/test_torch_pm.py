@@ -162,6 +162,79 @@ def test_periodic_wraps_out_of_box_particles():
 
 
 # -- the spectral solve and the plain pipeline --------------------------------------
+@pytest.mark.parametrize("boundary,gradient,layout", [
+    ("isolated", "exact", "interleaved"), ("isolated", "fd", "interleaved"),
+    ("periodic", "exact", "planar"), ("periodic", "fd", "interleaved")])
+def test_solve_accel_layout_and_plain_gather(boundary, gradient, layout):
+    """solve_accel returns the interleaved view (or dense planes, periodic
+    'exact'; test_solve_accel_matches_jax holds its values to JAX's), and
+    the gather reads it exactly as it reads a contiguous copy."""
+    cfg = PMConfig(grid=32, softening=3.0, boundary=boundary,
+                   gradient=gradient)
+    rho = np.random.default_rng(4).random((32, 32, 32)).astype(np.float32)
+    grids = pm.solve_accel(torch.from_numpy(rho), cfg, cfg.softening)
+    tp = torch.from_numpy(cloud(N, 3))
+    assert grids.shape == (3, 32, 32, 32)
+    assert pm_cuda.grid_layout(grids, tp) == layout
+    periodic = boundary == "periodic"
+    got = pm_cuda.gather_plain(grids, tp, 3000, cfg.box_min, cfg.cell_size,
+                               periodic=periodic)
+    dense = pm_cuda.gather_plain(grids.contiguous(), tp, 3000, cfg.box_min,
+                                 cfg.cell_size, periodic=periodic)
+    assert torch.equal(got, dense)
+    assert torch.equal(pm_cuda.gather(grids, tp, 3000, cfg.box_min,
+                                      cfg.cell_size, periodic=periodic), dense)
+
+
+def _strided(storage_elems, offset=0):
+    """An f32[3, 32, 32, 32] view with the interleaved strides on a flat
+    buffer of ``storage_elems`` floats, starting at ``offset``."""
+    flat = torch.arange(storage_elems, dtype=torch.float32)
+    return torch.as_strided(flat, (3, 32, 32, 32), (1, 4096, 128, 4), offset)
+
+
+@pytest.mark.parametrize("case,layout", [
+    ("planar 3", "planar"), ("planar 1", "planar"),
+    ("interleaved view", "interleaved"),
+    ("interleaved on a flat buffer", "interleaved"),
+    ("transposed planes", None), ("every other cell", None),
+    ("one channel of the interleaved buffer", None),
+    ("five-lane buffer", None), ("misaligned start", None),
+    ("short storage", None), ("float64 planes", None)])
+def test_grid_layout_accepts_two_layouts_only(case, layout):
+    """The gather wrapper's stride check: dense planes and the interleaved
+    view pass, every other layout raises ValueError (before any kernel)."""
+    g = 32
+    buf = torch.randn(g, g, g, 4)
+    grids = {
+        "planar 3": lambda: torch.randn(3, g, g, g),
+        "planar 1": lambda: torch.randn(1, g, g, g),
+        "interleaved view": lambda: pm.interleaved_view(buf),
+        "interleaved on a flat buffer": lambda: _strided(4 * g ** 3),
+        "transposed planes": lambda: torch.randn(3, g, g, g).transpose(1, 3),
+        "every other cell": lambda: torch.randn(3, g, g, 2 * g)[..., ::2],
+        "one channel of the interleaved buffer":
+            lambda: buf[..., :1].permute(3, 0, 1, 2),
+        "five-lane buffer":
+            lambda: torch.randn(g, g, g, 5)[..., :3].permute(3, 0, 1, 2),
+        "misaligned start": lambda: _strided(4 * g ** 3 + 1, offset=1),
+        "short storage": lambda: _strided(4 * g ** 3 - 1),
+        "float64 planes": lambda: torch.randn(3, g, g, g, dtype=torch.float64),
+    }[case]()
+    pos = torch.from_numpy(cloud(64, 2))
+    if layout is None:
+        with pytest.raises(ValueError, match="grids"):
+            pm_cuda.grid_layout(grids, pos)
+        with pytest.raises(ValueError, match="grids"):
+            pm_cuda.gather(grids, pos, 64, (-64.0, -64.0, -64.0), 4.0,
+                           periodic=False)
+    else:
+        assert pm_cuda.grid_layout(grids, pos) == layout
+        out = pm_cuda.gather(grids, pos, 64, (-64.0, -64.0, -64.0), 4.0,
+                             periodic=False)
+        assert out.shape == (grids.shape[0], 64)
+
+
 @pytest.mark.parametrize("boundary", ["isolated", "periodic"])
 @pytest.mark.parametrize("gradient", ["exact", "fd"])
 def test_solve_accel_matches_jax(boundary, gradient):
