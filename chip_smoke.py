@@ -37,8 +37,9 @@ Phases (each prints a line; any failure raises and exits non-zero):
      kernel within 3 u8 levels
   8. the gravity main path: particle_sim_tpu_torch.app.cli.main with
      --pairwise --central-mass 1000 at 65,536 particles, 200 steps, a
-     sorted 1280x720 frame every 100 steps; checks the launch counts, the
-     frames, a finite final state, the masses, and that the total momentum
+     sorted 1280x720 frame every 100 steps; checks the launch counts (the
+     sort's too: each sorted frame sorts its tile keys with psort.sort, one
+     histogram and one pass launch a digit), the frames, a finite final state, the masses, and that the total momentum
      stays 0 and the centre of mass in place; then the sorted-deposit
      kernel vs plain (phase 7's bars) on the CLI's final state at the
      path's own shape, 65,536 @ 1280x720
@@ -54,7 +55,9 @@ Phases (each prints a line; any failure raises and exits non-zero):
      the largest of its FP32 issue, flop and rsqrt bounds, beside the
      FP32 instructions a pair in the kernel's SASS); the sorted, compact
      and scatter frames (these include the host: the compact frame reads
-     one count back per frame)
+     one count back per frame) and each frame's layers, among them the
+     sorted frame's sort layer (rs.sort_points, through psort.sort's radix
+     kernels) in turns with the torch.sort + gather it replaced
  11. particle-mesh deposit and gather kernels vs plain at 1M (hollow
      sphere, static box): G = 128 isolated with unit masses and with
      masses, G = 128 periodic with a fifth of the particles outside the
@@ -72,7 +75,8 @@ Phases (each prints a line; any failure raises and exits non-zero):
      steps; (b) --pm --central-mass 1000 --renderer sorted, 200 steps, a
      frame every 100; checks the launch counts (deposit = gather = step =
      steps, the mass deposit in (b); in (a) each diagnostics line adds a
-     deposit and a gather, the mesh potential's), a finite final state,
+     deposit and a gather, the mesh potential's; (b)'s two sorted frames
+     launch the sort's kernels), a finite final state,
      momentum 0 and the centre of mass in place, the diagnostics lines,
      the frames; then deposit and gather vs plain on (b)'s final state
      (the cloud after its collapse, much of it clamped onto the box's
@@ -96,22 +100,26 @@ Phases (each prints a line; any failure raises and exits non-zero):
      < 0.05 per component; its SASS must hold HMMA (both products on the
      tensor cores); times beside the pairwise kernel, plain and the
      bound (the largest of its FP32, rsqrt and TF32 tensor-core bounds)
- 15. the merge sort (psort.sort: block-sort and merge-round kernels, no
-     entry point calls it) on the PM forward-sort words (cell key, idx,
-     packed fractions[, mass]) at 1M and 16M (hollow sphere, G = 128),
-     the un-sort words (2 x uint32 with keys up to 2^32 - 1 at 16M; idx
-     + 3 f32), the raster tile keys of the 1M @ 1280x720 frame with an
-     index payload, tests/test_psort.py's distributions at 131,072, the
-     ragged lengths 1,000,448 and 80,000, and uint32 keys at and above
-     2^31 with key-max entries: every word equal to the plain version's
-     and to a stable torch.sort's (so keys exact and (key, payload)
-     multisets equal), launch counts as the lengths predict, no
-     torch.sort route taken; then times of the block sort, the first and
-     last merge rounds and the whole sort at 1M and 16M beside plain,
-     torch.sort + index_select and the bytes bound
+ 15. the sort (psort.sort: the radix kernels, histogram and passes) on the
+     PM forward-sort words (cell key, idx, packed fractions[, mass]) at 1M
+     and 16M (hollow sphere, G = 128), the un-sort words (2 x uint32 with
+     keys up to 2^32 - 1 at 16M; idx + 3 f32), the raster tile keys of the
+     1M @ 1280x720 frame with an index payload, tests/test_psort.py's
+     distributions at 131,072, the ragged lengths 1,000,448, 80,000, 4,097
+     and 1, and
+     uint32 keys at and above 2^31 with key-max entries: every word equal
+     to the plain version's and to a stable torch.sort's, one histogram
+     and one pass launch a digit a case, the passes that ran (the device's
+     tally) as radix_plan_ref predicts, no torch.sort route taken; the same
+     cases through the earlier design (psort.merge_sort: block-sort and
+     merge-round kernels) against its plain version, launch counts as the
+     lengths predict; then times at 1M and 16M of the radix sort, its
+     histogram and one pass, the merge sort and its kernels, torch.sort +
+     index_select and the plain versions, beside the bytes bounds
 
 The line before the last is a JSON object with one entry per kernel (the
 launches of pm_deposit and pm_gather are phase 12's runs (a) and (b)
+together; those of radix_hist and radix_pass phases 8 and 12 (b)
 together; those of pairwise_mxu, block_sort and merge_round the drives
 of phases 14 and 15); the last line is {"ok": true, "device": {...}}.
 """
@@ -293,6 +301,16 @@ def sass_counts(lib_path, kernel: str) -> dict:
     return {"fp32": len(re.findall(r"\b(?:FADD|FMUL|FFMA)\b", body)),
             "rsq": len(re.findall(r"\bMUFU\.RSQ\b", body)),
             "hmma": len(re.findall(r"\bHMMA\b", body))}
+
+
+def torch_sort_points(keys):
+    """The sorted renderer's sort as it was before it called psort.sort:
+    torch.sort of the tile keys, then a gather of the stacked colours
+    (phase 10's yardstick for rs.sort_points). -> (keys, f32[3, n])."""
+    import torch
+
+    key_s, order = torch.sort(keys.key)
+    return key_s, torch.stack([keys.r, keys.g, keys.b])[:, order].contiguous()
 
 
 def frame_pixels(key, n_tiles, width):
@@ -787,6 +805,7 @@ def main() -> int:
         step_cuda.LAUNCHES = 0
         pairwise_cuda.LAUNCHES = 0
         rs.LAUNCHES = 0
+        psort.RADIX_HIST_LAUNCHES = psort.RADIX_PASS_LAUNCHES = 0
         out = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
@@ -794,7 +813,9 @@ def main() -> int:
         g_wall = time.perf_counter() - t0
         g_launches = {"pairwise": pairwise_cuda.LAUNCHES,
                       "sorted_deposit": rs.LAUNCHES,
-                      "step": step_cuda.LAUNCHES}
+                      "step": step_cuda.LAUNCHES,
+                      "radix_hist": psort.RADIX_HIST_LAUNCHES,
+                      "radix_pass": psort.RADIX_PASS_LAUNCHES}
         text = out.getvalue()
         for ln in text.splitlines():
             print(f"  cli: {ln}")
@@ -835,8 +856,11 @@ def main() -> int:
     if not (mom_rel < 1e-3 and com_shift < 0.5):
         fail(f"gravity path: momentum |P| / sum m|v| = {mom_rel:.3g} (bar "
              f"1e-3), centre of mass moved {com_shift:.3g} (bar 0.5)")
+    # each sorted frame sorts its tile keys: one histogram, one pass
+    # launch a digit
     if g_launches != {"pairwise": g_steps, "sorted_deposit": 2,
-                      "step": g_steps}:
+                      "step": g_steps, "radix_hist": 2,
+                      "radix_pass": 2 * psort.radix_digits()}:
         fail(f"the gravity path missed a kernel: launches {g_launches}")
     # the sorted-deposit kernel at this path's own shape and data: the
     # CLI's final state (the collapsed cloud), 65,536 points @ 1280x720
@@ -1023,6 +1047,8 @@ def main() -> int:
         # each frame's layers, one at a time (device times)
         keys = raster.tile_keys(*args, width=w, height=h)
         sp = rs.sort_points(keys)
+        if not torch.equal(sp.key, torch_sort_points(keys)[0]):
+            fail(f"sort_points {label}: keys differ from torch.sort's")
         words = rc.point_words(*args, width=w, height=h)
         bucket = bucket_of(words, rc)
         ck = rc.compact(*cargs_of(words), bucket=bucket,
@@ -1032,6 +1058,7 @@ def main() -> int:
         layers = median_ms(
             [lambda: raster.tile_keys(*args, width=w, height=h),
              lambda: rs.sort_points(keys),
+             lambda: torch_sort_points(keys),
              lambda: rs.deposit(sp.key, sp.rgb, sp.offsets,
                                 n_tiles=sp.n_tiles),
              lambda: rc.point_words(*args, width=w, height=h),
@@ -1046,9 +1073,14 @@ def main() -> int:
         print(f"  layers (compact kept "
               f"{int(words.kept_n.item()) * rc.CHUNK} points): " + " | ".join(
                   f"{name} {ms:.4f} ms" for name, ms in zip(
-                      ("sorted: tile_keys", "sort_points", "deposit",
+                      ("sorted: tile_keys", "sort_points (psort.sort: "
+                       "radix kernels)", "sort_points as torch.sort + "
+                       "gather (yardstick)", "deposit",
                        "compact: point_words", "kept_n host read", "compact",
                        "pair_table", "deposit"), layers)))
+        print(f"phase 10 sort layer {label} {w}x{h}: sort_points through "
+              f"psort.sort((key, r, g, b)) {layers[1]:.5f} ms | torch.sort + "
+              f"gather {layers[2]:.5f} ms ({layers[2] / layers[1]:.2f}x)")
 
     # -- phase 11: the PM kernels vs plain ----------------------------------------------
     t0 = time.perf_counter()
@@ -1200,6 +1232,7 @@ def main() -> int:
             pm_cuda.DEPOSIT_LAUNCHES = 0
             pm_cuda.DEPOSIT_MASS_LAUNCHES = 0
             pm_cuda.GATHER_LAUNCHES = 0
+            psort.RADIX_HIST_LAUNCHES = psort.RADIX_PASS_LAUNCHES = 0
             out = io.StringIO()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(out):
@@ -1209,7 +1242,9 @@ def main() -> int:
                    "pm_deposit_mass": pm_cuda.DEPOSIT_MASS_LAUNCHES,
                    "pm_gather": pm_cuda.GATHER_LAUNCHES,
                    "step": step_cuda.LAUNCHES,
-                   "sorted_deposit": rs.LAUNCHES}
+                   "sorted_deposit": rs.LAUNCHES,
+                   "radix_hist": psort.RADIX_HIST_LAUNCHES,
+                   "radix_pass": psort.RADIX_PASS_LAUNCHES}
             text = out.getvalue()
             for ln in text.splitlines():
                 print(f"  cli ({tag}): {ln}")
@@ -1239,7 +1274,9 @@ def main() -> int:
         want = {"pm_deposit": steps_ + n_diag if tag == "a" else 0,
                 "pm_deposit_mass": 0 if tag == "a" else steps_,
                 "pm_gather": steps_ + n_diag, "step": steps_,
-                "sorted_deposit": 0 if tag == "a" else 2}
+                "sorted_deposit": 0 if tag == "a" else 2,
+                "radix_hist": 0 if tag == "a" else 2,
+                "radix_pass": 0 if tag == "a" else 2 * psort.radix_digits()}
         if got != want:
             fail(f"the pm path ({tag}) missed a kernel: launches {got}, "
                  f"expected {want}")
@@ -1475,7 +1512,7 @@ def main() -> int:
           f"tensor-core flops/pair at 495 TFLOP/s {mx_tc:.4f} ms) | "
           f"library: none")
 
-    # -- phase 15: the merge sort -----------------------------------------------
+    # -- phase 15: the sort: radix kernels, and the merge sort's ---------------
     t0 = time.perf_counter()
     rng = np.random.default_rng(15)
 
@@ -1546,7 +1583,7 @@ def main() -> int:
     for name, keys in dists.items():
         sort_cases.append((f"{name} {n_d}", dev_words(
             keys.astype(np.uint32), np.arange(n_d, dtype=np.int32))))
-    for n in (1_000_448, 80_000):
+    for n in (1_000_448, 80_000, 4097, 1):
         sort_cases.append((f"ragged {n}", dev_words(
             rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32),
             np.arange(n, dtype=np.int32))))
@@ -1561,34 +1598,60 @@ def main() -> int:
             r, run = r + 1, run * 2
         return r
 
-    # the drive: every case once through psort.sort
+    # the drive: every case once through psort.sort (the radix kernels)
+    n_digits = psort.radix_digits()
+    psort.RADIX_HIST_LAUNCHES = psort.RADIX_PASS_LAUNCHES = 0
     psort.BLOCK_LAUNCHES = psort.MERGE_LAUNCHES = psort.LIBRARY_CALLS = 0
+    taken0 = psort.radix_passes_taken(dev)
     sorted_out = [psort.sort(ops) for _, ops in sort_cases]
     torch.cuda.synchronize()
-    sort_launches = {"block_sort": psort.BLOCK_LAUNCHES,
+    plans = [psort.radix_plan_ref(ops[0]) for _, ops in sort_cases]
+    sort_launches = {"radix_hist": psort.RADIX_HIST_LAUNCHES,
+                     "radix_pass": psort.RADIX_PASS_LAUNCHES,
+                     "passes_taken": psort.radix_passes_taken(dev) - taken0,
+                     "block_sort": psort.BLOCK_LAUNCHES,
                      "merge_round": psort.MERGE_LAUNCHES}
-    want_launches = {"block_sort": len(sort_cases), "merge_round": sum(
-        rounds(ops[0].shape[0]) for _, ops in sort_cases)}
+    # one histogram a sort, one pass launch a digit; the passes that ran
+    # (the device's tally) are the digits radix_plan_ref finds not constant
+    want_launches = {"radix_hist": len(sort_cases),
+                     "radix_pass": n_digits * len(sort_cases),
+                     "passes_taken": sum(len(p) for p in plans),
+                     "block_sort": 0, "merge_round": 0}
     if sort_launches != want_launches or psort.LIBRARY_CALLS:
         fail(f"sort: launches {sort_launches}, expected {want_launches}; "
              f"torch.sort route taken {psort.LIBRARY_CALLS} times")
-    for (label, ops), got in zip(sort_cases, sorted_out):
+
+    def check_words(label, got, plain, ops, design):
         order = torch.sort(psort.ordered_key(ops[0]), stable=True).indices
-        plain = psort.sort_ref(ops)
         for w, (o, g_, p_) in enumerate(zip(ops, got, plain)):
             gi = g_.view(torch.int32)
             if not torch.equal(gi, p_.view(torch.int32)):
-                fail(f"sort {label}: word {w} differs from plain")
+                fail(f"{design} {label}: word {w} differs from plain")
             if not torch.equal(gi, o.view(torch.int32)[order]):
-                fail(f"sort {label}: word {w} differs from a stable "
+                fail(f"{design} {label}: word {w} differs from a stable "
                      f"torch.sort")
+
+    for (label, ops), got, plan in zip(sort_cases, sorted_out, plans):
+        check_words(label, got, psort.radix_sort_ref(ops), ops, "sort")
         # the first and last key (an int32 key's order value is key + 2^31)
         k = psort.ordered_key(got[0])[[0, -1]] - (
             1 << 31 if got[0].dtype == torch.int32 else 0)
         print(f"  sort {label}: n {ops[0].shape[0]}, {len(ops)} words, "
               f"{ops[0].dtype}, keys {int(k[0])}..{int(k[1])}, "
-              f"{rounds(ops[0].shape[0])} merge rounds: == plain, == stable "
-              f"torch.sort")
+              f"{len(plan)} radix passes (shifts {list(plan)}): == plain, "
+              f"== stable torch.sort")
+    # the earlier design, the merge sort's kernels, on the same cases
+    psort.BLOCK_LAUNCHES = psort.MERGE_LAUNCHES = 0
+    merged = [psort.merge_sort(ops) for _, ops in sort_cases]
+    torch.cuda.synchronize()
+    merge_launches = {"block_sort": psort.BLOCK_LAUNCHES,
+                      "merge_round": psort.MERGE_LAUNCHES}
+    want_merge = {"block_sort": len(sort_cases), "merge_round": sum(
+        rounds(ops[0].shape[0]) for _, ops in sort_cases)}
+    if merge_launches != want_merge:
+        fail(f"merge sort: launches {merge_launches}, expected {want_merge}")
+    for (label, ops), got in zip(sort_cases, merged):
+        check_words(label, got, psort.merge_sort_ref(ops), ops, "merge sort")
     # outside the contract: the torch.sort route, counted
     lib_k = dev_words(rng.integers(0, 4, 5000).astype(np.uint32),
                       rng.integers(0, 4, 5000).astype(np.uint32))
@@ -1621,42 +1684,74 @@ def main() -> int:
         blk = psort.block_sort(ops)
         # the last round's input: runs [0, L) and [L, n) sorted
         last_run = psort.SEG << (rounds(n) - 1)
-        halves = [psort.sort([o[:last_run] for o in ops]),
-                  psort.sort([o[last_run:] for o in ops])]
+        halves = [psort.merge_sort([o[:last_run] for o in ops]),
+                  psort.merge_sort([o[last_run:] for o in ops])]
         last_in = [torch.cat([a, b]) for a, b in zip(*halves)]
+        outs = [torch.empty_like(o) for o in ops]
+        scratch = [torch.empty_like(o) for o in ops]
+
+        def hist_and_pass0():
+            ws = psort.radix_histogram(ops[0])
+            psort.radix_pass(ops, outs, scratch, ws, 0)
+
         inner = 3 if big_ else 10
-        b_ms, m1_ms, ml_ms, s_ms, bl_ms, ml_lib_ms, sl_ms = median_ms(
-            [lambda: psort.block_sort(ops),
+        (r_ms, h_ms, hp_ms, s_ms, sl_ms, b_ms, m1_ms, ml_ms, bl_ms,
+         ml_lib_ms) = median_ms(
+            [lambda: psort.sort(ops),
+             lambda: psort.radix_histogram(ops[0]),
+             hist_and_pass0,
+             lambda: psort.merge_sort(ops),
+             lambda: lib_sort(ops),
+             lambda: psort.block_sort(ops),
              lambda: psort.merge_round(blk, psort.SEG),
              lambda: psort.merge_round(last_in, last_run),
-             lambda: psort.sort(ops),
              lambda: lib_sort(ops, psort.SEG),
-             lambda: lib_sort(last_in),
-             lambda: lib_sort(ops)],
+             lambda: lib_sort(last_in)],
             reps=5, inner=inner, lead_ms=inner * (6.0 if big_ else 0.5))
-        bp_ms, mlp_ms, sp_ms = median_ms(
-            [lambda: psort.block_sort_ref(ops),
-             lambda: psort.merge_round_ref(last_in, last_run),
-             lambda: psort.sort_ref(ops)], reps=3, inner=1)
-        launch_bound = bytes_ms(8 * words * n)   # every word read + written
+        rp_ms, hp_plain_ms, pp_ms, sp_ms, bp_ms, mlp_ms = median_ms(
+            [lambda: psort.radix_sort_ref(ops),
+             lambda: psort.radix_plan_ref(ops[0]),
+             lambda: psort.radix_pass_ref(ops, 0),
+             lambda: psort.merge_sort_ref(ops),
+             lambda: psort.block_sort_ref(ops),
+             lambda: psort.merge_round_ref(last_in, last_run)],
+            reps=3, inner=1)
+        passes = len(psort.radix_plan_ref(ops[0]))
+        pass_ms = hp_ms - h_ms
+        # bytes: the histogram reads the keys and writes the counts; a pass
+        # reads and writes every word; a merge-sort launch the same
+        hist_bound = bytes_ms(4 * n + 4 * n_digits * 256)
+        pass_bound = bytes_ms(8 * words * n)
+        radix_bound = hist_bound + passes * pass_bound
         r = rounds(n)
-        sort_timing[label] = dict(block=b_ms, block_plain=bp_ms,
-                                  block_lib=bl_ms, merge=ml_ms,
-                                  merge_plain=mlp_ms, merge_lib=ml_lib_ms,
-                                  bound=launch_bound)
+        sort_timing[label] = dict(
+            radix=r_ms, hist=h_ms, hist_plain=hp_plain_ms,
+            hist_bound=hist_bound, pass_=pass_ms, pass_plain=pp_ms,
+            pass_bound=pass_bound, block=b_ms, block_plain=bp_ms,
+            block_lib=bl_ms, merge=ml_ms, merge_plain=mlp_ms,
+            merge_lib=ml_lib_ms, bound=pass_bound)
         print(f"phase 15 sort {label} PM forward-sort words ({words} x "
-              f"int32, n {n}): block sort {b_ms:.4f} ms (plain {bp_ms:.3f}, "
-              f"torch.sort of the full {psort.SEG}-rows + gather "
-              f"{bl_ms:.4f}) | merge "
-              f"round L={psort.SEG} {m1_ms:.4f} ms, L={last_run} {ml_ms:.4f} "
-              f"ms (plain {mlp_ms:.3f}, torch.sort + gather {ml_lib_ms:.4f}) "
-              f"| whole sort ({r} rounds) {s_ms:.4f} ms (plain {sp_ms:.3f}) | "
-              f"torch.sort(key) + index_select {sl_ms:.4f} ms | bound a "
-              f"launch {launch_bound:.4f} ms, the sort "
-              f"{(1 + r) * launch_bound:.4f} ms (bytes)")
+              f"int32, n {n}): radix sort ({passes} passes) {r_ms:.4f} ms "
+              f"(plain {rp_ms:.3f}) | its histogram {h_ms:.4f} ms (plain "
+              f"radix_plan_ref {hp_plain_ms:.3f}; bound {hist_bound:.4f}) "
+              f"| one pass (histogram + pass 0, less the histogram) "
+              f"{pass_ms:.4f} ms (plain {pp_ms:.3f}; bound {pass_bound:.4f})"
+              f" | merge sort ({1 + r} launches) {s_ms:.4f} ms (plain "
+              f"{sp_ms:.3f}) | torch.sort(key) + index_select {sl_ms:.4f} "
+              f"ms | bytes bound of the radix sort {radix_bound:.4f} ms "
+              f"({radix_bound / r_ms:.1%}), of the merge sort "
+              f"{(1 + r) * pass_bound:.4f} ms")
+        print(f"phase 15 merge sort {label}: block sort {b_ms:.4f} ms (plain "
+              f"{bp_ms:.3f}, torch.sort of the full {psort.SEG}-rows + "
+              f"gather {bl_ms:.4f}) | merge round L={psort.SEG} "
+              f"{m1_ms:.4f} ms, L={last_run} {ml_ms:.4f} ms (plain "
+              f"{mlp_ms:.3f}, torch.sort + gather {ml_lib_ms:.4f}) | bound "
+              f"a launch {pass_bound:.4f} ms (bytes)")
     print(f"phase 15 sort: {len(sort_cases)} cases == plain and == stable "
-          f"torch.sort, launches {sort_launches}, torch.sort route only "
-          f"outside the contract ({time.perf_counter() - t0:.1f} s)")
+          f"torch.sort through the radix kernels and through the merge "
+          f"sort's, launches {sort_launches} and {merge_launches}, "
+          f"torch.sort route only outside the contract "
+          f"({time.perf_counter() - t0:.1f} s)")
 
     src = "particle_sim_tpu_torch/csrc/"
     kernels = [
@@ -1716,22 +1811,47 @@ def main() -> int:
          "launches": mx_launches, "max_abs_err": err["pairwise_mxu"],
          "ms": mx_ms, "plain_ms": mxp_ms, "bound_ms": mx_bound,
          "bound_by": "operations", "library_ms": None},
+        # the earlier design of the sort (phase 15's merge-sort drive),
         # both at the 16M PM forward-sort words; merge_round: the last
         # round (two runs of 8M)
         {"name": "block_sort", "route": "cuda", "source": src + "psort.cu",
          "replaces": "particle_sim_tpu/ops/psort.py:232",
-         "launches": sort_launches["block_sort"],
+         "launches": merge_launches["block_sort"],
          "max_abs_err": err["sort"], "ms": sort_timing["16M"]["block"],
          "plain_ms": sort_timing["16M"]["block_plain"],
          "bound_ms": sort_timing["16M"]["bound"], "bound_by": "bytes",
          "library_ms": sort_timing["16M"]["block_lib"]},
         {"name": "merge_round", "route": "cuda", "source": src + "psort.cu",
          "replaces": "particle_sim_tpu/ops/psort.py:289",
-         "launches": sort_launches["merge_round"],
+         "launches": merge_launches["merge_round"],
          "max_abs_err": err["sort"], "ms": sort_timing["16M"]["merge"],
          "plain_ms": sort_timing["16M"]["merge_plain"],
          "bound_ms": sort_timing["16M"]["bound"], "bound_by": "bytes",
          "library_ms": sort_timing["16M"]["merge_lib"]},
+        # psort.sort's route since the redesign: the two radix kernels
+        # together replace both TPU kernels (the block sort and the merge
+        # rounds that psort.sort chains); launches: the sorted frames of
+        # phases 8 and 12 (b); times at the 16M PM forward-sort words, one
+        # pass taken (digit 0); plain: radix_plan_ref / radix_pass_ref; no
+        # single PyTorch call computes either function
+        {"name": "radix_hist", "route": "cuda",
+         "source": src + "radix_sort.cu",
+         "replaces": "particle_sim_tpu/ops/psort.py:232",
+         "launches": g_launches["radix_hist"]
+         + pm_runs["b"][0]["radix_hist"],
+         "max_abs_err": err["sort"], "ms": sort_timing["16M"]["hist"],
+         "plain_ms": sort_timing["16M"]["hist_plain"],
+         "bound_ms": sort_timing["16M"]["hist_bound"], "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "radix_pass", "route": "cuda",
+         "source": src + "radix_sort.cu",
+         "replaces": "particle_sim_tpu/ops/psort.py:289",
+         "launches": g_launches["radix_pass"]
+         + pm_runs["b"][0]["radix_pass"],
+         "max_abs_err": err["sort"], "ms": sort_timing["16M"]["pass_"],
+         "plain_ms": sort_timing["16M"]["pass_plain"],
+         "bound_ms": sort_timing["16M"]["pass_bound"], "bound_by": "bytes",
+         "library_ms": None},
     ]
     print(gpu_name_and_limit())
     print(json.dumps({"kernels": kernels}))

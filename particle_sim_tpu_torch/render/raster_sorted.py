@@ -8,7 +8,9 @@ in plain PyTorch around one kernel of csrc/raster_sorted.cu:
      8x128 framebuffer tile, or the sentinel n_tiles * 1024 for a point
      that draws nothing, and the premultiplied payload (r*w, g*w, b*w)
      (:func:`raster.tile_keys`, shared with raster_compact);
-  2. sort the points by key (``torch.sort``);
+  2. sort the points by key, their colours with them, in one call of
+     the port's sort (``ops/psort.sort``: the radix kernels on the card),
+     as the JAX function's one ``lax.sort`` of (key, r, g, b);
   3. the per-tile table: one ``torch.searchsorted`` of the tile starts
      gives every tile its slice [offsets[t], offsets[t+1]) of the sorted
      points (the TPU's chunk table maps grid steps to 512-point chunks
@@ -28,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops import psort
 from ..utils import cuda_build
 from .raster import (
     PX_PER_TILE, TILE_H, TILE_W, TileKeys, tile_keys, tiles_to_frame,
@@ -47,9 +50,12 @@ class SortedPoints(NamedTuple):
 
 
 def sort_points(keys: TileKeys) -> SortedPoints:
-    """Sort the points by key and find every tile's slice."""
-    key_s, order = torch.sort(keys.key)
-    rgb_s = torch.stack([keys.r, keys.g, keys.b])[:, order].contiguous()
+    """Sort the points by key (stable), with their colours, and find
+    every tile's slice."""
+    key_s = torch.empty_like(keys.key)
+    rgb_s = torch.empty((3, keys.key.shape[0]), dtype=torch.float32,
+                        device=key_s.device)
+    psort.sort((keys.key, keys.r, keys.g, keys.b), out=(key_s, *rgb_s))
     probes = torch.arange(0, keys.n_tiles + 1, dtype=torch.int32,
                           device=key_s.device) * PX_PER_TILE
     offsets = torch.searchsorted(key_s, probes, out_int32=True)

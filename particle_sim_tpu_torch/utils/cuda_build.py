@@ -53,6 +53,13 @@ SIGNATURES = {
     "psim_block_sort": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "psim_merge_round": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _P),
+    # key in, n, key flip, workspace, its bytes, stream
+    "psim_radix_hist": (_P, _I, _I, _P, _I64, _P),
+    # key + 3 payloads in, out, scratch (NULL where unused), n, digit,
+    # payload count, key flip, workspace, its bytes, passes-taken tally,
+    # stream
+    "psim_radix_pass": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                        _I, _I, _I, _P, _I64, _P, _P),
 }
 
 

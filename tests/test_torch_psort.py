@@ -1,7 +1,8 @@
-"""The port's merge sort (ops/psort.py) on CPU tensors, where it runs its
-plain versions (the bitonic block sort and the searchsorted merge round),
-against the JAX package's psort.sort (Pallas kernels in interpret mode),
-jax.lax.sort and numpy.
+"""The port's sort (ops/psort.py) on CPU tensors, where psort.sort runs
+the radix sort's plain version and the merge sort its plain versions (the
+bitonic block sort and the searchsorted merge round), against the JAX
+package's psort.sort (Pallas kernels in interpret mode), jax.lax.sort and
+numpy.
 
 The JAX comparison follows tests/test_psort.py: the sorted keys exactly,
 and the full output exactly for unique keys or the (key, payload)
@@ -225,11 +226,13 @@ def test_merge_round_needs_a_seg_multiple():
 
 
 def test_sort_ref_equals_sort_on_cpu():
+    """psort.sort (the radix sort's plain version on the CPU) and the
+    earlier design's plain chain give the same words."""
     rng = np.random.default_rng(8)
     ops = (t(rng.integers(0, 100, 9000).astype(np.int32)),
            t(rng.standard_normal(9000).astype(np.float32)))
     assert_words_equal(psort.sort(ops), [o.numpy() for o in
-                                         psort.sort_ref(ops)])
+                                         psort.merge_sort_ref(ops)])
 
 
 # -- outside the contract: the torch.sort route, counted ----------------------
