@@ -8,7 +8,9 @@ the WebSocket server at 65,536, and times the kernels.
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
 Phases (each prints a line; any failure raises and exits non-zero):
-  1. build the CUDA kernels of particle_sim_tpu_torch/csrc/ with nvcc
+  1. build the CUDA kernels of particle_sim_tpu_torch/csrc/ with nvcc,
+     and beside them (in parallel) the earlier designs of the two frame
+     deposits, variant 0 of particle_sim_tpu_torch/tools/raster_variants.cu
   2. step kernel vs plain PyTorch at 1M and 16,777,216 particles, three
      parameter sets, 1 and 5 substeps (rtol = atol = 1e-6 for one step,
      1e-5 for five)
@@ -17,12 +19,17 @@ Phases (each prints a line; any failure raises and exits non-zero):
      particles @ 1280x720 and 16M @ 1920x1080, default camera; the whole
      frame through the kernels within one u8 level of the plain pipeline;
      the golden frame (tests/data/golden_raster_256x128.npz) through the
-     kernels within 3 u8 levels
+     kernels within 3 u8 levels; the deposit on a contended frame
+     (1,048,576 points in one tile of 1280x720, ~1,024 a pixel): within
+     K u sum|x| of a float64 sum and 2 K u sum|x| of plain at a pixel of K
+     terms (u = 2^-24: both are f32 sums of the same terms)
   4. the main path: particle_sim_tpu_torch.app.cli.main at 1M particles,
      600 steps, orbiting dragged attractor, a 1280x720 frame every 100
      steps; checks the frames, the final state and the kernel launch counts
-  5. times with CUDA events (medians after warm-up) of the step,
-     compaction and deposit kernels beside their plain versions, the one
+  5. times with CUDA events (medians after warm-up) of the step (1M,
+     16M), compaction and deposit kernels (1M @ 1280x720, 16M @
+     1920x1080; the deposit beside its earlier design, one block per
+     tile, in the same turns) beside their plain versions, the one
      PyTorch call that computes the same function (where there is one) and
      the bound (the least time the card could take); the kernel-level
      times queue the calls behind a GPU spin, so they are device times
@@ -34,7 +41,7 @@ Phases (each prints a line; any failure raises and exits non-zero):
   7. sorted-deposit kernel vs plain at 1M @ 1280x720 and 16M @ 1920x1080
      (|k - p| <= 1e-5 + 1e-4 |p| on raw tile sums); the whole frame within
      one u8 level of the plain pipeline; the golden frame through the
-     kernel within 3 u8 levels
+     kernel within 3 u8 levels; the contended frame at phase 3's bars
   8. the gravity main path: particle_sim_tpu_torch.app.cli.main with
      --pairwise --central-mass 1000 at 65,536 particles, 200 steps, a
      sorted 1280x720 frame every 100 steps; checks the launch counts (the
@@ -50,8 +57,10 @@ Phases (each prints a line; any failure raises and exits non-zero):
      then the compaction and deposit kernels vs plain (phase 3's bars) on
      the server's state, parameters and camera at its shape, 65,536 @
      1280x720 (its PM deposit and gather follow in phase 11)
- 10. times: pairwise at 65,536 and the sorted deposit at 1M and 16M beside
-     their plain versions, library call and bound (for the pairwise sum
+ 10. times: pairwise at 65,536 and the sorted deposit at 1M and 16M (the
+     latter beside its earlier design, one block per tile, in the same
+     turns) beside their plain versions, library call and bound (for the
+     pairwise sum
      the largest of its FP32 issue, flop and rsqrt bounds, beside the
      FP32 instructions a pair in the kernel's SASS); the sorted, compact
      and scatter frames (these include the host: the compact frame reads
@@ -119,8 +128,8 @@ Phases (each prints a line; any failure raises and exits non-zero):
 
 The line before the last is a JSON object with one entry per kernel (the
 launches of pm_deposit and pm_gather are phase 12's runs (a) and (b)
-together; those of radix_hist and radix_pass phases 8 and 12 (b)
-together; those of pairwise_mxu, block_sort and merge_round the drives
+together; those of sorted_deposit, radix_hist and radix_pass phases 8
+and 12 (b) together; those of pairwise_mxu, block_sort and merge_round the drives
 of phases 14 and 15); the last line is {"ok": true, "device": {...}}.
 """
 
@@ -313,6 +322,46 @@ def torch_sort_points(keys):
     return key_s, torch.stack([keys.r, keys.g, keys.b])[:, order].contiguous()
 
 
+def contended_keys(n, n_tiles, tile, seed, device):
+    """TileKeys of a contended frame: n points in one tile, uniform over
+    its 1,024 pixels (about n / 1,024 a pixel), colour in [0, 2^-10)."""
+    import numpy as np
+    import torch
+
+    from particle_sim_tpu_torch.render.raster import TileKeys
+
+    rng = np.random.default_rng(seed)
+    key = (tile * 1024 + rng.integers(0, 1024, n)).astype(np.int32)
+    rgb = torch.from_numpy(rng.random((3, n), dtype=np.float32) / 1024)
+    return TileKeys(torch.from_numpy(key).to(device), *rgb.to(device),
+                    n_tiles, n_tiles * 1024)
+
+
+def summation_bar(key, vals, n_tiles):
+    """The float64 sum of a deposit's f32 terms and its f32 summation
+    bound: a pixel of K terms summed in f32 in any order lies within
+    K u sum|x| of the exact sum (u = 2^-24). key: int32[n] frame keys
+    (outside [0, n_tiles * 1024) draws nothing); vals: f32[3, n].
+    -> (exact, bar), both f64[n_tiles, 3, 8, 128]."""
+    import torch
+
+    live = (key >= 0) & (key < n_tiles * 1024)
+    k = torch.where(live, key, 0).long()
+    w = live.double()
+    count = torch.zeros(n_tiles * 1024, dtype=torch.float64,
+                        device=key.device).index_add_(0, k, w)
+    pix = (k >> 10) * 3072 + (k & 1023)
+    exact = torch.zeros(n_tiles * 3072, dtype=torch.float64,
+                        device=key.device)
+    absum = torch.zeros_like(exact)
+    for c in range(3):
+        exact.index_add_(0, pix + c * 1024, vals[c].double() * w)
+        absum.index_add_(0, pix + c * 1024, vals[c].double().abs() * w)
+    shape = (n_tiles, 3, 8, 128)
+    kk = count.view(n_tiles, 1, 8, 128)
+    return exact.view(shape), kk * 2.0 ** -24 * absum.view(shape)
+
+
 def frame_pixels(key, n_tiles, width):
     """Frame pixel index (y * width + x) of 8x128-tile keys, and the live
     mask (keys below the sentinel)."""
@@ -449,6 +498,7 @@ def main() -> int:
     from particle_sim_tpu_torch.render import raster, raster_compact as rc
     from particle_sim_tpu_torch.render import raster_sorted as rs
     from particle_sim_tpu_torch.render.camera import Camera
+    from particle_sim_tpu_torch.tools import raster_variants
     from particle_sim_tpu_torch.utils import cuda_build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -460,8 +510,13 @@ def main() -> int:
           f"{sys.version.split()[0]}")
 
     # -- phase 1: build ---------------------------------------------------------
+    # the earlier designs of the two frame deposits (variant 0 of the
+    # deposit probe), built beside the package's kernels: phases 5 and 10
+    # time them in turns with the package's
+    rv_jobs = raster_variants.start_builds(raster_variants.CONFIGS[:1])
     path, secs = cuda_build.build()
     cuda_build.library()
+    (rv_lib,) = raster_variants.finish_builds(rv_jobs, show_registers=False)
     log = path.with_suffix(".log")
     regs = [ln.strip() for ln in log.read_text().splitlines()
             if "registers" in ln or ln.startswith("==")] if log.exists() else []
@@ -546,6 +601,46 @@ def main() -> int:
               f"pixels")
         return sp
 
+    def check_contended(which):
+        """One deposit kernel ("deposit": the compact renderer's,
+        "sorted_deposit") on the contended frame: 1,048,576 points in one
+        tile of a 1280x720 frame, about 1,024 a pixel. Both the kernel and
+        the plain version sum the same f32 terms in f32, each within
+        K u sum|x| of the exact sum at a pixel of K terms: the kernel is
+        held to a float64 sum within K u sum|x| and to the plain version
+        within 2 K u sum|x|. -> worst ratio to the first bar."""
+        keys = contended_keys(1 << 20, 900, 437, 5, dev)
+        if which == "sorted_deposit":
+            sp = rs.sort_points(keys)
+            args, terms = (sp.key, sp.rgb, sp.offsets), (sp.key, sp.rgb)
+            dk = rs.deposit(*args, n_tiles=900)
+            dp = rs.deposit_plain(*args, n_tiles=900)
+        else:
+            words = rc.words_of(keys)
+            ck = rc.compact(*cargs_of(words), bucket=bucket_of(words, rc),
+                            sentinel=words.sentinel)
+            pt = rc.pair_table(*ck, n_tiles=900, sentinel=words.sentinel)
+            args = (pt.table, pt.offsets, pt.key, pt.rg, pt.b)
+            terms = (pt.key, torch.stack(rc.unpack_rgb_bf16(pt.rg, pt.b)))
+            dk = rc.deposit(*args, n_tiles=900)
+            dp = rc.deposit_plain(*args, n_tiles=900)
+        exact, bar = summation_bar(*terms, 900)
+        d_plain = (dk.double() - dp.double()).abs()
+        # worst ratios to the bars (an empty pixel's bar is 0: its error
+        # must be 0 too)
+        worst, worst_p = (float((d / b).nan_to_num(0.0, 1e30).max()) for d, b
+                          in (((dk.double() - exact).abs(), bar),
+                              (d_plain, 2 * bar)))
+        if worst > 1.0 or worst_p > 1.0:
+            fail(f"{which} on the contended frame: |k - float64| at "
+                 f"{worst:.3g} of K u sum|x|, |k - p| at {worst_p:.3g} of "
+                 f"2 K u sum|x|")
+        err[which] = max(err[which], float(d_plain.max()))
+        print(f"  {which} contended (1,048,576 points in one tile @ "
+              f"1280x720): |k - float64| <= {worst:.3g} K u sum|x|, "
+              f"|k - p| max {float(d_plain.max()):.3g}")
+        return worst
+
     # -- phase 2: step kernel vs plain --------------------------------------------
     t0 = time.perf_counter()
     states = {}
@@ -569,14 +664,13 @@ def main() -> int:
 
     # -- phase 3: compaction + deposit kernels vs plain -----------------------------
     t0 = time.perf_counter()
-    main_inputs = None
+    compact_inputs = {}
     for n, w, h in ((1_000_000, 1280, 720), (16_777_216, 1920, 1080)):
-        inputs = check_compact(
+        compact_inputs[n] = (check_compact(
             f"n={n} {w}x{h}",
             frame_args(states[n], SimParams(color_mode=1),
-                       Camera(aspect=w / h)), w, h)
-        if n == 1_000_000:
-            main_inputs = inputs
+                       Camera(aspect=w / h)), w, h), w, h)
+    contended = {"deposit": check_contended("deposit")}
     # the golden frame, through the kernels
     pos, vel, col = gen.generate(3000)
     vel = (pos * 0.02).astype(np.float32)
@@ -592,7 +686,9 @@ def main() -> int:
     if gdiff.max() > 3:
         fail(f"golden frame through the kernels: max diff {gdiff.max()}")
     print(f"phase 3 compact == plain (bit-exact), deposit max |err| "
-          f"{err['deposit']:.3g}, golden frame max diff {gdiff.max()} u8 "
+          f"{err['deposit']:.3g}, contended frame within "
+          f"{contended['deposit']:.3g} K u sum|x|, golden frame max diff "
+          f"{gdiff.max()} u8 "
           f"({time.perf_counter() - t0:.1f} s)")
 
     # -- phase 4: the main path through the CLI --------------------------------------
@@ -675,50 +771,68 @@ def main() -> int:
               f"{roof / k_ms:.1%} of the 3.35 TB/s HBM roofline) | plain "
               f"{p_ms:.5f} ms ({n / p_ms * 1e3:.4g} particle-steps/s, "
               f"{roof / p_ms:.1%}) | bound {roof:.5f} ms | library: none")
-    cargs, bucket, words, dargs = main_inputs
-    # the one PyTorch call for the compaction: index_select of the kept
-    # chunks of the three word planes, stacked
-    stacked = torch.stack(cargs[:3]).view(3, -1, rc.CHUNK)
-    kept_idx = words.kept_list[: bucket // rc.CHUNK].long()
-    ck_ms, cp_ms, cl_ms = median_ms(
-        [lambda: rc.compact(*cargs, bucket=bucket, sentinel=words.sentinel),
-         lambda: rc.compact_plain(*cargs, bucket=bucket,
-                                  sentinel=words.sentinel),
-         lambda: torch.index_select(stacked, 1, kept_idx)], inner=20,
-        lead_ms=20 * 0.3)
-    # compaction bound: the kept words read, the bucket written
-    c_bound = bytes_ms(12 * int(words.kept_n.item()) * rc.CHUNK
-                       + 12 * bucket)
-    # the one PyTorch call for the deposit: index_put_ with accumulation of
-    # the points that each table entry's chunk adds to the entry's tile,
-    # into the frame (the same sum before the clamp)
-    table, offsets, key_p, rg_p, b_p = dargs
-    keep = (table & rc._F_BIT) == 0
-    s_idx = torch.clamp(table & rc._S_MASK,
-                        max=key_p.shape[0] // rc.CHUNK - 1).long()[keep]
-    ent_t = ((table >> rc._T_SHIFT) & rc._MAX_TILES)[keep]
-    ekey = key_p.view(-1, rc.CHUNK)[s_idx]
-    inside = (ekey >> 10) == ent_t[:, None]
-    pix, live = frame_pixels(torch.where(inside, ekey, words.sentinel),
-                             words.n_tiles, 1280)
-    r_, g_, b_ = rc.unpack_rgb_bf16(rg_p.view(-1, rc.CHUNK)[s_idx],
-                                    b_p.view(-1, rc.CHUNK)[s_idx])
-    lib_pix = pix[live]
-    lib_rgb = torch.stack([r_, g_, b_], -1)[live]
-    fb_lib = torch.zeros((720 * 1280, 3), dtype=torch.float32, device=dev)
-    dk_ms, dp_ms, dl_ms = median_ms(
-        [lambda: rc.deposit(*dargs, n_tiles=words.n_tiles),
-         lambda: rc.deposit_plain(*dargs, n_tiles=words.n_tiles),
-         lambda: fb_lib.index_put_((lib_pix,), lib_rgb, accumulate=True)],
-        inner=5, lead_ms=5 * 0.5)
-    # deposit bound: the point words read, the framebuffer written
-    d_bound = bytes_ms(key_p.numel() * 12 + words.n_tiles * 3 * 1024 * 4)
-    print(f"phase 5 compact 1M@1280x720: kernel {ck_ms:.5f} ms | plain "
-          f"{cp_ms:.5f} ms | index_select {cl_ms:.5f} ms | bound "
-          f"{c_bound:.5f} ms")
-    print(f"phase 5 deposit 1M@1280x720: kernel {dk_ms:.5f} ms | plain "
-          f"{dp_ms:.5f} ms | index_put_ {dl_ms:.5f} ms | bound "
-          f"{d_bound:.5f} ms")
+    # the compaction and the compact deposit at both frame shapes; the
+    # deposit beside its earlier design (one block per tile, variant 0 of
+    # tools/raster_variants.cu) in the same turns
+    cd_timing = {}
+    for n, ((cargs, bucket, words, dargs), w, h) in compact_inputs.items():
+        big = n > 2_000_000
+        # the one PyTorch call for the compaction: index_select of the kept
+        # chunks of the three word planes, stacked
+        stacked = torch.stack(cargs[:3]).view(3, -1, rc.CHUNK)
+        kept_idx = words.kept_list[: bucket // rc.CHUNK].long()
+        inner = 5 if big else 20
+        ck_ms, cp_ms, cl_ms = median_ms(
+            [lambda: rc.compact(*cargs, bucket=bucket,
+                                sentinel=words.sentinel),
+             lambda: rc.compact_plain(*cargs, bucket=bucket,
+                                      sentinel=words.sentinel),
+             lambda: torch.index_select(stacked, 1, kept_idx)], inner=inner,
+            lead_ms=inner * (2.0 if big else 0.3))
+        # compaction bound: the kept words read, the bucket written
+        c_bound = bytes_ms(12 * int(words.kept_n.item()) * rc.CHUNK
+                           + 12 * bucket)
+        # the one PyTorch call for the deposit: index_put_ with
+        # accumulation of the points that each table entry's chunk adds to
+        # the entry's tile, into the frame (the same sum before the clamp)
+        table, offsets, key_p, rg_p, b_p = dargs
+        keep = (table & rc._F_BIT) == 0
+        s_idx = torch.clamp(table & rc._S_MASK,
+                            max=key_p.shape[0] // rc.CHUNK - 1).long()[keep]
+        ent_t = ((table >> rc._T_SHIFT) & rc._MAX_TILES)[keep]
+        ekey = key_p.view(-1, rc.CHUNK)[s_idx]
+        inside = (ekey >> 10) == ent_t[:, None]
+        pix, live = frame_pixels(torch.where(inside, ekey, words.sentinel),
+                                 words.n_tiles, w)
+        r_, g_, b_ = rc.unpack_rgb_bf16(rg_p.view(-1, rc.CHUNK)[s_idx],
+                                        b_p.view(-1, rc.CHUNK)[s_idx])
+        lib_pix = pix[live]
+        lib_rgb = torch.stack([r_, g_, b_], -1)[live]
+        del ekey, inside, pix, live, r_, g_, b_
+        fb_lib = torch.zeros((h * w, 3), dtype=torch.float32, device=dev)
+        pt_ = rc.PairTable(*dargs)
+        inner = 2 if big else 5
+        dk_ms, d0_ms, dp_ms, dl_ms = median_ms(
+            [lambda: rc.deposit(*dargs, n_tiles=words.n_tiles),
+             lambda: raster_variants.compact_call(rv_lib, "v0", pt_,
+                                                  words.n_tiles),
+             lambda: rc.deposit_plain(*dargs, n_tiles=words.n_tiles),
+             lambda: fb_lib.index_put_((lib_pix,), lib_rgb,
+                                       accumulate=True)],
+            inner=inner, lead_ms=inner * (6.0 if big else 0.5))
+        # deposit bound: the point words read, the framebuffer written
+        d_bound = bytes_ms(key_p.numel() * 12 + words.n_tiles * 3 * 1024 * 4)
+        cd_timing[n] = {"compact": (ck_ms, cp_ms, cl_ms, c_bound),
+                        "deposit": (dk_ms, dp_ms, dl_ms, d_bound)}
+        print(f"phase 5 compact n={n} {w}x{h}: kernel {ck_ms:.5f} ms "
+              f"({c_bound / ck_ms:.1%} of the bound) | plain {cp_ms:.5f} ms "
+              f"| index_select {cl_ms:.5f} ms | bound {c_bound:.5f} ms")
+        print(f"phase 5 deposit n={n} {w}x{h}: kernel {dk_ms:.5f} ms "
+              f"({d_bound / dk_ms:.1%} of the bound) | earlier design (one "
+              f"block a tile) {d0_ms:.5f} ms ({d0_ms / dk_ms:.2f}x) | plain "
+              f"{dp_ms:.5f} ms | index_put_ {dl_ms:.5f} ms | bound "
+              f"{d_bound:.5f} ms | table {int(offsets[-1])} entries in use")
+        del lib_pix, lib_rgb, fb_lib
 
     # -- phase 6: pairwise kernel vs plain ---------------------------------------------
     t0 = time.perf_counter()
@@ -777,6 +891,7 @@ def main() -> int:
         args = frame_args(states[n], SimParams(color_mode=1),
                           Camera(aspect=w / h))
         sorted_inputs[n] = (check_sorted(f"n={n} {w}x{h}", args, w, h), w, h)
+    contended["sorted_deposit"] = check_contended("sorted_deposit")
     gfb = rs.render(gst_golden.pos, gst_golden.vel, gst_golden.init_color,
                     torch.from_numpy(SimParams().pack()).to(dev),
                     torch.from_numpy(Camera(aspect=2.0).view_proj()).to(dev),
@@ -787,7 +902,9 @@ def main() -> int:
         fail(f"golden frame through the sorted kernel: max diff "
              f"{sdiff.max()}")
     print(f"phase 7 sorted deposit == plain, max |err| "
-          f"{err['sorted_deposit']:.3g} (bar 1e-5 + 1e-4|p|), frames within "
+          f"{err['sorted_deposit']:.3g} (bar 1e-5 + 1e-4|p|; the contended "
+          f"frame within {contended['sorted_deposit']:.3g} K u sum|x|), "
+          f"frames within "
           f"1 u8, golden frame max diff {sdiff.max()} u8 "
           f"({time.perf_counter() - t0:.1f} s)")
 
@@ -1011,9 +1128,10 @@ def main() -> int:
         lib_rgb = sp.rgb.T[live].contiguous()
         fb_lib = torch.zeros((h * w, 3), dtype=torch.float32, device=dev)
         inner = 10 if n == 1_000_000 else 3
-        k_ms, p_ms, l_ms = median_ms(
+        k_ms, k0_ms, p_ms, l_ms = median_ms(
             [lambda: rs.deposit(sp.key, sp.rgb, sp.offsets,
                                 n_tiles=sp.n_tiles),
+             lambda: raster_variants.sorted_call(rv_lib, "v0", sp),
              lambda: rs.deposit_plain(sp.key, sp.rgb, sp.offsets,
                                       n_tiles=sp.n_tiles),
              lambda: fb_lib.index_put_((lib_pix,), lib_rgb,
@@ -1022,8 +1140,10 @@ def main() -> int:
         bound = bytes_ms(16 * n + 12 * w * h)
         sd_timing[n] = (k_ms, p_ms, l_ms, bound)
         print(f"phase 10 sorted deposit n={n} {w}x{h}: kernel {k_ms:.5f} ms "
-              f"| plain {p_ms:.5f} ms | index_put_ {l_ms:.5f} ms | bound "
-              f"{bound:.5f} ms ({bound / k_ms:.1%})")
+              f"({bound / k_ms:.1%} of the bound) | earlier design (one "
+              f"block a tile) {k0_ms:.5f} ms ({k0_ms / k_ms:.2f}x) | plain "
+              f"{p_ms:.5f} ms | index_put_ {l_ms:.5f} ms | bound "
+              f"{bound:.5f} ms")
     # frames: the random-velocity states of phases 2-3 (every point lit),
     # and the attractor path's own final state (lit only where the mouse
     # pulled)
@@ -1765,14 +1885,20 @@ def main() -> int:
          "source": src + "raster_compact.cu",
          "replaces": "particle_sim_tpu/render/raster_compact.py:165",
          "launches": launches["compact"], "max_abs_err": err["compact"],
-         "ms": ck_ms, "plain_ms": cp_ms, "bound_ms": c_bound,
-         "bound_by": "bytes", "library_ms": cl_ms},
+         "ms": cd_timing[1_000_000]["compact"][0],
+         "plain_ms": cd_timing[1_000_000]["compact"][1],
+         "bound_ms": cd_timing[1_000_000]["compact"][3],
+         "bound_by": "bytes",
+         "library_ms": cd_timing[1_000_000]["compact"][2]},
         {"name": "deposit", "route": "cuda",
          "source": src + "raster_compact.cu",
          "replaces": "particle_sim_tpu/render/raster_compact.py:85",
          "launches": launches["deposit"], "max_abs_err": err["deposit"],
-         "ms": dk_ms, "plain_ms": dp_ms, "bound_ms": d_bound,
-         "bound_by": "bytes", "library_ms": dl_ms},
+         "ms": cd_timing[1_000_000]["deposit"][0],
+         "plain_ms": cd_timing[1_000_000]["deposit"][1],
+         "bound_ms": cd_timing[1_000_000]["deposit"][3],
+         "bound_by": "bytes",
+         "library_ms": cd_timing[1_000_000]["deposit"][2]},
         {"name": "pairwise", "route": "cuda", "source": src + "pairwise.cu",
          "replaces": "particle_sim_tpu/ops/pairwise_pallas.py:54",
          "launches": g_launches["pairwise"], "max_abs_err": err["pairwise"],
@@ -1781,7 +1907,8 @@ def main() -> int:
         {"name": "sorted_deposit", "route": "cuda",
          "source": src + "raster_sorted.cu",
          "replaces": "particle_sim_tpu/render/raster_sorted.py:47",
-         "launches": g_launches["sorted_deposit"],
+         "launches": g_launches["sorted_deposit"]
+         + pm_runs["b"][0]["sorted_deposit"],
          "max_abs_err": err["sorted_deposit"],
          "ms": sd_timing[1_000_000][0], "plain_ms": sd_timing[1_000_000][1],
          "bound_ms": sd_timing[1_000_000][3], "bound_by": "bytes",

@@ -13,7 +13,11 @@ pipeline, in plain PyTorch around two kernels of csrc/raster_compact.cu:
   3. sort the bucket in independent segments, and build a tile-major
      (tile, chunk) pair table with one small sort;
   4. the **deposit kernel** (:func:`deposit`) sums, for every tile, the
-     points of the chunks its table entries name.
+     points of the chunks its table entries name. Its work is split by
+     table entries, not by tiles: a warp takes one 128-point group of one
+     entry's chunk, reads the colour only where the entry's in-tile run
+     lies, and adds each pixel's sum once to the frame, which the launch
+     zeroes first.
 
 Each kernel wrapper takes its plain PyTorch version (``compact_plain``,
 ``deposit_plain``) for CPU tensors, and on CUDA tensors launches the
@@ -30,7 +34,7 @@ import torch
 from ..utils import cuda_build
 from ..utils.search import rank_right_iota
 from .raster import (
-    PX_PER_TILE, TILE_H, TILE_W, tile_keys, tiles_to_frame,
+    PX_PER_TILE, TILE_H, TILE_W, TileKeys, tile_keys, tiles_to_frame,
 )
 
 CHUNK = 512
@@ -139,8 +143,10 @@ def deposit_plain(table, offsets, key_p, rg_p, b_p, *, n_tiles: int):
 
     Every table entry without the first-visit flag names (tile, chunk);
     the chunk's points whose key lies inside that tile add their colour
-    to it. The tile of an entry is read from its word (the kernel takes
-    it from ``offsets`` instead, so a wrong offset shows as a mismatch).
+    to it. The tile of an entry is read from its word, as the kernel
+    reads it; the kernel visits only the entries [0, offsets[n_tiles]),
+    this version every entry, so a wrong offsets[n_tiles] shows as a
+    mismatch.
     """
     del offsets
     n_chunks = key_p.shape[0] // CHUNK
@@ -166,7 +172,8 @@ def deposit(table, offsets, key_p, rg_p, b_p, *, n_tiles: int):
     """Sum each tile's table entries into tile planes (kernel 3).
 
     table: int32 tile-major pair-table words (tile << 18 | flag | chunk);
-    offsets: int32[n_tiles + 1], tile t owns table[offsets[t]:offsets[t+1]];
+    offsets: int32[n_tiles + 1], tile t owns table[offsets[t]:offsets[t+1]]
+    (the kernel reads offsets[n_tiles], the count of entries in use);
     key_p, rg_p, b_p: int32[n_chunks * 512] chunk words.
     -> f32[n_tiles, 3, 8, 128]."""
     global DEPOSIT_LAUNCHES
@@ -194,7 +201,7 @@ def deposit(table, offsets, key_p, rg_p, b_p, *, n_tiles: int):
         err = lib.psim_deposit(
             table.data_ptr(), offsets.data_ptr(), key_p.data_ptr(),
             rg_p.data_ptr(), b_p.data_ptr(), out.data_ptr(), n_tiles,
-            m // CHUNK, stream)
+            m // CHUNK, table.shape[0], stream)
     DEPOSIT_LAUNCHES += 1
     cuda_build.check(err, "deposit")
     return out
@@ -216,8 +223,13 @@ class PointWords(NamedTuple):
 def point_words(pos, vel, init_color, param_vec, view_proj, n_active, *,
                 width: int, height: int) -> PointWords:
     """Shade, project and pack every point; list the visible chunks."""
-    keys = tile_keys(pos, vel, init_color, param_vec, view_proj, n_active,
-                     width=width, height=height)
+    return words_of(tile_keys(pos, vel, init_color, param_vec, view_proj,
+                              n_active, width=width, height=height))
+
+
+def words_of(keys: TileKeys) -> PointWords:
+    """Pack the colour of one frame's tile keys into bf16 words and list
+    the visible chunks."""
     if keys.n_tiles > _MAX_TILES:
         raise ValueError(f"{keys.n_tiles} framebuffer tiles; at most "
                          f"{_MAX_TILES}")

@@ -15,8 +15,11 @@ in plain PyTorch around one kernel of csrc/raster_sorted.cu:
      gives every tile its slice [offsets[t], offsets[t+1]) of the sorted
      points (the TPU's chunk table maps grid steps to 512-point chunks
      instead, because its kernel can only read aligned blocks);
-  4. the **deposit kernel** (:func:`deposit`) sums each tile's slice into
-     its 8x128 tile.
+  4. the **deposit kernel** (:func:`deposit`) sums the points into their
+     8x128 tiles. Its work is split by points, not by tiles: warps stride
+     over the live points [offsets[0], offsets[n_tiles]) in groups of 128,
+     sum each pixel's run of points in registers and shuffles, and add it
+     once to the frame, which the launch zeroes first.
 
 :func:`deposit` takes its plain version (:func:`deposit_plain`) for CPU
 tensors, and on CUDA tensors launches the kernel or raises.
@@ -66,8 +69,9 @@ def deposit_plain(key, rgb, offsets, *, n_tiles: int) -> torch.Tensor:
     """Plain version of the deposit kernel -> f32[n_tiles, 3, 8, 128].
 
     Every point whose key lies in a tile adds its payload there. The tile
-    is read from the key (the kernel takes its slice from ``offsets``
-    instead, so a wrong offset shows as a mismatch)."""
+    is read from the key, and every point is visited (the kernel visits
+    only the live points [offsets[0], offsets[n_tiles]), so a wrong
+    offset there shows as a mismatch)."""
     del offsets
     live = (key >= 0) & (key < n_tiles * PX_PER_TILE)
     k = torch.where(live, key, 0)
@@ -81,9 +85,9 @@ def deposit_plain(key, rgb, offsets, *, n_tiles: int) -> torch.Tensor:
 
 
 def deposit(key, rgb, offsets, *, n_tiles: int) -> torch.Tensor:
-    """Sum each tile's slice of the sorted points into its tile (the
-    kernel). key: int32[n] sorted; rgb: f32[3, n]; offsets:
-    int32[n_tiles + 1]. -> f32[n_tiles, 3, 8, 128]."""
+    """Sum the sorted points into their tiles (the kernel). key: int32[n]
+    sorted; rgb: f32[3, n]; offsets: int32[n_tiles + 1], the live points
+    are [offsets[0], offsets[n_tiles]). -> f32[n_tiles, 3, 8, 128]."""
     global LAUNCHES
     n = key.shape[0]
     dev = key.device

@@ -41,7 +41,7 @@ _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 SIGNATURES = {
     "psim_step": (_P, _P, _P, _I64, _I, _P),
     "psim_compact": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
-    "psim_deposit": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "psim_deposit": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "psim_pairwise": (_P, _P, _P, _P, _P, _I, _I, _P),
     "psim_sorted_deposit": (_P, _P, _P, _P, _I, _I, _P),
     "psim_pm_deposit": (_P, _I, _P, _P, _P, _P, _P, _I, _F, _I, _P, _P),
