@@ -10,7 +10,9 @@ the WebSocket server at 65,536, and times the kernels.
 Phases (each prints a line; any failure raises and exits non-zero):
   1. build the CUDA kernels of particle_sim_tpu_torch/csrc/ with nvcc,
      and beside them (in parallel) the earlier designs of the two frame
-     deposits, variant 0 of particle_sim_tpu_torch/tools/raster_variants.cu
+     deposits, variant 0 of particle_sim_tpu_torch/tools/raster_variants.cu,
+     and of the tensor-core force, variant 0 of
+     particle_sim_tpu_torch/tools/pairwise_mxu_variants.cu
   2. step kernel vs plain PyTorch at 1M and 16,777,216 particles, three
      parameter sets, 1 and 5 substeps (rtol = atol = 1e-6 for one step,
      1e-5 for five)
@@ -102,13 +104,25 @@ Phases (each prints a line; any failure raises and exits non-zero):
  14. the tensor-core all-pairs force (pairwise_cuda.pairwise_accel_mxu, no
      entry point calls it) at 65,536 (filled sphere, G = 2.5, eps 0.5):
      the square, 60,000 active with poisoned padding, 65,536 x 32,768 at
-     j_base 32,768, 32,768 x 65,536 and 1,000 x 777 with 700 active;
+     j_base 32,768, 32,768 x 65,536 and 1,000 x 777 with 700 active,
+     each once through the wrapper (the Hilbert key kernel, the radix sort
+     of (key, index), the inlier box kernel, the force kernel: 5 launches
+     of each kernel);
      against its plain version (within twice the plain version's own
      distance from the direct sum: both are the expanded f32 form) and
      against the pairwise kernel at the JAX bar, max |dA| / (|A| + 1e-2)
-     < 0.05 per component; its SASS must hold HMMA (both products on the
-     tensor cores); times beside the pairwise kernel, plain and the
-     bound (the largest of its FP32, rsqrt and TF32 tensor-core bounds)
+     < 0.05 per component, with the earlier design's error beside it; the
+     Hilbert keys and the inlier box bit for bit the plain hilbert_keys
+     and inlier_box (65,536, 1,000 and the poisoned padding; 8 and 10
+     bits) and the radix order the plain stable hilbert_order; its SASS
+     must hold HMMA; its registers, blocks an SM and the SASS mix a pair
+     of its hot loop; times in turns with the earlier design (variant 0
+     of tools/pairwise_mxu_variants.cu): the kernels alone, and the whole
+     function against the earlier path (plain hilbert_order, a gather,
+     variant 0, index_copy_); the receiver order against plain
+     hilbert_order, the key and box kernels against their plain
+     versions; the pairwise kernel, plain and the bound (the largest of
+     rsqrt, the cube's FP32 and the products' TF32 flops)
  15. the sort (psort.sort: the radix kernels, histogram and passes) on the
      PM forward-sort words (cell key, idx, packed fractions[, mass]) at 1M
      and 16M (hollow sphere, G = 128), the un-sort words (2 x uint32 with
@@ -129,8 +143,9 @@ Phases (each prints a line; any failure raises and exits non-zero):
 The line before the last is a JSON object with one entry per kernel (the
 launches of pm_deposit and pm_gather are phase 12's runs (a) and (b)
 together; those of sorted_deposit, radix_hist and radix_pass phases 8
-and 12 (b) together; those of pairwise_mxu, block_sort and merge_round the drives
-of phases 14 and 15); the last line is {"ok": true, "device": {...}}.
+and 12 (b) together; those of pairwise_mxu, hilbert_keys, inlier_box,
+block_sort and merge_round the drives of phases 14 and 15); the last line
+is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -162,12 +177,11 @@ FP32_INSTRS_PER_S = FP32_FLOPS_PER_S / 2
 RSQRT_PER_S = FP32_FLOPS_PER_S / 16
 N_GRAVITY = 65_536             # BASELINE.json config 3: all-pairs gravity
 TF32_FLOPS_PER_S = 495e12      # H100 SXM data sheet, dense TF32 tensor cores
-# the tensor-core force's work a pair (csrc/pairwise_mxu.cu): FP32 r2 = 5
-# adds, the cube 2 mul, the TF32 split of w 1 sub, the stage sum 1 add
-# (9 instructions), one rsqrt, and 4 mma.sync a 16 x 8 tile of pairs
-# (three m16n8k8 at 2,048 flops, one m16n8k4 at 1,024): 56 flops a pair
-MXU_PAIR_FP32_INSTRS = 9
-MXU_PAIR_TC_FLOPS = 56
+# the tensor-core force's least work a pair, whatever the design: one
+# rsqrt, the cube's 2 FP32 multiplies, and the two products' flops counted
+# once (r^2's -2 xi.xj: 3 multiply-adds; S = [x, y, z, 1] w: 4)
+MXU_PAIR_FP32_INSTRS = 2
+MXU_PAIR_TC_FLOPS = 14
 
 
 def fail(msg: str) -> None:
@@ -310,6 +324,99 @@ def sass_counts(lib_path, kernel: str) -> dict:
     return {"fp32": len(re.findall(r"\b(?:FADD|FMUL|FFMA)\b", body)),
             "rsq": len(re.findall(r"\bMUFU\.RSQ\b", body)),
             "hmma": len(re.findall(r"\bHMMA\b", body))}
+
+
+#: SASS opcode classes of sass_mix (by the opcode's first word)
+SASS_CLASSES = (
+    ("HMMA", ("HMMA",)),
+    ("MUFU", ("MUFU",)),
+    ("FP32", ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FCHK")),
+    ("INT/LOP", ("IADD3", "IMAD", "LOP3", "SHF", "LEA", "ISETP", "IABS",
+                 "SEL", "PRMT", "IMNMX", "POPC", "FLO", "BMSK", "SGXT",
+                 "IADD", "LOP", "SHL", "SHR")),
+    ("LDS", ("LDS", "LDSM")),
+    ("STS", ("STS",)),
+    ("CVT", ("F2F", "F2I", "I2F", "FRND", "F2FP", "I2FP")),
+    ("MOV", ("MOV", "SHFL", "S2R", "CS2R", "S2UR")),
+)
+
+
+def sass_mix(lib_path, kernel: str, skip: str = "\0") -> dict:
+    """The instruction mix of one kernel's machine code (cuobjdump -sass
+    of the built library; the first function whose mangled name holds
+    ``kernel`` and not ``skip``): counts by SASS_CLASSES ("other" for the
+    rest, "uniform" for the U* datapath) over the whole function and over
+    its hot loop, the innermost backward-branch loop that holds a
+    MUFU.RSQ. -> {"whole": {...}, "loop": {...}, "loop_rsq": n}; a pair's
+    mix is loop / loop_rsq (one rsqrt a pair and thread)."""
+    from particle_sim_tpu_torch.utils import cuda_build
+
+    cuobjdump = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    return sass_mix_of(next(s for s in sass.split("Function : ")[1:]
+                            if kernel in s.split()[0]
+                            and skip not in s.split()[0]))
+
+
+def sass_mix_of(body: str) -> dict:
+    """sass_mix on the text of one function."""
+    import re
+
+    insts, labels, pending = [], {}, []
+    for ln in body.splitlines():
+        m = re.match(r"\s*(\.L_x_\d+):", ln)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)"
+                     r"\s*([^;]*);", ln)
+        if not m:
+            continue
+        addr = int(m.group(1), 16)
+        for lab in pending:
+            labels[lab] = addr
+        pending = []
+        insts.append((addr, m.group(2), m.group(3)))
+
+    def klass(op):
+        base = op.split(".")[0]
+        for name, ops in SASS_CLASSES:
+            if base in ops:
+                return name
+        return "uniform" if base.startswith("U") else "other"
+
+    def counts(rows):
+        out = {name: 0 for name, _ in SASS_CLASSES}
+        out.update(other=0, uniform=0)
+        for _, op, _ in rows:
+            out[klass(op)] += 1
+        return out
+
+    loops = []
+    for addr, op, args in insts:
+        if op.split(".")[0] != "BRA":
+            continue
+        m = re.search(r"\(\s*(\.L_x_\d+)\s*\)|0x([0-9a-f]+)", args)
+        if not m:
+            continue
+        dest = labels.get(m.group(1)) if m.group(1) else int(m.group(2), 16)
+        if dest is not None and dest <= addr:
+            body_ = [r for r in insts if dest <= r[0] <= addr]
+            rsq = sum(op_.startswith("MUFU.RSQ") for _, op_, _ in body_)
+            if rsq:
+                loops.append((addr - dest, body_, rsq))
+    loop, rsq = (min(loops, key=lambda x: x[0])[1:] if loops else ([], 0))
+    return {"whole": counts(insts), "loop": counts(loop), "loop_rsq": rsq}
+
+
+def mix_per_pair(mix: dict) -> str:
+    """A hot loop's mix a pair, as text: 'HMMA 0.50, MUFU 1.00, ...'."""
+    n = max(mix["loop_rsq"], 1)
+    return ", ".join(f"{k} {v / n:.2f}" for k, v in mix["loop"].items()
+                     if v) + f" (hot loop: {sum(mix['loop'].values())} " \
+        f"instructions, {mix['loop_rsq']} MUFU.RSQ)"
 
 
 def torch_sort_points(keys):
@@ -498,6 +605,7 @@ def main() -> int:
     from particle_sim_tpu_torch.render import raster, raster_compact as rc
     from particle_sim_tpu_torch.render import raster_sorted as rs
     from particle_sim_tpu_torch.render.camera import Camera
+    from particle_sim_tpu_torch.tools import pairwise_mxu_variants as mxv
     from particle_sim_tpu_torch.tools import raster_variants
     from particle_sim_tpu_torch.utils import cuda_build
 
@@ -513,10 +621,14 @@ def main() -> int:
     # the earlier designs of the two frame deposits (variant 0 of the
     # deposit probe), built beside the package's kernels: phases 5 and 10
     # time them in turns with the package's
+    # and the earlier design of the tensor-core force (variant 0 of its
+    # probe): phase 14 times it in turns with the package's
     rv_jobs = raster_variants.start_builds(raster_variants.CONFIGS[:1])
+    mx_jobs = mxv.start_builds(mxv.CONFIGS[:1])
     path, secs = cuda_build.build()
     cuda_build.library()
     (rv_lib,) = raster_variants.finish_builds(rv_jobs, show_registers=False)
+    ((mx_v0_lib, _),) = mxv.finish_builds(mx_jobs)
     log = path.with_suffix(".log")
     regs = [ln.strip() for ln in log.read_text().splitlines()
             if "registers" in ln or ln.startswith("==")] if log.exists() else []
@@ -527,7 +639,8 @@ def main() -> int:
 
     err = {"step": 0.0, "compact": 0.0, "deposit": 0.0, "pairwise": 0.0,
            "sorted_deposit": 0.0, "pm_deposit": 0.0, "pm_gather": 0.0,
-           "pairwise_mxu": 0.0, "sort": 0.0}
+           "pairwise_mxu": 0.0, "hilbert_keys": 0.0, "inlier_box": 0.0,
+           "sort": 0.0}
     params = [SimParams(),
               SimParams(gravity=2.0),
               SimParams(is_mouse_dragging=True,
@@ -1540,30 +1653,30 @@ def main() -> int:
     # -- phase 14: the tensor-core all-pairs force -----------------------------
     t0 = time.perf_counter()
     mx_g, mx_eps = 2.5, 0.5
-    mx_cases = [("square", x, x, N_GRAVITY, 0),
-                ("60000 active, poisoned padding", poisoned, poisoned,
-                 60_000, 0),
-                ("65536 x 32768, j_base 32768", x, x[:, half:].contiguous(),
-                 N_GRAVITY, half),
-                ("32768 x 65536", x[:, :half].contiguous(), x, N_GRAVITY, 0),
-                ("1000 x 777, 700 active", x[:, :1000].contiguous(),
-                 x[:, :777].contiguous(), 700, 0)]
-    # the drive: every case once through the kernel's wrapper
-    pairwise_cuda.MXU_LAUNCHES = 0
+    mx_cases = mxv.phase14_cases(x)
+    # the drive: every case once through the kernel's wrapper (the Hilbert
+    # key kernel, the radix sort of (key, index), the inlier box kernel,
+    # the force kernel)
+    pairwise_cuda.MXU_LAUNCHES = pairwise_cuda.HILBERT_LAUNCHES = 0
+    pairwise_cuda.BOX_LAUNCHES = 0
     mx_got = [pairwise_cuda.pairwise_accel_mxu(xi_, xj_, na, mx_g, mx_eps,
                                                j_base=jb)
               for _, xi_, xj_, na, jb in mx_cases]
     torch.cuda.synchronize()
     mx_launches = pairwise_cuda.MXU_LAUNCHES
-    if mx_launches != len(mx_cases):
-        fail(f"pairwise_mxu: {mx_launches} launches for {len(mx_cases)} "
-             f"calls")
-    mx_rel = 0.0
+    hk_launches = pairwise_cuda.HILBERT_LAUNCHES
+    ib_launches = pairwise_cuda.BOX_LAUNCHES
+    if not mx_launches == hk_launches == ib_launches == len(mx_cases):
+        fail(f"pairwise_mxu: {mx_launches} force, {hk_launches} key and "
+             f"{ib_launches} box launches for {len(mx_cases)} calls")
+    mx_rel = mx_rel_v0 = 0.0
     for (label, xi_, xj_, na, jb), got in zip(mx_cases, mx_got):
         want = pairwise.pairwise_accel_mxu_ref(xi_, xj_, na, mx_g, mx_eps,
                                                j_base=jb)
         direct = pairwise_cuda.pairwise_accel(xi_.T, xj_, na, mx_g, mx_eps,
                                               j_base=jb).T
+        # the earlier design behind the plain Hilbert order, for comparison
+        v0 = mxv.earlier_path(mx_v0_lib, xi_, xj_, na, mx_g, mx_eps, jb)
         torch.cuda.synchronize()
         # both are the expanded f32 form: the bar is twice the plain
         # version's own distance from the direct sum (the pairwise kernel)
@@ -1571,20 +1684,43 @@ def main() -> int:
         e = check_close(f"pairwise_mxu {label}", got, want, 0.0,
                         2.0 * plain_err)
         err["pairwise_mxu"] = max(err["pairwise_mxu"], e)
-        rel = float(((got - direct).abs() / (direct.abs() + 1e-2)).max())
-        rel_plain = float(((want - direct).abs()
-                           / (direct.abs() + 1e-2)).max())
+        rel, rel_v0, rel_plain = (
+            float(((a - direct).abs() / (direct.abs() + 1e-2)).max())
+            for a in (got, v0, want))
         rel_norm = float(((got - direct).norm(dim=0)
                           / (direct.norm(dim=0) + 1e-2)).max())
         if not rel < 0.05:
             fail(f"pairwise_mxu {label}: max |dA| / (|A| + 1e-2) {rel:.4g} "
                  f"against the pairwise kernel (bar 0.05)")
-        mx_rel = max(mx_rel, rel)
+        mx_rel, mx_rel_v0 = max(mx_rel, rel), max(mx_rel_v0, rel_v0)
         print(f"  pairwise_mxu {label}: max |k - p| {e:.3g} (bar "
               f"{2.0 * plain_err:.3g}, max|p| {float(want.abs().max()):.4g});"
               f" against the pairwise kernel max |dA| / (|A| + 1e-2) "
-              f"{rel:.4g} a component (plain {rel_plain:.4g}), "
-              f"{rel_norm:.3g} a particle (|dA| / (|A| + 1e-2))")
+              f"{rel:.4g} a component (earlier design {rel_v0:.4g}, plain "
+              f"{rel_plain:.4g}), {rel_norm:.3g} a particle")
+    # the Hilbert key kernel: bit for bit the plain keys; the order it
+    # gives through the radix sort: the plain stable argsort's
+    hk_cases = [("65536", x), ("1000", x[:, :1000].contiguous()),
+                ("poisoned padding", poisoned)]
+    for label, pts in hk_cases:
+        for bits in (8, 10):
+            hk = pairwise_cuda.hilbert_keys_kernel(pts, bits)
+            hp = pairwise_cuda.hilbert_keys(pts, bits)
+            err["hilbert_keys"] = max(err["hilbert_keys"], float(
+                (hk.long() - hp.long()).abs().max()))
+            if not torch.equal(hk, hp):
+                fail(f"hilbert_keys {label} bits {bits}: "
+                     f"{int((hk != hp).sum())} keys differ from plain")
+        if not torch.equal(pairwise_cuda.receiver_order(pts).long(),
+                           pairwise_cuda.hilbert_order(pts)):
+            fail(f"receiver_order {label}: differs from hilbert_order")
+        ibk = pairwise_cuda.inlier_box_kernel(pts)
+        ibp = pairwise_cuda.inlier_box(pts)
+        err["inlier_box"] = max(err["inlier_box"], float(torch.where(
+            ibk == ibp, 0.0, (ibk - ibp).abs()).max()))
+        if not torch.equal(ibk, ibp):
+            fail(f"inlier_box {label}: kernel {ibk.tolist()} against plain "
+                 f"{ibp.tolist()}")
     # the plain version's error on the square case, split by its source
     direct = pairwise_cuda.pairwise_accel(x.T, x, N_GRAVITY, mx_g, mx_eps).T
     budget = []
@@ -1601,36 +1737,97 @@ def main() -> int:
     mx_sass = sass_counts(path, "pairwise_mxu_kernel")
     if mx_sass["hmma"] == 0:
         fail(f"pairwise_mxu: no HMMA in its SASS ({mx_sass})")
-    mx_ms, mxd_ms, mxo_ms = median_ms(
-        [lambda: pairwise_cuda.pairwise_accel_mxu(x, x, N_GRAVITY, mx_g,
+    mx_mix = sass_mix(path, "pairwise_mxu_kernel")
+    mx_occ = mxv.occupancy(cuda_build.library())
+    # times at 65,536^2, in turns: the kernels alone (the new one reads
+    # its receivers through the order, the earlier takes them gathered),
+    # then the whole function against the earlier path
+    mx_in = mxv.Inputs(x, x, N_GRAVITY)
+    lib_pkg = cuda_build.library()
+    mxk = median_ms(
+        [lambda: mxv.v0_call(mx_v0_lib, mx_in),
+         lambda: mxv.kernel_call(lib_pkg, mx_in),
+         lambda: mxv.kernel_call(lib_pkg, mx_in),
+         lambda: mxv.v0_call(mx_v0_lib, mx_in)],
+        reps=7, inner=5, lead_ms=5 * 5.0)
+    mxw = median_ms(
+        [lambda: mxv.earlier_path(mx_v0_lib, x, x, N_GRAVITY, mx_g, mx_eps),
+         lambda: pairwise_cuda.pairwise_accel_mxu(x, x, N_GRAVITY, mx_g,
                                                   mx_eps),
+         lambda: pairwise_cuda.pairwise_accel_mxu(x, x, N_GRAVITY, mx_g,
+                                                  mx_eps),
+         lambda: mxv.earlier_path(mx_v0_lib, x, x, N_GRAVITY, mx_g, mx_eps),
          lambda: pairwise_cuda.pairwise_accel(x.T, x, N_GRAVITY, mx_g,
-                                              mx_eps),
-         lambda: (pairwise_cuda.hilbert_order(x),
-                  pairwise_cuda.inlier_box(x))],
+                                              mx_eps)],
         reps=7, inner=5, lead_ms=5 * 8.0)
+    mx_ms, mxv0_ms = (mxk[1] + mxk[2]) / 2, (mxk[0] + mxk[3]) / 2
+    mxf_ms, mxfv0_ms = (mxw[1] + mxw[2]) / 2, (mxw[0] + mxw[3]) / 2
+    mxd_ms = mxw[4]
+    # the receiver order: key kernel + radix sort against the plain
+    # Hilbert order; the key kernel alone (box given) against plain keys;
+    # the inlier box
+    hk_box = pairwise_cuda.hilbert_box(x)
+    mxo = median_ms(
+        [lambda: pairwise_cuda.hilbert_order(x),
+         lambda: pairwise_cuda.receiver_order(x),
+         lambda: pairwise_cuda.receiver_order(x),
+         lambda: pairwise_cuda.hilbert_order(x),
+         lambda: pairwise_cuda.hilbert_keys_kernel(x, 8, hk_box),
+         lambda: pairwise_cuda.hilbert_keys(x, 8, hk_box),
+         lambda: pairwise_cuda.inlier_box_kernel(x),
+         lambda: pairwise_cuda.inlier_box(x)],
+        reps=7, inner=10, lead_ms=10 * 0.3)
+    mxo_plain, mxo_new = (mxo[0] + mxo[3]) / 2, (mxo[1] + mxo[2]) / 2
+    hk_ms, hkp_ms, ib_ms, ibp_ms = mxo[4:8]
+    hk_bound = bytes_ms(16 * N_GRAVITY)
+    # the box reads its strided sample once (3 x 4,096 f32), writes 6 f32
+    ib_bound = bytes_ms(12 * (-(-N_GRAVITY // max(1, N_GRAVITY // 4096)))
+                        + 24)
     (mxp_ms,) = median_ms(
         [lambda: pairwise.pairwise_accel_mxu_ref(x, x, N_GRAVITY, mx_g,
                                                  mx_eps)], reps=3, inner=1)
-    mx_fp32 = MXU_PAIR_FP32_INSTRS * pairs / FP32_INSTRS_PER_S * 1e3
+    # the bound, whatever the design: one rsqrt a pair (MUFU, 16/SM/clock),
+    # the cube's 2 FP32 instructions a pair, and the products' flops once
+    # (r^2's -2 xi.xj, 3 multiply-adds; S, 4) at the TF32 rate
     mx_rsqrt = pairs / RSQRT_PER_S * 1e3
+    mx_cube = MXU_PAIR_FP32_INSTRS * pairs / FP32_INSTRS_PER_S * 1e3
     mx_tc = MXU_PAIR_TC_FLOPS * pairs / TF32_FLOPS_PER_S * 1e3
-    mx_bound = max(mx_fp32, mx_rsqrt, mx_tc)
+    mx_bound = max(mx_rsqrt, mx_cube, mx_tc)
     print(f"phase 14 pairwise_mxu at {N_GRAVITY}: {len(mx_cases)} cases, "
           f"max |k - p| {err['pairwise_mxu']:.3g}, against the pairwise "
-          f"kernel max {mx_rel:.4g} a component (bar 0.05); SASS "
-          f"{mx_sass['hmma']} HMMA, {mx_sass['rsq']} MUFU.RSQ, "
-          f"{mx_sass['fp32']} FP32 ({time.perf_counter() - t0:.1f} s)")
+          f"kernel max {mx_rel:.4g} a component (bar 0.05; the earlier "
+          f"design {mx_rel_v0:.4g}); hilbert keys and inlier box == plain "
+          f"(bit-exact) and the radix order == hilbert_order at 65536, "
+          f"1000 and poisoned padding; launches: force {mx_launches}, keys "
+          f"{hk_launches}, box {ib_launches} ({time.perf_counter() - t0:.1f}"
+          f" s)")
+    print(f"phase 14 pairwise_mxu kernel: {mx_occ['registers']} registers, "
+          f"{mx_occ['local_bytes']} B local, {mx_occ['shared_bytes']} B "
+          f"shared, {mx_occ['blocks_per_sm']} blocks of "
+          f"{mx_occ['threads']} threads an SM ({mx_occ['receivers_per_block']}"
+          f" receivers a block); SASS {mx_sass['hmma']} HMMA, "
+          f"{mx_sass['rsq']} MUFU.RSQ, {mx_sass['fp32']} FP32; a pair in "
+          f"its hot loop: {mix_per_pair(mx_mix)}")
     print(f"phase 14 pairwise_mxu {N_GRAVITY}^2: kernel {mx_ms:.4f} ms "
           f"({pairs / mx_ms * 1e3:.4g} pairs/s, {mx_bound / mx_ms:.1%} of the "
-          f"bound; of it the wrapper's Hilbert order and inlier box "
-          f"{mxo_ms:.4f} ms) | pairwise kernel {mxd_ms:.4f} ms | plain "
-          f"{mxp_ms:.3f} ms "
-          f"| bound {mx_bound:.4f} ms (largest of: {MXU_PAIR_FP32_INSTRS} "
-          f"FP32 instructions/pair at 128/SM/clock {mx_fp32:.4f} ms; rsqrt "
-          f"at 16/SM/clock {mx_rsqrt:.4f} ms; {MXU_PAIR_TC_FLOPS} TF32 "
-          f"tensor-core flops/pair at 495 TFLOP/s {mx_tc:.4f} ms) | "
-          f"library: none")
+          f"bound) against the earlier design {mxv0_ms:.4f} ms (in turns: "
+          f"{' | '.join(f'{t:.4f}' for t in mxk)}) | whole function "
+          f"{mxf_ms:.4f} ms against the earlier path {mxfv0_ms:.4f} ms (in "
+          f"turns: {' | '.join(f'{t:.4f}' for t in mxw[:4])}) | pairwise "
+          f"kernel {mxd_ms:.4f} ms | plain {mxp_ms:.3f} ms | bound "
+          f"{mx_bound:.4f} ms (largest of: rsqrt at 16/SM/clock "
+          f"{mx_rsqrt:.4f} ms; the cube's {MXU_PAIR_FP32_INSTRS} FP32 "
+          f"instructions/pair at 128/SM/clock {mx_cube:.4f} ms; "
+          f"{MXU_PAIR_TC_FLOPS} flops/pair of the two products at 495 TFLOP/s"
+          f" TF32 {mx_tc:.4f} ms) | library: none")
+    print(f"phase 14 receiver order {N_GRAVITY}: key kernel + radix sort "
+          f"{mxo_new:.4f} ms against plain hilbert_order {mxo_plain:.4f} ms "
+          f"(in turns: {' | '.join(f'{t:.4f}' for t in mxo[:4])}); key "
+          f"kernel alone {hk_ms:.5f} ms (plain {hkp_ms:.4f} ms, bytes bound "
+          f"{hk_bound:.5f} ms); inlier box kernel {ib_ms:.5f} ms (plain "
+          f"inlier_box {ibp_ms:.4f} ms, bytes bound {ib_bound:.6f} ms); of "
+          f"the whole function {mxf_ms:.4f} ms the force kernel is "
+          f"{mx_ms / mxf_ms:.1%}")
 
     # -- phase 15: the sort: radix kernels, and the merge sort's ---------------
     t0 = time.perf_counter()
@@ -1932,12 +2129,30 @@ def main() -> int:
          "plain_ms": pm_timing["n=1000000"][5],
          "bound_ms": pm_timing["n=1000000"][7], "bound_by": "bytes",
          "library_ms": pm_timing["n=1000000"][6]},
+        # the kernel alone (receivers read through the order); the whole
+        # function is phase 14's line
         {"name": "pairwise_mxu", "route": "cuda",
          "source": src + "pairwise_mxu.cu",
          "replaces": "particle_sim_tpu/ops/pairwise_pallas.py:179",
          "launches": mx_launches, "max_abs_err": err["pairwise_mxu"],
          "ms": mx_ms, "plain_ms": mxp_ms, "bound_ms": mx_bound,
          "bound_by": "operations", "library_ms": None},
+        # the receiver order of the same function (row 8): Hilbert keys,
+        # bit-exact with the plain hilbert_keys; at 65,536, box given
+        {"name": "hilbert_keys", "route": "cuda",
+         "source": src + "hilbert.cu",
+         "replaces": "particle_sim_tpu/ops/pairwise_pallas.py:179",
+         "launches": hk_launches, "max_abs_err": err["hilbert_keys"],
+         "ms": hk_ms, "plain_ms": hkp_ms, "bound_ms": hk_bound,
+         "bound_by": "bytes", "library_ms": None},
+        # the block centres' inlier box of the same function (row 8),
+        # bit-exact with the plain inlier_box; at 65,536
+        {"name": "inlier_box", "route": "cuda",
+         "source": src + "hilbert.cu",
+         "replaces": "particle_sim_tpu/ops/pairwise_pallas.py:179",
+         "launches": ib_launches, "max_abs_err": err["inlier_box"],
+         "ms": ib_ms, "plain_ms": ibp_ms, "bound_ms": ib_bound,
+         "bound_by": "bytes", "library_ms": None},
         # the earlier design of the sort (phase 15's merge-sort drive),
         # both at the 16M PM forward-sort words; merge_round: the last
         # round (two runs of 8M)

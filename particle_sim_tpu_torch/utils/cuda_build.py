@@ -47,7 +47,15 @@ SIGNATURES = {
     "psim_pm_deposit": (_P, _I, _P, _P, _P, _P, _P, _I, _F, _I, _P, _P),
     "psim_pm_gather": (_P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _F, _I,
                        _P, _P),
-    "psim_pairwise_mxu": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # xi, order, xj, gv, eps_sq, box, out, ni, nj, stream
+    "psim_pairwise_mxu": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # int32[6] out: registers, shared bytes, blocks an SM, threads, local
+    # bytes, receivers a block
+    "psim_pairwise_mxu_occupancy": (_P,),
+    # points, box, keys out, n, bits, stream
+    "psim_hilbert_keys": (_P, _P, _P, _I, _I, _P),
+    # points, n, stride, count, box out, stream
+    "psim_inlier_box": (_P, _I, _I, _I, _P, _P),
     # key in, 3 payloads in, key out, 3 payloads out (NULL where unused),
     # n, [run,] payload count, key flip (0 or INT_MIN), stream
     "psim_block_sort": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
