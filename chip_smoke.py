@@ -2,8 +2,9 @@
 """Smoke test of the PyTorch + CUDA port (particle_sim_tpu_torch) on one
 NVIDIA GPU: builds the hand-written kernels, holds each against its plain
 PyTorch version, drives the headless CLI at 1M particles (the attractor),
-at 65,536 (direct-sum gravity) and at 1M (particle-mesh gravity), drives
-the WebSocket server at 65,536, and times the kernels.
+at 65,536 (direct-sum gravity) and at 1M (particle-mesh gravity, and the
+multi-level mesh with the window-exact correction), drives the WebSocket
+server at 65,536, and times the kernels.
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
@@ -54,8 +55,11 @@ Phases (each prints a line; any failure raises and exits non-zero):
      path's own shape, 65,536 @ 1280x720
   9. the WebSocket server at 65,536 in-process on an ephemeral port: a
      "direct" solver event, then frames in wire modes 0, 1 and 2, then a
-     "pm" solver event; checks the headers, reflected_seq, the status
-     ("solver": "pm") and the launch counts (the PM kernels' included);
+     "pm" solver event, then a "pm" event with a refinement level
+     (pm2_sizes [32]) and an exact window (pmx_size 8); checks the headers,
+     reflected_seq, the status ("solver": "pm", the stack and the window)
+     and the launch counts (the PM kernels' included, and the pairwise
+     and radix kernels after the pm2/pmx event);
      then the compaction and deposit kernels vs plain (phase 3's bars) on
      the server's state, parameters and camera at its shape, 65,536 @
      1280x720 (its PM deposit and gather follow in phase 11)
@@ -139,13 +143,46 @@ Phases (each prints a line; any failure raises and exits non-zero):
      lengths predict; then times at 1M and 16M of the radix sort, its
      histogram and one pass, the merge sort and its kernels, torch.sort +
      index_select and the plain versions, beside the bytes bounds
+ 16. pm2 / pmn (ops/pm2.py) at 1M: bench.py's two-level scene (half a
+     N(2) clump at (5, 4, -3), half a N(20) halo, clipped to +-60; G =
+     128, static box, coarse eps 3), tracked windows 32 / 0.75 and 8 /
+     0.25: the kernel path (pmn_accel) against the plain path
+     (pmn_accel_ref) within 1e-4 max|a| (phase 11's pm_accel bar), one
+     and two levels; NaN in dead slots under a static stack changes
+     nothing; tests/test_pm2.py's scene through the kernels (rms < 0.03
+     against the direct sum at eps 0.75 inside the window, < coarse / 10)
+     and tests/test_pmn.py's (core rms < 0.06 with two levels, each level
+     cutting it); the engine (Method.CUDA, two levels) for 20 steps,
+     launches 3 deposits and gathers and one step a frame; times of each
+     level's deposit, difference solve and gather, the window origins,
+     momentum_clean, the whole PM / pm2 / pmn steps, and
+     pm.solve_accel_pair against the two solves it batches
+ 17. pmx (ops/pmx.py) at 1M: bench.py's pmx scene (uniform in [-45,
+     45]^3, coarse eps 2, tracked window 32 at eps 0.5, capacity 65,536):
+     the compaction's members equal the mask's in slot order; the
+     correction (the radix sort of (flag, idx), two pairwise passes,
+     index_copy_) against the plain path within 2e-4 max|a_x| (two
+     passes at phase 6's bar), the member counts exactly equal; the whole
+     pmx_accel within 1e-4 max|a| + that; capacity 16,384: exactly the
+     first 16,384 members by slot order corrected, everyone else 0; times
+     of the layers, the compaction by the radix sort beside a prefix-sum
+     compaction (cumsum + scatter) and torch.sort, the whole step
+ 18. the README's pmx command through the CLI: --count 1000000 --steps
+     300 --pm --pm2-size 24 --pm2-softening 0.8 --pmx-size 6
+     --pmx-softening 0.1: stats and done lines, launches 2 deposits, 2
+     gathers, 2 pairwise passes, one radix sort (a histogram and a pass
+     launch a digit) and one step a frame, a finite final state,
+     momentum 0 and the centre of mass in place, the checkpoint's pm2 and
+     pmx; psort.LIBRARY_CALLS unchanged through phases 17-18
 
 The line before the last is a JSON object with one entry per kernel (the
-launches of pm_deposit and pm_gather are phase 12's runs (a) and (b)
-together; those of sorted_deposit, radix_hist and radix_pass phases 8
-and 12 (b) together; those of pairwise_mxu, hilbert_keys, inlier_box,
-block_sort and merge_round the drives of phases 14 and 15); the last line
-is {"ok": true, "device": {...}}.
+launches of step are phases 4, 16 (the engine) and 18 together; of
+pairwise phases 8 and 18; of pm_deposit and pm_gather phase 12's runs (a)
+and (b), 16 and 18 together; those of sorted_deposit phases 8 and 12
+(b); of radix_hist and radix_pass phases 8, 12 (b) and 18; those of
+pairwise_mxu, hilbert_keys, inlier_box, block_sort and merge_round the
+drives of phases 14 and 15); the last line is {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -600,7 +637,7 @@ def main() -> int:
     from particle_sim_tpu_torch.core.state import ParticleState
     from particle_sim_tpu_torch.engine import Engine
     from particle_sim_tpu_torch.ops import (
-        pairwise, pairwise_cuda, pm, pm_cuda, psort, step_cuda,
+        pairwise, pairwise_cuda, pm, pm2, pm_cuda, pmx, psort, step_cuda,
     )
     from particle_sim_tpu_torch.render import raster, raster_compact as rc
     from particle_sim_tpu_torch.render import raster_sorted as rs
@@ -1147,6 +1184,19 @@ def main() -> int:
                  "seq": 7})
         pm_frame = ws.binary_until(lambda f: struct.unpack(
             server.HEADER_FMT, f[:hdr])[7] >= 7, "reflected_seq 7 (pm)")
+        # a refinement level and an exact window, as the viewer's panel
+        # sends them (g, softening and pmx_softening at their defaults)
+        before = (pm_cuda.DEPOSIT_LAUNCHES, pairwise_cuda.LAUNCHES,
+                  psort.RADIX_HIST_LAUNCHES)
+        ws.send({"type": "solver", "name": "pm", "pm2_sizes": [32],
+                 "pm2_softenings": [0.75], "pmx_size": 8,
+                 "pmx_capacity": 16384, "seq": 8})
+        ws.binary_until(lambda f: struct.unpack(
+            server.HEADER_FMT, f[:hdr])[7] >= 8, "reflected_seq 8 (pm2/pmx)")
+        stack_launches = {"pm_deposit": pm_cuda.DEPOSIT_LAUNCHES - before[0],
+                          "pairwise": pairwise_cuda.LAUNCHES - before[1],
+                          "radix_hist": psort.RADIX_HIST_LAUNCHES
+                          - before[2]}
         ws.close()
         ws2 = WsClient(srv.port)
         op, hello2 = ws2.frame()
@@ -1186,8 +1236,19 @@ def main() -> int:
             or eng.pairwise != PairwiseParams(1.0, 2.0):
         fail(f"server: the pm solver event did not switch the engine "
              f"({eng.pm}, {eng.pairwise})")
-    if hello2.get("solver") != "pm":
-        fail(f"server: the status after the pm event says {hello2}")
+    if hello2.get("solver") != "pm" or hello2.get("pm2_sizes") != [32.0] \
+            or hello2.get("pm2_softenings") != [0.75] \
+            or hello2.get("pmx_size") != 8.0:
+        fail(f"server: the status after the pm events says {hello2}")
+    if eng.pm2 != pm2.PM2Config(None, 32.0, 0.75) \
+            or eng.pmx != pmx.PMXConfig(8.0, 0.1, capacity=16384):
+        fail(f"server: the pm2/pmx event did not take ({eng.pm2}, "
+             f"{eng.pmx})")
+    if not (stack_launches["pm_deposit"] >= 2
+            and stack_launches["pairwise"] >= 2
+            and stack_launches["radix_hist"] >= 1):
+        fail(f"server: a step after the pm2/pmx event missed a kernel: "
+             f"{stack_launches}")
     if struct.unpack(server.HEADER_FMT, pm_frame[:hdr])[4] != N_GRAVITY:
         fail("server: the frame after the pm event has the wrong count")
     if min(s_launches.values()) < 1:
@@ -1198,8 +1259,11 @@ def main() -> int:
                   frame_args(eng.state, srv.params, srv.camera), 1280, 720,
                   min_lit=1)
     print(f"phase 9 server at {N_GRAVITY}: {' | '.join(summary)}; then a "
-          f"\"pm\" solver event, reflected (seq 7), status solver "
-          f"{hello2.get('solver')!r}; "
+          f"\"pm\" solver event, reflected (seq 7), then pm2_sizes [32] "
+          f"and pmx_size 8 (seq 8): status solver {hello2.get('solver')!r}, "
+          f"pm2_sizes {hello2.get('pm2_sizes')}, pmx_size "
+          f"{hello2.get('pmx_size')}, launches from that event on "
+          f"{stack_launches}; "
           f"launches {s_launches} ({s_wall:.2f} s); compact (bit-exact) and "
           f"deposit == plain on its state, deposit max |err| so far "
           f"{err['deposit']:.3g}")
@@ -2070,11 +2134,419 @@ def main() -> int:
           f"torch.sort route only outside the contract "
           f"({time.perf_counter() - t0:.1f} s)")
 
+    # -- phase 16: pm2 / pmn at 1M: refinement levels on the PM kernels ----------------
+    t0 = time.perf_counter()
+    # bench.py's two-level scene: half a N(sigma 2) clump at (5, 4, -3),
+    # half a N(sigma 20) halo, clipped to +-60; G = 128 over the static box
+    n_c = 1_048_576
+    rng_c = np.random.default_rng(0)
+    clump = (rng_c.normal(size=(n_c // 2, 3)) * 2.0
+             + np.array([5, 4, -3])).astype(np.float32)
+    halo = (rng_c.normal(size=(n_c - n_c // 2, 3)) * 20.0).astype(np.float32)
+    c_np = np.clip(np.concatenate([clump, halo]), -60, 60)
+    c_pos = torch.from_numpy(np.ascontiguousarray(c_np.T)).to(dev)
+    c_n = torch.tensor(n_c, dtype=torch.int32, device=dev)
+    live_c = pm.live_mask(n_c, c_n, dev)
+    cfg_c = PMConfig(softening=3.0)
+    lv1 = pm2.PM2Config(window_min=None, window_size=32.0, softening=0.75)
+    lv2 = pm2.PM2Config(window_min=None, window_size=8.0, softening=0.25)
+    stacks = {"pm2": (lv1,), "pmn": (lv1, lv2)}
+    # bar: pm_accel's of phase 11, 1e-4 max|a| (the deposit's f32 sums in
+    # another order, within 1e-5 of max|p| a grid, through the linear
+    # solves; the gather reads the same weights in the same order)
+    pm2_rel = 0.0
+    for name, levels in stacks.items():
+        ak = pm2.pmn_accel(c_pos, c_n, 1.0, cfg_c, levels)
+        ap = pm2.pmn_accel_ref(c_pos, c_n, 1.0, cfg_c, levels)
+        torch.cuda.synchronize()
+        scale = float(ap.abs().max())
+        e = check_close(f"{name} 1M kernels vs plain", ak, ap, 0.0,
+                        1e-4 * scale)
+        pm2_rel = max(pm2_rel, e / scale)
+        wms = pm2._nested_wmins(c_pos, live_c, cfg_c, levels, None)
+        notes = [f"level {k + 1} ({c2.window_size:g}, eps {c2.softening:g})"
+                 f" origin {[round(v, 4) for v in w.tolist()]} members "
+                 f"{int((pm2._in_window(c_pos, w, c2.window_size, 0.0) & live_c).sum())}"
+                 for k, (c2, w) in enumerate(zip(levels, wms))]
+        print(f"  {name} 1M kernels vs plain: max |k - p| {e:.3g} = "
+              f"{e / scale:.3g} of max|a| {scale:.6g} (bar 1e-4); "
+              + "; ".join(notes))
+    # dead slots poisoned with NaN under a static stack: the kernels never
+    # read a dead particle's position (live), so nothing reaches a grid
+    st_lv = (pm2.PM2Config((-11.0, -12.0, -19.0), 32.0, 0.75),
+             pm2.PM2Config((1.0, 0.0, -7.0), 8.0, 0.25))
+    n_live = n_c - 4096
+    n_live_t = torch.tensor(n_live, dtype=torch.int32, device=dev)
+    poisoned = c_pos.clone()
+    poisoned[:, n_live:] = float("nan")
+    a_clean = pm2.pmn_accel(c_pos, n_live_t, 1.0, cfg_c, st_lv)
+    a_nan = pm2.pmn_accel(poisoned, n_live_t, 1.0, cfg_c, st_lv)
+    torch.cuda.synchronize()
+    if not (bool(torch.isfinite(a_nan).all())
+            and bool((a_nan[:, n_live:] == 0).all())):
+        fail("pmn: NaN in dead slots reached the result")
+    e_nan = check_close("pmn NaN-poisoned dead slots", a_nan, a_clean, 0.0,
+                        1e-4 * float(a_clean.abs().max()))
+
+    def ball(rng, n, radius, offset=(0.0, 0.0, 0.0)):
+        """tests/test_pm2.py's generator: uniform in a ball."""
+        b = rng.normal(size=(n, 3)).astype(np.float32)
+        b /= np.linalg.norm(b, axis=1, keepdims=True)
+        r = radius * rng.random(n).astype(np.float32) ** (1 / 3)
+        return (b * r[:, None] + np.asarray(offset, np.float32)).astype(
+            np.float32)
+
+    def padded(pts):
+        cap = -(-pts.shape[0] // 512) * 512
+        full = np.concatenate([pts, np.zeros((cap - pts.shape[0], 3),
+                                             np.float32)])
+        return torch.from_numpy(np.ascontiguousarray(full.T)).to(dev)
+
+    def rms_to(a, ref, mask):
+        mag = ref[:, mask].norm(dim=0).mean()
+        return float((a[:, mask] - ref[:, mask]).norm(dim=0).pow(2).mean()
+                     .sqrt() / mag)
+
+    # tests/test_pm2.py's own scene and bars through the kernels: inside
+    # the window (margin 12) two-level PM against the direct sum at the
+    # fine eps 0.75 (the pairwise kernel), rms < 0.03 and < coarse / 10
+    rng_s = np.random.default_rng(0)
+    s_np = np.concatenate([ball(rng_s, 3000, 5.0), ball(rng_s, 1000, 45.0)])
+    s_pos, n_s = padded(s_np), s_np.shape[0]
+    cfg2_s = pm2.PM2Config(window_min=(-16.0,) * 3, window_size=32.0,
+                           softening=0.75)
+    a2_s = pm2.pm2_accel(s_pos, n_s, 1.0, cfg_c, cfg2_s)[:, :n_s]
+    ac_s = pm_cuda.pm_accel(s_pos, n_s, 1.0, cfg_c)[:, :n_s]
+    ad_s = pairwise_cuda.pairwise_accel(s_pos.T.contiguous(), s_pos, n_s,
+                                        1.0, 0.75).T[:, :n_s]
+    inner_s = torch.from_numpy(np.all((s_np >= -4.0) & (s_np < 4.0),
+                                      axis=1)).to(dev)
+    r2_s, rc_s = rms_to(a2_s, ad_s, inner_s), rms_to(ac_s, ad_s, inner_s)
+    if not (int(inner_s.sum()) > 2000 and r2_s < 0.03 and rc_s > 0.3
+            and r2_s < rc_s / 10):
+        fail(f"pm2 on tests/test_pm2.py's scene: rms {r2_s:.4g} (bar 0.03),"
+             f" coarse {rc_s:.4g}, {int(inner_s.sum())} inner")
+    # tests/test_pmn.py's scene and bars: each level cuts the core's rms
+    # against the direct sum at the innermost eps 0.25
+    core_c = np.array([5.0, 4.0, -3.0], np.float32)
+    rng_n = np.random.default_rng(0)
+    n_np = np.concatenate([ball(rng_n, 1500, 1.2, core_c),
+                           ball(rng_n, 2000, 5.0, core_c),
+                           ball(rng_n, 1000, 45.0)])
+    n_pos, n_n = padded(n_np), n_np.shape[0]
+    ad_n = pairwise_cuda.pairwise_accel(n_pos.T.contiguous(), n_pos, n_n,
+                                        1.0, 0.25).T[:, :n_n]
+    core_n = torch.from_numpy(np.linalg.norm(n_np - core_c, axis=1)
+                              < 1.0).to(dev)
+    r_lv = [rms_to(fn()[:, :n_n], ad_n, core_n) for fn in (
+        lambda: pm_cuda.pm_accel(n_pos, n_n, 1.0, cfg_c),
+        lambda: pm2.pmn_accel(n_pos, n_n, 1.0, cfg_c, (lv1,)),
+        lambda: pm2.pmn_accel(n_pos, n_n, 1.0, cfg_c, (lv1, lv2)))]
+    if not (r_lv[2] < 0.06 and r_lv[2] < r_lv[1] / 3
+            and r_lv[1] < r_lv[0] / 2):
+        fail(f"pmn on tests/test_pmn.py's scene: rms coarse / 1 level / 2 "
+             f"levels {r_lv} (bars: 2 levels < 0.06, each level / 3, / 2)")
+
+    # the three-level stack through the engine (the kernel path), for the
+    # launch counts: 3 deposits and gathers and 1 step kernel a frame
+    steps_c = 20
+    eng_c = Engine(particle_count=n_c, device="cuda", method=Method.CUDA,
+                   pm=cfg_c, pm2=(lv1, lv2))
+    eng_c.state = ParticleState.from_arrays(
+        c_np, np.zeros_like(c_np), gen.initial_colors(c_np), device=dev)
+    step_cuda.LAUNCHES = 0
+    pm_cuda.DEPOSIT_LAUNCHES = pm_cuda.DEPOSIT_MASS_LAUNCHES = 0
+    pm_cuda.GATHER_LAUNCHES = 0
+    for _ in range(steps_c):
+        eng_c.step(SimParams(delta_time=0.004))
+    torch.cuda.synchronize()
+    pmn_launches = {"pm_deposit": pm_cuda.DEPOSIT_LAUNCHES,
+                    "pm_deposit_mass": pm_cuda.DEPOSIT_MASS_LAUNCHES,
+                    "pm_gather": pm_cuda.GATHER_LAUNCHES,
+                    "step": step_cuda.LAUNCHES}
+    want = {"pm_deposit": 3 * steps_c, "pm_deposit_mass": 0,
+            "pm_gather": 3 * steps_c, "step": steps_c}
+    if pmn_launches != want:
+        fail(f"the pmn engine path missed a kernel: launches {pmn_launches},"
+             f" expected {want}")
+    if not np.isfinite(eng_c.state.positions()).all():
+        fail("pmn engine: non-finite state")
+    del eng_c
+
+    # times (device, CUDA events, dt = 0 so every call does the same work)
+    pv0 = torch.from_numpy(SimParams(delta_time=0.0).pack()).to(dev)
+    pp_c = torch.from_numpy(PairwiseParams(1.0, 3.0).pack()).to(dev)
+    sp = c_pos.clone().reshape(3, -1, 128)
+    sv = torch.zeros_like(sp)
+    box_t, cell_t = pm_cuda.static_box(tuple(cfg_c.box_min),
+                                       float(cfg_c.cell_size), dev)
+    rho_c = pm_cuda.deposit(c_pos, c_n, box_t, cell_t, 128, periodic=False)
+    grids_c = pm.solve_accel(rho_c, cfg_c, cfg_c.softening)
+    lay = [("coarse deposit", lambda: pm_cuda.deposit(
+                c_pos, c_n, box_t, cell_t, 128, periodic=False)),
+           ("coarse solve", lambda: pm.solve_accel(rho_c, cfg_c, 3.0)),
+           ("coarse gather", lambda: pm_cuda.gather(
+                grids_c, c_pos, c_n, box_t, cell_t, periodic=False))]
+    wms = pm2._nested_wmins(c_pos, live_c, cfg_c, (lv1, lv2), None)
+    eo, fine_rho = cfg_c.softening, []
+    for k, (c2, w) in enumerate(zip((lv1, lv2), wms)):
+        h2 = c2.window_size / 128
+        cell2 = pm_cuda.device_const((h2,), dev)
+        inner = pm2._in_window(c_pos, w, c2.window_size, c2.margin) & live_c
+        rho2 = pm_cuda.deposit(c_pos, c_n, w, cell2, 128, periodic=False,
+                               live=inner)
+        g2 = pm.solve_accel_diff(rho2, 128, h2, c2.softening, eo)
+        fine_rho.append(rho2)
+        lay += [(f"level {k + 1} deposit",
+                 lambda w=w, c=cell2, i=inner: pm_cuda.deposit(
+                     c_pos, c_n, w, c, 128, periodic=False, live=i)),
+                (f"level {k + 1} solve",
+                 lambda r=rho2, h=h2, e=c2.softening, o=eo:
+                     pm.solve_accel_diff(r, 128, h, e, o)),
+                (f"level {k + 1} gather",
+                 lambda g_=g2, w=w, c=cell2, i=inner: pm_cuda.gather(
+                     g_, c_pos, c_n, w, c, periodic=False, live=i))]
+        eo = c2.softening
+    acc_c = pm2.pmn_accel(c_pos, c_n, 1.0, cfg_c, (lv1, lv2))
+    lay += [("window origins (2 levels)", lambda: pm2._nested_wmins(
+                c_pos, live_c, cfg_c, (lv1, lv2), None)),
+            ("momentum_clean", lambda: pm.momentum_clean(acc_c, c_n)),
+            ("whole PM step", lambda: pm_cuda.step_pm(
+                sp, sv, pv0, pp_c, c_n, cfg_c)),
+            ("whole pm2 step", lambda: pm2.step_pmn(
+                sp, sv, pv0, pp_c, c_n, cfg_c, (lv1,))),
+            ("whole pmn step", lambda: pm2.step_pmn(
+                sp, sv, pv0, pp_c, c_n, cfg_c, (lv1, lv2))),
+            ("solve_accel_pair (coarse + level 1)", lambda: pm.solve_accel_pair(
+                rho_c, fine_rho[0], cfg_c, 3.0,
+                pm2.fine_kernels(cfg_c, lv1, device=dev))),
+            ("solve_accel + solve_accel_diff", lambda: (
+                pm.solve_accel(rho_c, cfg_c, 3.0),
+                pm.solve_accel_diff(fine_rho[0], 128, 0.25, 0.75, 3.0)))]
+    lay_ms = median_ms([fn for _, fn in lay], reps=5, inner=5, lead_ms=20.0)
+    pm2_timing = dict(zip((nm for nm, _ in lay), lay_ms))
+    pair = pm.solve_accel_pair(rho_c, fine_rho[0], cfg_c, 3.0,
+                               pm2.fine_kernels(cfg_c, lv1, device=dev))
+    sep = (pm.solve_accel(rho_c, cfg_c, 3.0),
+           pm.solve_accel_diff(fine_rho[0], 128, 0.25, 0.75, 3.0))
+    for a_, b_ in zip(pair, sep):
+        check_close("solve_accel_pair vs the two solves", a_, b_, 0.0,
+                    1e-5 * float(b_.abs().max()))
+    print("  pm2/pmn layers 1M G=128 (two levels 32/0.75, 8/0.25): " + " | ".join(
+        f"{nm} {ms:.5f} ms" for nm, ms in pm2_timing.items()))
+    print(f"phase 16 pm2/pmn at {n_c}: kernels == plain (max "
+          f"{pm2_rel:.3g} of max|a|, bar 1e-4), NaN dead slots {e_nan:.3g};"
+          f" tests/test_pm2.py's scene rms {r2_s:.4g} (bar 0.03; coarse "
+          f"{rc_s:.4g}); tests/test_pmn.py's core rms coarse {r_lv[0]:.4g}"
+          f" / one level {r_lv[1]:.4g} / two {r_lv[2]:.4g} (bar 0.06); "
+          f"engine pmn x {steps_c} launches {pmn_launches}; step PM "
+          f"{pm2_timing['whole PM step']:.4f} / pm2 "
+          f"{pm2_timing['whole pm2 step']:.4f} / pmn "
+          f"{pm2_timing['whole pmn step']:.4f} ms; solve_accel_pair "
+          f"{pm2_timing['solve_accel_pair (coarse + level 1)']:.4f} against "
+          f"two solves {pm2_timing['solve_accel + solve_accel_diff']:.4f} ms"
+          f" ({time.perf_counter() - t0:.1f} s)")
+    del c_pos, poisoned, sp, sv, acc_c, ak, ap, a_clean, a_nan
+
+    # -- phase 17: pmx at 1M: the window-exact correction -----------------------
+    t0 = time.perf_counter()
+    lib_calls0 = psort.LIBRARY_CALLS
+    # bench.py's pmx scene: 1M uniform in [-45, 45]^3, coarse eps 2.0, a
+    # tracked window of 32 at eps 0.5, capacity 65,536 (~45k members)
+    n_x = 1_048_576
+    gen_x = torch.Generator(device=dev).manual_seed(7)
+    x_pos = (torch.rand((3, n_x), generator=gen_x, device=dev) * 90.0
+             - 45.0).contiguous()
+    x_n = torch.tensor(n_x, dtype=torch.int32, device=dev)
+    live_x = pm.live_mask(n_x, x_n, dev)
+    cfg_xm = PMConfig(softening=2.0)
+    cfgx = pmx.PMXConfig(window_size=32.0, softening=0.5, capacity=65536)
+    b_x = cfgx.capacity
+    wmin_x = pm2.window_min(x_pos, None, cfgx, None, live=live_x)
+    member = pmx._member_mask(x_pos, wmin_x, cfgx, live_x)
+    slots = torch.nonzero(member).squeeze(1)
+    n_mem = int(slots.shape[0])
+    idx_k = pmx.members_first(member)
+    if not torch.equal(idx_k[:n_mem].long(), slots):
+        fail("pmx: the compaction's members are not the members in slot "
+             "order")
+    corr_k, nm_k = pmx.exact_accel(x_pos, live_x, cfgx, 2.0, wmin=wmin_x)
+    corr_p, nm_p = pmx.exact_accel(x_pos, live_x, cfgx, 2.0, wmin=wmin_x,
+                                   use_kernels=False)
+    if not int(nm_k) == int(nm_p) == n_mem:
+        fail(f"pmx member counts: kernels {int(nm_k)}, plain {int(nm_p)}, "
+             f"mask {n_mem}")
+    # the compact buffer, for the bar's scale and the layer times
+    idx_b = idx_k[:b_x].long()
+    buf = x_pos.index_select(1, idx_b)
+    rec = buf.T.contiguous()
+    m_buf = (torch.arange(b_x, device=dev) < min(n_mem, b_x)).float()
+    n_b, one, eps_x, eps_c = (pm_cuda.device_const(b_x, dev, torch.int32),
+                              *pm_cuda.device_const((1.0, 0.5, 2.0), dev))
+    a_x = pairwise_cuda.pairwise_accel(rec, buf, n_b, one, eps_x,
+                                       masses=m_buf)
+    a_p = pairwise_cuda.pairwise_accel(rec, buf, n_b, one, eps_c,
+                                       masses=m_buf)
+    torch.cuda.synchronize()
+    # bar: each pass within 1e-4 max|p| of plain (phase 6's pairwise
+    # bar), so the difference within 2e-4 max|a_x| (|a_p| <= |a_x|): the
+    # correction a_x - a_p is a small difference of two large sums
+    sx = float(a_x.abs().max())
+    e_corr = check_close("pmx correction 1M", corr_k, corr_p, 0.0, 2e-4 * sx)
+    ax_k, nx_k = pmx.pmx_accel(x_pos, x_n, 1.0, cfg_xm, (), cfgx)
+    ax_p, nx_p = pmx.pmx_accel(x_pos, x_n, 1.0, cfg_xm, (), cfgx,
+                               use_fast=False)
+    torch.cuda.synchronize()
+    sm = float(ax_p.abs().max())
+    e_acc = check_close("pmx_accel 1M", ax_k, ax_p, 0.0,
+                        1e-4 * sm + 2e-4 * sx)
+    if not int(nx_k) == int(nx_p) == n_mem:
+        fail(f"pmx_accel member counts {int(nx_k)} / {int(nx_p)} / {n_mem}")
+    # overflow: capacity 16,384 < the members: exactly the first 16,384 by
+    # slot order keep a correction, everyone else gets 0
+    small = pmx.PMXConfig(window_size=32.0, softening=0.5, capacity=16384)
+    corr_t, nm_t = pmx.exact_accel(x_pos, live_x, small, 2.0, wmin=wmin_x)
+    corr_tp, _ = pmx.exact_accel(x_pos, live_x, small, 2.0, wmin=wmin_x,
+                                 use_kernels=False)
+    torch.cuda.synchronize()
+    kept, dropped = slots[:16384], slots[16384:]
+    if not (int(nm_t) == n_mem > 16384
+            and bool((corr_t[:, dropped] == 0).all())
+            and bool((corr_t[:, ~member] == 0).all())
+            and float(corr_t[:, kept].abs().max()) > 0.0):
+        fail(f"pmx overflow: count {int(nm_t)}, dropped members or "
+             f"non-members corrected, or a kept member without one")
+    e_trunc = check_close("pmx overflow correction", corr_t, corr_tp, 0.0,
+                          2e-4 * sx)
+
+    def scan_members_first(mem, cap):
+        """The prefix-sum compaction (timed beside the sort): each
+        member's rank by an inclusive cumsum, scattered to its slot
+        (ranks past cap go to a dump slot). -> int32[cap], the members
+        first in slot order (the rest of the slots unset)."""
+        rank = torch.cumsum(mem, 0, dtype=torch.int32) - 1
+        dest = torch.where(mem & (rank < cap), rank, cap).long()
+        out = torch.zeros(cap + 1, dtype=torch.int32, device=mem.device)
+        out.scatter_(0, dest, torch.arange(mem.shape[0], dtype=torch.int32,
+                                           device=mem.device))
+        return out[:cap]
+
+    if not torch.equal(scan_members_first(member, b_x)[:n_mem],
+                       idx_k[:n_mem]):
+        fail("pmx: the prefix-sum compaction differs from the sort's")
+    corr_buf = (a_x - a_p).T.contiguous()
+    xp = x_pos.clone().reshape(3, -1, 128)
+    xv = torch.zeros_like(xp)
+    pp_x = torch.from_numpy(PairwiseParams(1.0, 2.0).pack()).to(dev)
+    psort.RADIX_HIST_LAUNCHES = psort.RADIX_PASS_LAUNCHES = 0
+    lay = [("window origin + member mask", lambda: pmx._member_mask(
+                x_pos, pm2.window_min(x_pos, None, cfgx, None, live=live_x),
+                cfgx, live_x)),
+           ("compaction: radix sort of (flag, idx)",
+            lambda: pmx.members_first(member)),
+           ("compaction: prefix sum + scatter",
+            lambda: scan_members_first(member, b_x)),
+           ("compaction: torch.sort of the flag (library)",
+            lambda: torch.sort((~member).to(torch.int32), stable=True)),
+           ("buffer gather (index_select)",
+            lambda: x_pos.index_select(1, idx_b)),
+           ("one pairwise pass", lambda: pairwise_cuda.pairwise_accel(
+                rec, buf, n_b, one, eps_x, masses=m_buf)),
+           ("scatter (index_copy_)", lambda: torch.zeros(
+                (3, n_x), device=dev).index_copy_(1, idx_b, corr_buf)),
+           ("exact_accel", lambda: pmx.exact_accel(
+                x_pos, live_x, cfgx, 2.0, wmin=wmin_x)),
+           ("whole PM step", lambda: pm_cuda.step_pm(
+                xp, xv, pv0, pp_x, x_n, cfg_xm)),
+           ("whole pmx step", lambda: pmx.step_pmx(
+                xp, xv, pv0, pp_x, x_n, cfg_xm, (), cfgx))]
+    lay_ms = median_ms([fn for _, fn in lay], reps=5, inner=5, lead_ms=40.0)
+    pmx_timing = dict(zip((nm for nm, _ in lay), lay_ms))
+    print("  pmx layers 1M (window 32, capacity 65536, "
+          f"{n_mem} members): " + " | ".join(
+              f"{nm} {ms:.5f} ms" for nm, ms in pmx_timing.items()))
+    print(f"phase 17 pmx at {n_x}: {n_mem} members (kernels == plain == the"
+          f" mask, members first in slot order); correction max |k - p| "
+          f"{e_corr:.3g} (bar 2e-4 max|a_x| {sx:.6g}), pmx_accel "
+          f"{e_acc:.3g} (bar 1e-4 max|a| {sm:.6g} + 2e-4 max|a_x|); capacity"
+          f" 16384: the first 16384 members by slot corrected, the rest "
+          f"exactly 0, == plain within {e_trunc:.3g}; compaction sort "
+          f"{pmx_timing['compaction: radix sort of (flag, idx)']:.5f} ms, "
+          f"prefix sum {pmx_timing['compaction: prefix sum + scatter']:.5f}"
+          f" ms; pmx step {pmx_timing['whole pmx step']:.4f} ms "
+          f"({time.perf_counter() - t0:.1f} s)")
+    del x_pos, xp, xv, buf, rec, corr_k, corr_p, ax_k, ax_p, corr_t, corr_tp
+
+    # -- phase 18: the README's pmx command through the CLI ---------------------------
+    n_r, steps_r = 1_000_000, 300
+    with tempfile.TemporaryDirectory() as tmp:
+        final = os.path.join(tmp, "final.npz")
+        argv = ["--device", "cuda", "--count", str(n_r), "--steps",
+                str(steps_r), "--pm", "--pm2-size", "24", "--pm2-softening",
+                "0.8", "--pmx-size", "6", "--pmx-softening", "0.1",
+                "--stats-every", "100", "--checkpoint-every", str(steps_r),
+                "--checkpoint", final]
+        step_cuda.LAUNCHES = pairwise_cuda.LAUNCHES = 0
+        pm_cuda.DEPOSIT_LAUNCHES = pm_cuda.DEPOSIT_MASS_LAUNCHES = 0
+        pm_cuda.GATHER_LAUNCHES = 0
+        psort.RADIX_HIST_LAUNCHES = psort.RADIX_PASS_LAUNCHES = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc_code = cli.main(argv)
+        wall_r = time.perf_counter() - t0
+        pmx_launches = {"pm_deposit": pm_cuda.DEPOSIT_LAUNCHES,
+                        "pm_deposit_mass": pm_cuda.DEPOSIT_MASS_LAUNCHES,
+                        "pm_gather": pm_cuda.GATHER_LAUNCHES,
+                        "pairwise": pairwise_cuda.LAUNCHES,
+                        "radix_hist": psort.RADIX_HIST_LAUNCHES,
+                        "radix_pass": psort.RADIX_PASS_LAUNCHES,
+                        "step": step_cuda.LAUNCHES}
+        text = out.getvalue()
+        for ln in text.splitlines():
+            print(f"  cli (pmx): {ln}")
+        if rc_code != 0:
+            fail(f"pmx cli returned {rc_code}")
+        lines = [json.loads(ln) for ln in text.strip().splitlines()]
+        with np.load(final) as z:
+            p_end, v_end = z["positions"], z["velocities"]
+            meta_r = json.loads(str(z["meta"]))
+    if lines[-1].get("done") is not True or lines[-1].get("steps") != steps_r \
+            or [ln.get("step") for ln in lines[:-1]] != [100, 200, 300]:
+        fail(f"pmx cli: stats / done lines {lines}")
+    want = {"pm_deposit": 2 * steps_r, "pm_deposit_mass": 0,
+            "pm_gather": 2 * steps_r, "pairwise": 2 * steps_r,
+            "radix_hist": steps_r,
+            "radix_pass": psort.radix_digits() * steps_r, "step": steps_r}
+    if pmx_launches != want:
+        fail(f"the pmx cli path missed a kernel: launches {pmx_launches}, "
+             f"expected {want}")
+    if psort.LIBRARY_CALLS != lib_calls0:
+        fail(f"pm2/pmx took the torch.sort route "
+             f"{psort.LIBRARY_CALLS - lib_calls0} times")
+    if p_end.shape != (n_r, 3) or not (np.isfinite(p_end).all()
+                                       and np.isfinite(v_end).all()):
+        fail("pmx cli: final state not finite or misshapen")
+    if meta_r["pm2"]["window_size"] != 24.0 \
+            or meta_r["pmx"]["window_size"] != 6.0:
+        fail(f"pmx cli: checkpoint meta {meta_r['pm2']} {meta_r['pmx']}")
+    mom_r, com_r = momentum_and_com(gen.generate(n_r)[0].astype(np.float64),
+                                    p_end, v_end, np.ones(n_r))
+    if not (mom_r < 1e-3 and com_r < 0.5):
+        fail(f"pmx cli: |P| / sum m|v| = {mom_r:.3g} (bar 1e-3), centre of "
+             f"mass moved {com_r:.3g} (bar 0.5)")
+    print(f"phase 18 pmx main path: cli {n_r} x {steps_r} steps (pm2 24 / "
+          f"0.8, pmx 6 / 0.1) in {wall_r:.2f} s, "
+          f"{lines[-1].get('update_ms')} ms a step (host), |P| / sum m|v| "
+          f"{mom_r:.3g}, centre of mass moved {com_r:.3g}, launches "
+          f"{pmx_launches}, torch.sort route 0 times in phases 17-18")
+
     src = "particle_sim_tpu_torch/csrc/"
     kernels = [
         {"name": "step", "route": "cuda", "source": src + "step.cu",
          "replaces": "particle_sim_tpu/ops/step_pallas.py:38",
-         "launches": launches["step"], "max_abs_err": err["step"],
+         "launches": launches["step"] + pmn_launches["step"]
+         + pmx_launches["step"], "max_abs_err": err["step"],
          "ms": timing[1_000_000][0], "plain_ms": timing[1_000_000][1],
          "bound_ms": bytes_ms(STEP_BYTES * 1_000_000), "bound_by": "bytes",
          "library_ms": None},
@@ -2098,7 +2570,8 @@ def main() -> int:
          "library_ms": cd_timing[1_000_000]["deposit"][2]},
         {"name": "pairwise", "route": "cuda", "source": src + "pairwise.cu",
          "replaces": "particle_sim_tpu/ops/pairwise_pallas.py:54",
-         "launches": g_launches["pairwise"], "max_abs_err": err["pairwise"],
+         "launches": g_launches["pairwise"] + pmx_launches["pairwise"],
+         "max_abs_err": err["pairwise"],
          "ms": pw_ms, "plain_ms": pwp_ms, "bound_ms": pw_bound,
          "bound_by": "operations", "library_ms": None},
         {"name": "sorted_deposit", "route": "cuda",
@@ -2114,8 +2587,9 @@ def main() -> int:
         # mass one _deposit_kernel_mass (:253); launches of both, phase 12
         {"name": "pm_deposit", "route": "cuda", "source": src + "pm.cu",
          "replaces": "particle_sim_tpu/ops/pm_pallas.py:247",
-         "launches": pm_launches["pm_deposit"]
-         + pm_launches["pm_deposit_mass"],
+         "launches": sum(runs[k] for runs in (pm_launches, pmn_launches,
+                                              pmx_launches)
+                         for k in ("pm_deposit", "pm_deposit_mass")),
          "max_abs_err": err["pm_deposit"],
          "ms": pm_timing["n=1000000"][0],
          "plain_ms": pm_timing["n=1000000"][1],
@@ -2123,7 +2597,8 @@ def main() -> int:
          "library_ms": pm_timing["n=1000000"][2]},
         {"name": "pm_gather", "route": "cuda", "source": src + "pm.cu",
          "replaces": "particle_sim_tpu/ops/pm_pallas.py:259",
-         "launches": pm_launches["pm_gather"],
+         "launches": pm_launches["pm_gather"] + pmn_launches["pm_gather"]
+         + pmx_launches["pm_gather"],
          "max_abs_err": err["pm_gather"],
          "ms": pm_timing["n=1000000"][4],
          "plain_ms": pm_timing["n=1000000"][5],
@@ -2180,7 +2655,7 @@ def main() -> int:
          "source": src + "radix_sort.cu",
          "replaces": "particle_sim_tpu/ops/psort.py:232",
          "launches": g_launches["radix_hist"]
-         + pm_runs["b"][0]["radix_hist"],
+         + pm_runs["b"][0]["radix_hist"] + pmx_launches["radix_hist"],
          "max_abs_err": err["sort"], "ms": sort_timing["16M"]["hist"],
          "plain_ms": sort_timing["16M"]["hist_plain"],
          "bound_ms": sort_timing["16M"]["hist_bound"], "bound_by": "bytes",
@@ -2189,7 +2664,7 @@ def main() -> int:
          "source": src + "radix_sort.cu",
          "replaces": "particle_sim_tpu/ops/psort.py:289",
          "launches": g_launches["radix_pass"]
-         + pm_runs["b"][0]["radix_pass"],
+         + pm_runs["b"][0]["radix_pass"] + pmx_launches["radix_pass"],
          "max_abs_err": err["sort"], "ms": sort_timing["16M"]["pass_"],
          "plain_ms": sort_timing["16M"]["pass_plain"],
          "bound_ms": sort_timing["16M"]["pass_bound"], "bound_by": "bytes",

@@ -3,10 +3,12 @@
 checkpoints, stats (and physics diagnostics) to stdout.
 
 Counterpart of ``particle_sim_tpu/app/cli.py``, with the same flags and
-the same stats and ``done`` JSON lines, plus ``--device {cuda,cpu}``. The
-flags of parts not ported yet (the pm2/pmx solvers, the persistent PM
-state, the multi-device mesh) are accepted by the parser and raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them.
+the same stats and ``done`` JSON lines, plus ``--device {cuda,cpu}``.
+``--pm2-size`` (one value a refinement level, outermost first) and
+``--pmx-size`` imply ``--pm``. The flags of parts not ported yet (the
+persistent PM state, the multi-device mesh) are accepted by the parser
+and raise ``NotImplementedError`` naming the ROADMAP.md item that ports
+them.
 
 Examples:
     python -m particle_sim_tpu_torch.app.cli --device cuda \
@@ -18,6 +20,9 @@ Examples:
     python -m particle_sim_tpu_torch.app.cli --device cuda --count 1000000 \
         --steps 600 --pm --pm-auto-box --pairwise-g 0.08 --dt 0.004 \
         --diagnostics
+    python -m particle_sim_tpu_torch.app.cli --device cuda --count 1000000 \
+        --steps 300 --pm --pm2-size 24 --pm2-softening 0.8 --pmx-size 6 \
+        --pmx-softening 0.1
 """
 
 from __future__ import annotations
@@ -92,15 +97,23 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the persistent PM's repair strategy: full sort "
                         "only (kept on the engine and in checkpoints; no "
                         "effect on the per-frame PM)")
-    # not ported yet: each raises NotImplementedError
-    p.add_argument("--pm2-size", type=float, nargs="+", default=[0.0])
+    # refinement levels (ops/pm2.py) and the exact window (ops/pmx.py)
+    p.add_argument("--pm2-size", type=float, nargs="+", default=[0.0],
+                   help="refinement-window extent(s), outermost first "
+                        "(several values nest levels); implies --pm")
     p.add_argument("--pm2-window", type=float, nargs=3, default=None,
-                   metavar=("X", "Y", "Z"))
-    p.add_argument("--pm2-softening", type=float, nargs="+", default=[0.5])
+                   metavar=("X", "Y", "Z"),
+                   help="static origin of the outermost window (default: "
+                        "track the mass centroid)")
+    p.add_argument("--pm2-softening", type=float, nargs="+", default=[0.5],
+                   help="fine softening, one a --pm2-size level")
     p.add_argument("--pm2-margin", type=float, default=0.0)
-    p.add_argument("--pmx-size", type=float, default=0.0)
+    p.add_argument("--pmx-size", type=float, default=0.0,
+                   help="window-exact short-range forces in a tracked "
+                        "window of this size; implies --pm")
     p.add_argument("--pmx-softening", type=float, default=0.1)
     p.add_argument("--pmx-capacity", type=int, default=65536)
+    # not ported yet: raises NotImplementedError
     p.add_argument("--pm-persist", action="store_true")
     # rendering
     p.add_argument("--render-every", type=int, default=0)
@@ -128,9 +141,7 @@ def _refuse_not_ported(args) -> None:
 
     for feature, given in (
             ("mesh", args.mesh != "none"),
-            ("pm_persist", args.pm_persist),
-            ("pm2", args.pm2_size[0] > 0.0),
-            ("pmx", args.pmx_size > 0.0)):
+            ("pm_persist", args.pm_persist)):
         if given:
             raise not_ported(feature)
 
@@ -169,6 +180,9 @@ def main(argv=None) -> int:
             print(f"note: {', '.join(ignored)} ignored on --resume "
                   "(the checkpoint's configuration wins)", file=sys.stderr)
     else:
+        # --pm2-size / --pmx-size are PM solver modes: they imply --pm
+        if args.pm2_size[0] > 0.0 or args.pmx_size > 0.0:
+            args.pm = True
         pm_cfg = None
         if args.pm:
             pm_cfg = PMConfig(
@@ -177,6 +191,28 @@ def main(argv=None) -> int:
                 softening=args.pm_softening,
                 boundary=args.pm_boundary, gradient=args.pm_gradient,
                 auto_box=args.pm_auto_box)
+        pm2_cfg = None
+        if args.pm2_size[0] > 0.0:
+            from ..ops.pm2 import PM2Config
+            sizes, softs = args.pm2_size, args.pm2_softening
+            if len(sizes) > 1 and len(softs) != len(sizes):
+                raise SystemExit(
+                    "--pm2-softening needs one value per --pm2-size level "
+                    f"({len(sizes)} sizes, {len(softs)} softenings)")
+            levels = tuple(PM2Config(
+                window_min=(tuple(args.pm2_window)
+                            if k == 0 and args.pm2_window else None),
+                window_size=sz,
+                softening=softs[min(k, len(softs) - 1)],
+                margin=args.pm2_margin)
+                for k, sz in enumerate(sizes))
+            pm2_cfg = levels if len(levels) > 1 else levels[0]
+        pmx_cfg = None
+        if args.pmx_size > 0.0:
+            from ..ops.pmx import PMXConfig
+            pmx_cfg = PMXConfig(window_size=args.pmx_size,
+                                softening=args.pmx_softening,
+                                capacity=args.pmx_capacity)
         engine = Engine(
             particle_count=args.count,
             method=method,
@@ -190,6 +226,8 @@ def main(argv=None) -> int:
                 args.pm_softening if args.pm else args.pairwise_softening)
                       if (args.pairwise or args.pm) else None),
             pm=pm_cfg,
+            pm2=pm2_cfg,
+            pmx=pmx_cfg,
             two_tier=not args.no_two_tier,
         )
 

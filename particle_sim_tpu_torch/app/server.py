@@ -32,17 +32,23 @@ Method names on the wire keep the protocol's vocabulary, which the shared
 viewer's selector uses: "jnp" names the plain path (``Method.TORCH``) and
 "pallas" the kernel path (``Method.CUDA``), the enums' values 0 and 1 in
 both packages. The solver event switches self-gravity to the direct sum
-("direct"), the per-frame particle mesh ("pm") or off ("off"). The parts
-not ported yet, the persistent PM state ("pm_persist") and a "pm" event
-asking for a pm2 refinement stack (``pm2_sizes``) or an exact window
-(``pmx_size`` > 0), are rejected with a logged warning naming their
-ROADMAP.md item, and the solver stays as it was. A "pm" event's
-``two_tier`` field sets the engine's flag of that name (the persistent
-PM's repair strategy), which the hello reports.
+("direct"), the per-frame particle mesh ("pm") or off ("off"). A "pm"
+event may carry a refinement stack (``pm2_sizes`` with one
+``pm2_softenings`` value a level, outermost first; [] clears it) and an
+exact window (``pmx_size``, ``pmx_softening``, ``pmx_capacity``;
+``pmx_size`` <= 0 clears it); absent fields keep what is installed. The
+whole candidate solver is validated before any of it is committed: a bad
+event is rejected with a logged warning and the running solver stays. The
+persistent PM state ("pm_persist"), not ported yet, is rejected the same
+way, naming its ROADMAP.md item. A "pm" event's ``two_tier`` field sets
+the engine's flag of that name (the persistent PM's repair strategy). The
+hello reports the stack, the window and the flag.
 
     python -m particle_sim_tpu_torch.app.server --device cuda --count 65536
     python -m particle_sim_tpu_torch.app.server --device cuda --pm \
         --count 1000000
+    python -m particle_sim_tpu_torch.app.server --device cuda --count 1000000 \
+        --pm2-size 32 8 --pm2-softening 0.75 0.25
 """
 
 from __future__ import annotations
@@ -66,6 +72,8 @@ from ..core.params import (
 from ..engine import Engine, available_methods
 from ..engine.engine import not_ported
 from ..io import packer
+from ..ops import pm2 as pm2_ops
+from ..ops import pmx as pmx_ops
 from ..render.camera import Camera
 
 logger = logging.getLogger("particle_sim_tpu_torch.server")
@@ -286,9 +294,13 @@ class StreamServer:
                     self._apply_pm_solver_event(ev, g, eps)
                 elif name == "direct":
                     self.engine.pm = None
+                    self.engine.set_pmx(None)   # window first: set_pm2
+                    self.engine.set_pm2(None)   # cross-checks the window
                     self.engine.pairwise = PairwiseParams(g, eps)
                 else:
                     self.engine.pm = None
+                    self.engine.set_pmx(None)
+                    self.engine.set_pm2(None)
                     self.engine.pairwise = None
             # every event can change what the next frame shows (pause flag,
             # reset state, camera pose in raster mode, color mode, ...):
@@ -297,27 +309,50 @@ class StreamServer:
             self._state_version += 1
 
     def _apply_pm_solver_event(self, ev: dict, g: float, eps: float) -> None:
-        """Validate the whole "pm" event before committing any of it: a
-        refinement stack or an exact window (not ported) rejects the event
-        with a warning, and the running solver is kept."""
+        """Validate the whole candidate solver (coarse PM, refinement
+        stack, exact window) before committing any of it: a bad event is
+        rejected with a warning and the running solver is kept."""
+        eng = self.engine
         try:
-            sizes = [float(x) for x in ev.get("pm2_sizes", [])]
-            pmx_size = float(ev.get("pmx_size", 0.0))
             new_pm = PMConfig(softening=eps,
                               auto_box=bool(ev.get("auto_box", False)))
+            stack = eng.pm2
+            if "pm2_sizes" in ev:
+                sizes = [float(x) for x in ev["pm2_sizes"]]
+                softs = [float(x) for x in ev.get("pm2_softenings", [])]
+                if len(softs) != len(sizes):
+                    raise ValueError(
+                        "pm2 size/softening lists differ in length")
+                cand = tuple(pm2_ops.PM2Config(window_min=None,
+                                               window_size=sz, softening=e)
+                             for sz, e in zip(sizes, softs))
+                stack = (None if not cand
+                         else cand[0] if len(cand) == 1 else cand)
+            window = eng.pmx
+            if "pmx_size" in ev:
+                size = float(ev["pmx_size"])
+                window = None if size <= 0.0 else pmx_ops.PMXConfig(
+                    window_size=size,
+                    softening=float(ev.get("pmx_softening", 0.1)),
+                    capacity=int(ev.get("pmx_capacity", 65536)))
+            levels = pm2_ops.as_levels(stack)
+            if levels:
+                pm2_ops._validate_levels(new_pm, levels)
+            if window is not None:
+                pmx_ops._validate(new_pm, levels, window)
         except (TypeError, ValueError) as e:
             logger.warning("solver event rejected: %s (keeping the current "
                            "solver)", e)
             return
-        for feature, given in (("pm2", bool(sizes)), ("pmx", pmx_size > 0.0)):
-            if given:
-                logger.warning("solver event rejected: %s (keeping the "
-                               "current solver)", not_ported(feature))
-                return
-        eng = self.engine
+        # commit: pm first so set_pm2 / set_pmx validate against it; the
+        # window is cleared around the stack swap so their cross-checks
+        # never see an old/new mix
         eng.pm = new_pm
         eng.pairwise = PairwiseParams(g, eps)
         eng.pm_persist = False
+        eng.set_pmx(None)
+        eng.set_pm2(stack)
+        eng.set_pmx(window)
         if "two_tier" in ev:
             # the persistent PM's repair strategy, kept for when that mode
             # is ported (the JAX server sets it from the same field)
@@ -465,11 +500,14 @@ class StreamServer:
             "solver_g": pw.gravitational_constant if pw else 1.0,
             "solver_softening": (eng.pm.softening if eng.pm is not None
                                  else pw.softening if pw else 2.0),
-            # the pm2 / pmx fields of the protocol: not ported, always off
-            "pm2_sizes": [],
-            "pm2_softenings": [],
-            "pmx_size": 0,
-            "pmx_softening": 0,
+            # the refinement stack (outermost first; [] = none) and the
+            # exact window (0 = none), so the panel reflects them
+            "pm2_sizes": [c.window_size
+                          for c in pm2_ops.as_levels(eng.pm2)],
+            "pm2_softenings": [c.softening
+                               for c in pm2_ops.as_levels(eng.pm2)],
+            "pmx_size": eng.pmx.window_size if eng.pmx else 0,
+            "pmx_softening": eng.pmx.softening if eng.pmx else 0,
             "two_tier": bool(eng.two_tier),
             "wire_mode": {0: "planar", 1: "compact",
                           2: "raster"}[self.wire_mode],
@@ -632,10 +670,14 @@ def build_parser():
                     help="the persistent PM's repair strategy: full sort "
                     "only (kept on the engine; no effect on the per-frame "
                     "PM)")
-    # not ported yet: each raises NotImplementedError
+    ap.add_argument("--pm2-size", type=float, nargs="+", default=[0.0],
+                    help="refinement-window extent(s), outermost first "
+                    "(several values nest levels); implies --pm")
+    ap.add_argument("--pm2-softening", type=float, nargs="+",
+                    default=[0.5], help="fine softening, one a --pm2-size "
+                    "value")
+    # not ported yet: raises NotImplementedError
     ap.add_argument("--pm-persist", action="store_true")
-    ap.add_argument("--pm2-size", type=float, nargs="+", default=[0.0])
-    ap.add_argument("--pm2-softening", type=float, nargs="+", default=[0.5])
     return ap
 
 
@@ -645,20 +687,29 @@ def make_server(argv=None) -> StreamServer:
 
     ap = build_parser()
     args = ap.parse_args(argv)
-    for feature, given in (("pm_persist", args.pm_persist),
-                           ("pm2", args.pm2_size[0] > 0.0)):
-        if given:
-            raise not_ported(feature)
+    if args.pm_persist:
+        raise not_ported("pm_persist")
     m = re.fullmatch(r"(\d+)x(\d+)", args.raster_size.strip().lower())
     if m is None:
         ap.error(f"--raster-size must be WxH (got {args.raster_size!r})")
     method = {"auto": None, "torch": Method.TORCH,
               "cuda": Method.CUDA}[args.method]
+    want_pm = args.pm or args.pm2_size[0] > 0.0
+    pm2_cfg = None
+    if args.pm2_size[0] > 0.0:
+        sizes, softs = args.pm2_size, args.pm2_softening
+        if len(softs) != len(sizes):
+            ap.error("--pm2-softening needs one value per --pm2-size")
+        levels = tuple(pm2_ops.PM2Config(window_min=None, window_size=sz,
+                                         softening=e)
+                       for sz, e in zip(sizes, softs))
+        pm2_cfg = levels if len(levels) > 1 else levels[0]
     engine = Engine(
         particle_count=args.count, method=method, device=args.device,
-        pm=PMConfig(softening=args.pm_softening) if args.pm else None,
+        pm=PMConfig(softening=args.pm_softening) if want_pm else None,
         pairwise=(PairwiseParams(args.pm_g, args.pm_softening)
-                  if args.pm else None),
+                  if want_pm else None),
+        pm2=pm2_cfg,
         two_tier=not args.no_two_tier)
     server = StreamServer(engine, host=args.host, port=args.port,
                           target_fps=args.fps)

@@ -24,6 +24,14 @@ Lifecycle, as there:
     a cuFFT solve, then the step kernel, on ``Method.CUDA`` at any grid
     size; the plain ops/pm.py on ``Method.TORCH``). Its G constant comes
     from ``pairwise``, defaulted to (1.0, pm.softening).
+  * **pm2**: a ``PM2Config`` (or a tuple of them, outermost first) adds
+    refinement levels to the PM solver (ops/pm2.py: the same deposit and
+    gather kernels a level, around a difference-kernel solve).
+  * **pmx**: a ``PMXConfig`` adds the window-exact short-range correction
+    (ops/pmx.py: the radix sort's kernels compact the members, two
+    pairwise-kernel passes). Members past its capacity keep the mesh
+    force; ``step`` polls the member count every 120 frames and logs
+    each overflow episode once (``pmx_member_count`` reads it).
   * **masses**: f32 source masses, kept across resizes; grown particles
     get mass 1.
 
@@ -32,13 +40,13 @@ another device behind the caller's back, and asking for ``"cuda"``
 without CUDA raises. The CUDA method steps the planes in place.
 
 Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP.md
-item that ports them: the multi-level and window-exact PM solvers
-(``pm2``, ``pmx``), the persistent cell-sorted PM state
+item that ports them: the persistent cell-sorted PM state
 (``pm_persist=True``) and the multi-device ``mesh``.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from typing import Optional, Union
 
@@ -50,19 +58,23 @@ from ..core.params import (
     Method, PairwiseParams, PMConfig, SimParams, SphereGeneration,
 )
 from ..core.state import LANE, ParticleState, capacity_rows, grow_state
-from ..ops import pairwise, pairwise_cuda, pm, pm_cuda, step_cuda, step_ref
+from ..ops import (
+    pairwise, pairwise_cuda, pm, pm2 as pm2_ops, pm_cuda, pmx as pmx_ops,
+    step_cuda, step_ref,
+)
 from ..render import raster, raster_compact, raster_sorted
 from ..render.camera import Camera
 from .stats import FrameStats
 
 DEFAULT_COUNT_TORCH = 100_000
 DEFAULT_COUNT_CUDA = 1_000_000
+#: Frames between two reads of the pmx member count (about 2 s at 60 FPS).
+PMX_CHECK_EVERY = 120
 
+logger = logging.getLogger("particle_sim_tpu_torch.engine")
 
 #: Where in ROADMAP.md each feature that is not ported yet is queued.
 NOT_PORTED = {
-    "pm2": "ROADMAP.md queue 1 item 11 (ops/pm2.py)",
-    "pmx": "ROADMAP.md queue 1 item 12 (ops/pmx.py)",
     "pm_persist": "ROADMAP.md queue 1 item 13 (ops/pm_persist.py)",
     "mesh": "ROADMAP.md queue 1 item 15 (parallel/)",
 }
@@ -118,18 +130,23 @@ class Engine:
         ``pairwise`` (defaulted to ``PairwiseParams(1.0, pm.softening)``
         if omitted), the softening from ``pm.softening``.
 
+        ``pm2``: refinement levels on top of ``pm`` (one PM2Config, or a
+        tuple of them, outermost first; a 1-tuple is one level). ``pmx``:
+        the window-exact correction (a PMXConfig), on ``pm`` and ``pm2``.
+        Both are validated here, as :meth:`set_pm2` and :meth:`set_pmx`
+        validate a swap.
+
         ``pm_persist``: "auto" and False are accepted and resolve to the
         per-frame path at every count (:meth:`persist_resolved`); the JAX
         engine's "auto" goes persistent at 4M particles and more (its
-        ``PERSIST_AUTO_MIN_N``), a mode not ported yet, like True.
+        ``PERSIST_AUTO_MIN_N``) without pm2 or pmx, a mode not ported
+        yet, like True.
 
         ``two_tier``: the persistent PM's repair strategy, kept as
         ``engine.two_tier`` and carried through checkpoints and the
         server's ``"pm"`` events as the JAX engine carries it. It changes
         no physics until the persistent PM is ported."""
-        for feature, given in (("pm2", pm2 is not None),
-                               ("pmx", pmx is not None),
-                               ("pm_persist", pm_persist is True),
+        for feature, given in (("pm_persist", pm_persist is True),
                                ("mesh", mesh is not None)):
             if given:
                 raise not_ported(feature)
@@ -155,8 +172,23 @@ class Engine:
         self.substeps = substeps
         if pm is not None and pairwise is None:
             pairwise = PairwiseParams(1.0, pm.softening)
+        if pm2 is not None and pm is None:
+            raise ValueError("pm2 requires a coarse PMConfig (pm=...)")
+        if pmx is not None and pm is None:
+            raise ValueError("pmx requires the PM solver (pm=...)")
+        if (pm_persist == "auto" and (pmx is not None or (
+                isinstance(pm2, (tuple, list)) and len(pm2) > 1))):
+            pm_persist = False    # auto keeps the per-frame pmn / pmx
         self.pairwise = pairwise
         self.pm = pm
+        self.pm2 = None
+        self.pmx = None
+        self.set_pm2(pm2)
+        self.set_pmx(pmx)
+        self._pmx_members = None       # (n_members, n_corrected) device
+        self._pmx_check_at = 0         # next frame index to read them
+        self._pmx_overflowing = False  # warn once per overflow episode
+        self._frame_index = 0
         self.pm_persist = pm_persist
         self.two_tier = bool(two_tier)
         self.paused = False
@@ -250,24 +282,63 @@ class Engine:
                                        init_color=st.init_color,
                                        n_active=st.n_active)
         self.stats.record_update(time.perf_counter() - t0)
+        self._check_pmx_overflow()
 
     def _step_pm(self, pv: torch.Tensor) -> None:
-        """``substeps`` particle-mesh steps: the kernels on Method.CUDA
-        (in place), the plain solver on Method.TORCH."""
+        """``substeps`` particle-mesh steps, with the refinement levels and
+        the exact window when set (the JAX engine's order: pmx, then pm2,
+        then pm): the kernels on Method.CUDA (in place), the plain solvers
+        on Method.TORCH."""
         cfg, st = self.pm, self.state
         pp = self._param_vec((self.pairwise or PairwiseParams(
             1.0, cfg.softening)).pack())
         masses = self._masses_for_capacity()
+        levels = pm2_ops.as_levels(self.pm2)
+        fast = self.method == Method.CUDA
         pos, vel = st.pos, st.vel
         for _ in range(self.substeps):
-            if self.method == Method.CUDA:
+            if self.pmx is not None:
+                pos, vel, n_m = pmx_ops.step_pmx(
+                    pos, vel, pv, pp, st.n_active, cfg, levels, self.pmx,
+                    masses=masses, use_fast=fast)
+            elif levels:
+                pos, vel = pm2_ops.step_pmn(pos, vel, pv, pp, st.n_active,
+                                            cfg, levels, masses=masses,
+                                            use_fast=fast)
+            elif fast:
                 pm_cuda.step_pm(pos, vel, pv, pp, st.n_active, cfg,
                                 masses=masses)
             else:
                 pos, vel = pm.step_pm_ref(pos, vel, pv, pp, st.n_active, cfg,
                                           masses=masses)
+        if self.pmx is not None:
+            # device scalars, read lazily (pmx_member_count, the periodic
+            # overflow check in step): never a sync here
+            self._pmx_members = (n_m, torch.clamp_max(n_m,
+                                                      self.pmx.capacity))
         self.state = ParticleState(pos=pos, vel=vel, init_color=st.init_color,
                                    n_active=st.n_active)
+
+    def _check_pmx_overflow(self) -> None:
+        """Loud truncation: members beyond the exact buffer's capacity keep
+        the mesh force only, so every PMX_CHECK_EVERY frames read the two
+        device counts (a sync with a step already queued) and log once per
+        overflow episode."""
+        self._frame_index += 1
+        if (self._pmx_members is None
+                or self._frame_index < self._pmx_check_at):
+            return
+        self._pmx_check_at = self._frame_index + PMX_CHECK_EVERY
+        n_mem, n_corr = self.pmx_member_count()
+        if n_mem > n_corr and not self._pmx_overflowing:
+            self._pmx_overflowing = True
+            logger.warning(
+                "pmx window overflow: %d members, only %d inside the "
+                "capacity-%d exact buffer; the rest keep the mesh-only force "
+                "(grow pmx capacity or shrink the window)", n_mem, n_corr,
+                self.pmx.capacity)
+        elif n_mem <= n_corr:
+            self._pmx_overflowing = False
 
     def step_synced(self, params: Union[SimParams, np.ndarray]) -> None:
         """step() + device sync, recording the device time."""
@@ -336,11 +407,57 @@ class Engine:
         self.paused = was_paused
 
     # -- particle-mesh mode and diagnostics ------------------------------------
+    def set_pm2(self, pm2) -> None:
+        """Set, swap or clear (None, ()) the refinement stack between steps
+        (the server's solver events), with the constructor's normalisation
+        (a 1-tuple is one level). Every invalid stack raises here, at the
+        call site, and the old one stays: one that does not nest or whose
+        softenings do not fall, and one the installed pmx window cannot
+        nest in."""
+        if pm2 is not None and self.pm is None:
+            raise ValueError("pm2 requires a PM solver (pm=...)")
+        if isinstance(pm2, (tuple, list)):
+            pm2 = tuple(pm2)
+            if len(pm2) == 1:
+                pm2 = pm2[0]
+            elif not pm2:
+                pm2 = None
+        levels = pm2_ops.as_levels(pm2)
+        if levels:
+            pm2_ops._validate_levels(self.pm, levels)
+        if self.pmx is not None:
+            pmx_ops._validate(self.pm, levels, self.pmx)
+        self.pm2 = pm2
+
+    def set_pmx(self, pmx) -> None:
+        """Install, replace or clear (None) the window-exact correction
+        between steps, validated against the current PM and stack at the
+        call site (a rejected window keeps the old one). A change forgets
+        the member counts of the old window."""
+        if pmx is not None:
+            if self.pm is None:
+                raise ValueError("pmx requires the PM solver (pm=...)")
+            pmx_ops._validate(self.pm, pm2_ops.as_levels(self.pm2), pmx)
+        if pmx == self.pmx:
+            return
+        self.pmx = pmx
+        self._pmx_members = None
+        self._pmx_overflowing = False
+
+    def pmx_member_count(self):
+        """(n_members, n_corrected) of the newest pmx frame, or None before
+        the first one. n_corrected < n_members means the exact window
+        overflowed its capacity (the rest keep the mesh force). Reads two
+        device scalars."""
+        if self._pmx_members is None:
+            return None
+        return tuple(int(c) for c in self._pmx_members)
+
     def persist_resolved(self) -> bool:
         """Whether a step right now would run the persistent cell-sorted PM
         mode: always False here (the mode is not ported; "auto" and False
         run the per-frame path, where the JAX engine's "auto" would turn
-        persistent at 4M particles and more)."""
+        persistent at 4M particles and more without pm2)."""
         return False
 
     def diagnostics(self, potential: bool = False):

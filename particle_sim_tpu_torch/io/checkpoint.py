@@ -4,10 +4,10 @@ Counterpart of ``particle_sim_tpu/io/checkpoint.py`` with the same file
 format (``FORMAT_VERSION = 1``: one .npz holding positions, velocities
 and init colors sliced to the active count, an optional ``masses``
 array, and a JSON ``meta`` with the same keys, ``pairwise`` and ``pm``
-included), so a file saved by either package loads in the other. A
-checkpoint whose configuration needs a part not ported yet (the pm2 or
-pmx solvers, ``pm_persist: true``) raises ``NotImplementedError`` on
-load.
+included, and ``pm2``: one dict or a list of dicts, outermost level
+first, and ``pmx``), so a file saved by either package loads in the
+other. A checkpoint whose configuration needs a part not ported yet
+(``pm_persist: true``) raises ``NotImplementedError`` on load.
 """
 
 from __future__ import annotations
@@ -23,6 +23,8 @@ from ..core.params import Method, PairwiseParams, PMConfig, SphereGeneration
 from ..core.state import ParticleState
 from ..engine import Engine
 from ..engine.engine import not_ported
+from ..ops.pm2 import PM2Config
+from ..ops.pmx import PMXConfig
 
 FORMAT_VERSION = 1
 
@@ -43,9 +45,11 @@ def save(path: str, engine: Engine, step_index: int = 0) -> None:
         "pm": dataclasses.asdict(engine.pm) if engine.pm else None,
         # the raw mode ("auto" | False), not its resolution
         "pm_persist": engine.pm_persist,
-        # the multi-level and window-exact solvers are not ported
-        "pm2": None,
-        "pmx": None,
+        # one PM2Config -> a dict; a multi-level tuple -> a list of dicts
+        "pm2": ([dataclasses.asdict(c) for c in engine.pm2]
+                if isinstance(engine.pm2, tuple)
+                else dataclasses.asdict(engine.pm2) if engine.pm2 else None),
+        "pmx": dataclasses.asdict(engine.pmx) if engine.pmx else None,
         "two_tier": engine.two_tier,
     }
     arrays = dict(
@@ -66,6 +70,14 @@ def save(path: str, engine: Engine, step_index: int = 0) -> None:
     os.replace(actual, path)
 
 
+def _config(cls, d: dict):
+    """A PM2Config / PMXConfig from its saved dict (``window_min`` back
+    to a tuple)."""
+    if d.get("window_min") is not None:
+        d = dict(d, window_min=tuple(d["window_min"]))
+    return cls(**d)
+
+
 def load(path: str, method: Optional[Method] = None, *,
          device="cuda") -> tuple:
     """-> (Engine, step_index). ``method`` overrides the saved one."""
@@ -78,9 +90,6 @@ def load(path: str, method: Optional[Method] = None, *,
         init_colors = z["init_colors"]
         masses = z["masses"] if "masses" in z.files else None
 
-    for key in ("pm2", "pmx"):
-        if meta.get(key):
-            raise not_ported(key)
     pm_persist = meta.get("pm_persist", False)
     if pm_persist is True:
         raise not_ported("pm_persist")
@@ -88,6 +97,12 @@ def load(path: str, method: Optional[Method] = None, *,
     pm_meta = meta.get("pm")
     if pm_meta:
         pm_meta["box_min"] = tuple(pm_meta["box_min"])
+    pm2_meta, pmx_meta = meta.get("pm2"), meta.get("pmx")
+    pm2_cfg = None
+    if pm2_meta:
+        pm2_cfg = (tuple(_config(PM2Config, d) for d in pm2_meta)
+                   if isinstance(pm2_meta, list)
+                   else _config(PM2Config, pm2_meta))
     engine = Engine(
         particle_count=1,  # placeholder; the state is replaced below
         method=method if method is not None else Method(meta["method"]),
@@ -96,6 +111,8 @@ def load(path: str, method: Optional[Method] = None, *,
         substeps=meta.get("substeps", 1),
         pairwise=PairwiseParams(*pair) if pair else None,
         pm=PMConfig(**pm_meta) if pm_meta else None,
+        pm2=pm2_cfg,
+        pmx=_config(PMXConfig, pmx_meta) if pmx_meta else None,
         pm_persist=pm_persist,
         two_tier=meta.get("two_tier", True),
     )

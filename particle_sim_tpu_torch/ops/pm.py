@@ -26,8 +26,12 @@ leaves them to XLA outside any kernel, too.
 
 Kernel spectra are computed on the host in numpy (the same code as the
 JAX package, so they are bit-identical) and kept on the device as
-complex64 tensors in a least-recently-used cache of at most 8 entries
-(``base_kernels_device``): one G = 256 entry is ~1.6 GB.
+complex64 tensors in one least-recently-used cache of at most 8 entries:
+the base spectra (``base_kernels_device``; one G = 256 entry is ~1.6 GB)
+and the difference spectra g_eps - g_eps_outer of the refinement levels
+(``diff_kernels_device``, ops/pm2.py; ~203 MB a level at G = 128).
+``solve_accel_diff`` solves with a difference kernel, ``solve_accel_pair``
+runs the coarse and one fine solve through one batched set of transforms.
 """
 
 from __future__ import annotations
@@ -196,6 +200,32 @@ def _isolated_kernels_host(grid: int, h: float, eps: float,
 
 
 @functools.lru_cache(maxsize=8)
+def _isolated_diff_kernels_host(grid: int, h: float, eps: float,
+                                eps_outer: float, gradient: str) -> tuple:
+    """rfftn of the DIFFERENCE kernel g_eps - g_eps_outer (eps < eps_outer)
+    on the doubled grid — the short-range part a coarse mesh softened at
+    eps_outer cannot resolve. Decays like r^-4 beyond eps_outer, so its
+    support is local to the refinement window (ops/pm2.py)."""
+    g2 = 2 * grid
+    idx = np.arange(g2)
+    d = np.where(idx < grid, idx, idx - g2).astype(np.float32) * h
+    dz = d[:, None, None]
+    dy = d[None, :, None]
+    dx = d[None, None, :]
+    r2 = dx * dx + dy * dy + dz * dz
+    r2a = r2 + np.float32(eps * eps)
+    r2b = r2 + np.float32(eps_outer * eps_outer)
+    if gradient == "fd":
+        phi = -(r2a ** np.float32(-0.5) - r2b ** np.float32(-0.5))
+        return (np.fft.rfftn(phi).astype(np.complex64),)
+    k = r2a ** np.float32(-1.5) - r2b ** np.float32(-1.5)
+    return tuple(
+        np.fft.rfftn(-dc * k).astype(np.complex64)
+        for dc in (dx, dy, dz)
+    )
+
+
+@functools.lru_cache(maxsize=8)
 def _periodic_kernels_host(grid: int, h: float, eps: float,
                            gradient: str) -> tuple:
     """Closed-form Plummer kernel in Fourier space on the G^3 grid."""
@@ -215,9 +245,28 @@ def _periodic_kernels_host(grid: int, h: float, eps: float,
                  for kc in (kx, ky, kz))
 
 
-#: Device spectra, least recently used first; at most DEVICE_CACHE_SIZE.
+#: Device spectra (base and difference), least recently used first; at
+#: most DEVICE_CACHE_SIZE.
 _DEVICE_KERNELS: "collections.OrderedDict" = collections.OrderedDict()
 DEVICE_CACHE_SIZE = 8
+
+
+def _cached_spectra(key: tuple, device, host_fn) -> tuple:
+    """The complex64 spectra ``host_fn()`` on ``device``, from the LRU
+    cache under ``key`` + the device (least recently used out)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = key + (str(dev),)
+    got = _DEVICE_KERNELS.get(key)
+    if got is not None:
+        _DEVICE_KERNELS.move_to_end(key)
+        return got
+    got = tuple(torch.from_numpy(k).to(dev) for k in host_fn())
+    _DEVICE_KERNELS[key] = got
+    while len(_DEVICE_KERNELS) > DEVICE_CACHE_SIZE:
+        _DEVICE_KERNELS.popitem(last=False)
+    return got
 
 
 def base_kernels_device(cfg: "P.PMConfig", softening, cell_size=None, *,
@@ -229,22 +278,22 @@ def base_kernels_device(cfg: "P.PMConfig", softening, cell_size=None, *,
     h = float(cfg.cell_size if cell_size is None else cell_size)
     eps = float(softening)
     grad = cfg.gradient
-    dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    key = (cfg.boundary, g, h, eps, grad, str(dev))
-    got = _DEVICE_KERNELS.get(key)
-    if got is not None:
-        _DEVICE_KERNELS.move_to_end(key)
-        return got
-    ks = (_isolated_kernels_host(g, h, eps, grad)
-          if cfg.boundary == "isolated"
-          else _periodic_kernels_host(g, h, eps, grad))
-    got = tuple(torch.from_numpy(k).to(dev) for k in ks)
-    _DEVICE_KERNELS[key] = got
-    while len(_DEVICE_KERNELS) > DEVICE_CACHE_SIZE:
-        _DEVICE_KERNELS.popitem(last=False)
-    return got
+    if cfg.boundary == "isolated":
+        make = functools.partial(_isolated_kernels_host, g, h, eps, grad)
+    else:
+        make = functools.partial(_periodic_kernels_host, g, h, eps, grad)
+    return _cached_spectra((cfg.boundary, g, h, eps, grad), device, make)
+
+
+def diff_kernels_device(grid: int, h, eps, eps_outer,
+                        gradient: str = "exact", *, device="cpu") -> tuple:
+    """The difference spectra (``_isolated_diff_kernels_host``) as
+    complex64 tensors on ``device``, in the same cache as the base
+    spectra."""
+    args = (grid, float(h), float(eps), float(eps_outer), gradient)
+    return _cached_spectra(("diff",) + args, device,
+                           functools.partial(_isolated_diff_kernels_host,
+                                             *args))
 
 
 def _irfftn_octant(spec: torch.Tensor, g: int) -> torch.Tensor:
@@ -270,16 +319,19 @@ def _interleaved_buffer(g: int, device) -> torch.Tensor:
     return torch.empty((g, g, g, 4), dtype=torch.float32, device=device)
 
 
-def _irfftn_octant_batch(specs: torch.Tensor, g: int) -> torch.Tensor:
-    """_irfftn_octant over a leading batch axis in one set of transforms,
-    written into an interleaved buffer (the one copy out of the
-    transform's padded output) -> its f32[3, G, G, G] view."""
+def _irfftn_octant_batch(specs: torch.Tensor, g: int) -> tuple:
+    """_irfftn_octant over a leading batch axis of 3k spectra in one set
+    of transforms, written into k interleaved buffers (the one copy out
+    of the transform's padded output) -> their k f32[3, G, G, G] views."""
     x = torch.fft.ifft(specs, dim=1)[:, :g]
     x = torch.fft.ifft(x, dim=2)[:, :, :g]
     x = torch.fft.irfft(x, n=2 * g, dim=3)[..., :g]
-    out = _interleaved_buffer(g, x.device)
-    out[..., :3].copy_(x.permute(1, 2, 3, 0))
-    return interleaved_view(out)
+    views = []
+    for c in range(0, x.shape[0], 3):
+        out = _interleaved_buffer(g, x.device)
+        out[..., :3].copy_(x[c:c + 3].permute(1, 2, 3, 0))
+        views.append(interleaved_view(out))
+    return tuple(views)
 
 
 def _fd_gradient(phi: torch.Tensor, h: float) -> torch.Tensor:
@@ -297,6 +349,16 @@ def _fd_gradient(phi: torch.Tensor, h: float) -> torch.Tensor:
     for c, axis in enumerate((2, 1, 0)):
         out[..., c] = diff(axis)
     return interleaved_view(out)
+
+
+def _solve_isolated(rho: torch.Tensor, ks, g: int, gradient: str,
+                    h) -> torch.Tensor:
+    """The Hockney solve of rho with the doubled-grid spectra ``ks``."""
+    rho_hat = torch.fft.rfftn(torch.nn.functional.pad(rho, (0, g) * 3))
+    if gradient == "fd":
+        phi = _irfftn_octant(rho_hat * ks[0], g)
+        return _fd_gradient(phi.to(torch.float32), h)
+    return _irfftn_octant_batch(rho_hat[None] * torch.stack(ks), g)[0]
 
 
 def solve_accel(rho: torch.Tensor, cfg: "P.PMConfig", softening,
@@ -318,13 +380,7 @@ def solve_accel(rho: torch.Tensor, cfg: "P.PMConfig", softening,
     ks = (base_kernels_device(cfg, softening, h, device=rho.device)
           if kernels is None else kernels)
     if cfg.boundary == "isolated":
-        rho_p = torch.nn.functional.pad(rho, (0, g, 0, g, 0, g))
-        rho_hat = torch.fft.rfftn(rho_p)
-        if cfg.gradient == "fd":
-            phi = _irfftn_octant(rho_hat * ks[0], g)
-            return _fd_gradient(phi.to(torch.float32), h)
-        specs = rho_hat[None] * torch.stack(ks)
-        return _irfftn_octant_batch(specs, g).to(torch.float32)
+        return _solve_isolated(rho, ks, g, cfg.gradient, h)
     rho_hat = torch.fft.rfftn(rho)
     if cfg.gradient == "fd":
         phi = torch.fft.irfftn(rho_hat * ks[0], s=rho.shape)
@@ -332,6 +388,40 @@ def solve_accel(rho: torch.Tensor, cfg: "P.PMConfig", softening,
     specs = rho_hat[None] * torch.stack(ks)
     return torch.fft.irfftn(specs, s=rho.shape,
                             dim=(1, 2, 3)).to(torch.float32)
+
+
+def solve_accel_diff(rho: torch.Tensor, grid: int, h, eps, eps_outer,
+                     gradient: str = "exact", kernels=None) -> torch.Tensor:
+    """f32[3, G, G, G] acceleration grids for the short-range difference
+    kernel g_eps - g_eps_outer (isolated Hockney; a refinement level of
+    ops/pm2.py), in solve_accel's layouts. ``kernels``:
+    diff_kernels_device() spectra; by default from its cache on rho's
+    device."""
+    ks = (diff_kernels_device(grid, h, eps, eps_outer, gradient,
+                              device=rho.device)
+          if kernels is None else kernels)
+    return _solve_isolated(rho, ks, grid, gradient, float(h))
+
+
+def solve_accel_pair(rho: torch.Tensor, rho2: torch.Tensor,
+                     cfg: "P.PMConfig", softening, kernels2,
+                     kernels1=None) -> tuple:
+    """(grids, grids2) f32[3, G, G, G] each, interleaved views — the
+    isolated exact-gradient coarse solve of ``rho`` and the fine
+    difference solve of ``rho2`` (``kernels2`` = pm2.fine_kernels(...))
+    batched through one transform set: both share the doubled-grid shape,
+    so the forward rfftns batch to 2 and the six inverse components ride
+    one _irfftn_octant_batch. ``kernels1``: base_kernels_device() spectra
+    (default: from its cache). The caller gates on boundary 'isolated'
+    and both gradients 'exact'."""
+    g = cfg.grid
+    ks1 = (base_kernels_device(cfg, softening, device=rho.device)
+           if kernels1 is None else kernels1)
+    rp = torch.nn.functional.pad(torch.stack([rho, rho2]), (0, g) * 3)
+    rhat = torch.fft.rfftn(rp, dim=(1, 2, 3))
+    specs = torch.cat([rhat[0][None] * torch.stack(ks1),
+                       rhat[1][None] * torch.stack(kernels2)])
+    return _irfftn_octant_batch(specs, g)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,346 @@
+"""Multi-level particle mesh — sub-mesh-scale forces in refinement windows.
+
+Counterpart of ``particle_sim_tpu/ops/pm2.py``, with the same functions,
+names and argument order. The single-level PM (ops/pm.py, ops/pm_cuda.py)
+resolves forces down to its softening, which mesh accuracy pins at
+~2-3 cells of the world grid. A refinement level adds:
+
+  * **a fine mesh** of the same G^3 cells over a window (h2 =
+    window_size / G), holding only the particles inside the window;
+  * **the difference kernel** g_eps - g_eps_outer (pm.solve_accel_diff):
+    exactly the short-range part the level above smoothed away;
+  * **one mask for sources and receivers**, so the correction acts on
+    window-internal pairs only and is antisymmetric (momentum-exact).
+
+Levels nest (``pmn_accel``): level k solves g_eps_k - g_eps_{k-1} over
+window_k, clamped inside window_{k-1}'s source mask, so the composite
+telescopes and a pair feels the softening of the innermost window holding
+both of its ends. Tracked origins (``window_min=None``) follow the mass
+centroid of the parent level's members, computed on the device.
+
+``pmn_accel`` / ``pm2_accel`` run every level on the CUDA deposit and
+gather kernels (ops/pm_cuda.py): the window's origin goes in as the
+deposit's device box, its mask as the ``live`` mask (outside particles
+deposit nothing and gather exactly 0, whatever their position). No sort
+is needed: the JAX fast path sorts only for its TPU kernels. On CPU
+tensors the wrappers take their plain versions. ``pmn_accel_ref`` /
+``pm2_accel_ref`` are the plain path (scatter/gather, as the JAX jnp
+reference). Window origins stay on the device; no step reads back.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core import params as P
+from . import physics, pm, pm_cuda
+
+
+@dataclass(frozen=True)
+class PM2Config:
+    """Fine-level configuration (the fields of the JAX package's, with the
+    same defaults, so checkpoints carry it across).
+
+    window_min:  world coords of the refinement window origin, or None to
+                 TRACK the live mass centroid every step (only the origin
+                 moves; the size, and with it the cached spectra, stays).
+    window_size: window extent per axis (fine cell h2 = window_size/grid;
+                 the grid resolution is the coarse PMConfig's).
+    softening:   fine Plummer eps — resolve eps >= ~2.5 h2; must be < the
+                 softening of the level above.
+    margin:      shrink (world units) of the correction mask inside the
+                 window, for sources and receivers alike. Default 0.
+    gradient:    'exact' or 'fd', as in PMConfig.
+    park:        the persistent two-level mode's parking band (JAX
+                 ops/pm_persist.py); carried, unused per frame.
+    """
+    window_min: Optional[Tuple[float, float, float]]
+    window_size: float
+    softening: float
+    margin: float = 0.0
+    gradient: str = "exact"
+    park: float = 1.0
+
+
+def as_levels(pm2) -> tuple:
+    """A refinement stack (None, one PM2Config or a tuple) as a tuple of
+    levels, outermost first."""
+    if pm2 is None:
+        return ()
+    return pm2 if isinstance(pm2, tuple) else (pm2,)
+
+
+def _f32(v: float) -> float:
+    """``v`` rounded to float32 (jnp.float32(v) of the JAX code)."""
+    return float(np.float32(v))
+
+
+def _in_window(pos_flat: torch.Tensor, wmin: torch.Tensor, size: float,
+               shrink: float) -> torch.Tensor:
+    lo = wmin.reshape(3, 1) + _f32(shrink)
+    hi = lo + _f32(size - 2.0 * shrink)
+    return ((pos_flat >= lo) & (pos_flat < hi)).all(dim=0)
+
+
+def window_min(pos_flat: torch.Tensor, n_active, cfg2: PM2Config,
+               masses=None, live=None) -> torch.Tensor:
+    """f32[3] window origin on pos_flat's device: the static config value,
+    or (tracked) the live mass centroid minus half the window. ``live``
+    (bool[N]) overrides ``arange < n_active``."""
+    dev = pos_flat.device
+    if cfg2.window_min is not None:
+        return pm_cuda.device_const(tuple(float(v) for v in cfg2.window_min),
+                                    dev)
+    if live is None:
+        live = pm.live_mask(pos_flat.shape[1], n_active, dev)
+    w = live.to(torch.float32)
+    if masses is not None:
+        w = w * masses
+    s = (pos_flat * w[None]).sum(dim=1)
+    c = s / torch.clamp_min(w.sum(), 1e-12)
+    return c - 0.5 * _f32(cfg2.window_size)
+
+
+def fine_kernels(cfg: "P.PMConfig", cfg2: PM2Config,
+                 eps_outer: Optional[float] = None, *,
+                 device="cpu") -> tuple:
+    """The fine solve's difference spectra on ``device`` (cached;
+    pm.diff_kernels_device). ``eps_outer`` defaults to the coarse
+    softening; deeper levels pass the PARENT level's."""
+    h2 = cfg2.window_size / cfg.grid
+    eo = cfg.softening if eps_outer is None else eps_outer
+    return pm.diff_kernels_device(cfg.grid, h2, cfg2.softening, eo,
+                                  cfg2.gradient, device=device)
+
+
+def levels_kernels(cfg: "P.PMConfig", levels, *, device="cpu") -> tuple:
+    """Per-level spectra for pmn_accel: level k's difference kernel
+    subtracts the PREVIOUS level's softening (telescoping)."""
+    out, eps_outer = [], cfg.softening
+    for c2 in levels:
+        out.append(fine_kernels(cfg, c2, eps_outer=eps_outer, device=device))
+        eps_outer = c2.softening
+    return tuple(out)
+
+
+def _fine_accel_ref(pos_flat, n_active, cfg, cfg2, masses, wmin,
+                    kernels=None, eps_outer: Optional[float] = None):
+    """f32[3, N] difference-kernel acceleration, unmasked (plain path).
+    ``eps_outer`` defaults to the coarse softening (two-level mode)."""
+    h2 = cfg2.window_size / cfg.grid
+    eo = cfg.softening if eps_outer is None else eps_outer
+    coords2 = pm.cell_coords_dyn(pos_flat, wmin, h2, cfg.grid)
+    live = pm.live_mask(pos_flat.shape[1], n_active, pos_flat.device)
+    w_src = (_in_window(pos_flat, wmin, cfg2.window_size, cfg2.margin)
+             & live).to(torch.float32)
+    m_src = w_src if masses is None else w_src * masses
+    rho2 = pm.cic_deposit_ref(pos_flat, n_active, cfg, coords=coords2,
+                              masses=m_src)
+    grids2 = pm.solve_accel_diff(rho2, cfg.grid, h2, cfg2.softening, eo,
+                                 cfg2.gradient, kernels=kernels)
+    return pm.cic_gather_ref(grids2, pos_flat, cfg, coords=coords2)
+
+
+def pm2_accel_ref(pos_flat: torch.Tensor, n_active, g_const,
+                  cfg: "P.PMConfig", cfg2: PM2Config, masses=None,
+                  kernels=None) -> torch.Tensor:
+    """f32[3, N] two-level PM acceleration — plain path (the one-level
+    case of pmn_accel_ref)."""
+    return pmn_accel_ref(pos_flat, n_active, g_const, cfg, (cfg2,),
+                         masses=masses,
+                         kernels=None if kernels is None else (kernels,))
+
+
+def fine_accel_fast(pos_flat: torch.Tensor, live: torch.Tensor, n_active,
+                    cfg: "P.PMConfig", cfg2: PM2Config, *, masses=None,
+                    kernels=None, wmin=None,
+                    eps_outer: Optional[float] = None) -> torch.Tensor:
+    """f32[3, N] fine-level (difference-kernel) acceleration, already
+    masked to the window-internal receivers, through the deposit and
+    gather kernels, which take the particles in slot order (the JAX
+    package's sorted kernels need a grouping sort). ``live`` is the
+    bool[N] liveness; the window mask ``inner`` = in-window & live
+    goes to both kernels as their ``live``: outside particles deposit
+    nothing and gather exactly 0. ``n_active`` (a device tensor keeps the
+    step free of uploads) is passed through to the wrappers."""
+    if wmin is None:
+        wmin = window_min(pos_flat, None, cfg2, masses, live=live)
+    g = cfg.grid
+    h2 = cfg2.window_size / g
+    eo = cfg.softening if eps_outer is None else eps_outer
+    cell = pm_cuda.device_const((h2,), pos_flat.device)
+    inner = _in_window(pos_flat, wmin, cfg2.window_size, cfg2.margin) & live
+    rho2 = pm_cuda.deposit(pos_flat, n_active, wmin, cell, g, periodic=False,
+                           masses=masses, live=inner)
+    grids2 = pm.solve_accel_diff(rho2, g, h2, cfg2.softening, eo,
+                                 cfg2.gradient, kernels=kernels)
+    return pm_cuda.gather(grids2, pos_flat, n_active, wmin, cell,
+                          periodic=False, live=inner)
+
+
+def pm2_accel(pos_flat: torch.Tensor, n_active, g_const,
+              cfg: "P.PMConfig", cfg2: PM2Config, *, masses=None,
+              kernels=None) -> torch.Tensor:
+    """f32[3, N] two-level PM acceleration on the kernels (the one-level
+    case of pmn_accel)."""
+    return pmn_accel(pos_flat, n_active, g_const, cfg, (cfg2,),
+                     masses=masses,
+                     kernels=None if kernels is None else (kernels,))
+
+
+# ---------------------------------------------------------------------------
+# multi-level nesting (k refinement windows, outermost first)
+# ---------------------------------------------------------------------------
+
+def _validate_levels(cfg: "P.PMConfig", levels) -> tuple:
+    """Static nesting checks: each level's softening strictly below its
+    parent's (the difference split needs eps_k < eps_{k-1}) and each
+    window small enough to fit inside the parent's margin-shrunk source
+    mask (so the origin clamp in _nested_wmins can always nest)."""
+    levels = tuple(levels)
+    if not levels:
+        raise ValueError("need at least one refinement level")
+    prev_size = float(cfg.box_size)
+    prev_eps = float(cfg.softening)
+    prev_margin = 0.0
+    for k, c2 in enumerate(levels):
+        if c2.softening >= prev_eps:
+            raise ValueError(
+                f"level {k} softening {c2.softening} must be < the level "
+                f"above ({prev_eps}) for the difference-kernel split")
+        if c2.window_size > prev_size - 2.0 * prev_margin:
+            raise ValueError(
+                f"level {k} window {c2.window_size} cannot nest inside "
+                f"the level above (usable extent "
+                f"{prev_size - 2.0 * prev_margin})")
+        prev_size = float(c2.window_size)
+        prev_eps = float(c2.softening)
+        prev_margin = float(c2.margin)
+    return levels
+
+
+def clamp_nested(w: torch.Tensor, parent_w: torch.Tensor, parent,
+                 size: float) -> torch.Tensor:
+    """Origin ``w`` of a window of ``size`` clamped inside the parent
+    level's margin-shrunk source mask (parent origin ``parent_w``)."""
+    return torch.clamp(
+        w, parent_w + _f32(parent.margin),
+        parent_w + _f32(parent.window_size - parent.margin - size))
+
+
+def _nested_wmins(pos_flat, live, cfg, levels, masses):
+    """Per-level window origins, each nested inside the level above.
+
+    Tracked origins follow the mass centroid of the PARENT level's members
+    and are clamped so window_k stays inside level k-1's source mask (the
+    telescoping composition needs a pair corrected at level k to be
+    corrected at level k-1). A static child under a static parent is
+    validated here, in float64; under a tracked parent it is clamped like
+    a tracked one (an identity wherever it already nests)."""
+    wmins = []
+    lv_live = live
+    prev = None
+    for k, c2 in enumerate(levels):
+        w = window_min(pos_flat, None, c2, masses, live=lv_live)
+        if prev is not None:
+            pw, pc = prev
+            if c2.window_min is not None and pc.window_min is not None:
+                lo = np.asarray(pc.window_min, np.float64) + pc.margin
+                hi = lo + (pc.window_size - 2.0 * pc.margin
+                           - c2.window_size)
+                cw = np.asarray(c2.window_min, np.float64)
+                if (cw < lo - 1e-6).any() or (cw > hi + 1e-6).any():
+                    raise ValueError(
+                        f"level {k} static window {c2.window_min} does "
+                        f"not nest inside level {k - 1}'s source mask "
+                        f"[{tuple(lo)}, {tuple(hi)}]")
+            else:
+                w = clamp_nested(w, pw, pc, c2.window_size)
+        wmins.append(w)
+        lv_live = _in_window(pos_flat, w, c2.window_size, c2.margin) & live
+        prev = (w, c2)
+    return wmins
+
+
+def pmn_accel_ref(pos_flat: torch.Tensor, n_active, g_const,
+                  cfg: "P.PMConfig", levels, masses=None,
+                  kernels=None) -> torch.Tensor:
+    """f32[3, N] MULTI-level PM acceleration — plain path.
+
+    ``levels``: nested refinement windows (PM2Config), outermost first.
+    Level k solves the difference kernel g_eps_k - g_eps_{k-1} over
+    window_k's sources and receivers, so a pair with both ends inside
+    window_k feels the eps_k-softened force. With one level this is
+    pm2_accel_ref. ``kernels``: optional levels_kernels() output."""
+    levels = _validate_levels(cfg, levels)
+    acc = pm.pm_accel_ref(pos_flat, n_active, 1.0, cfg.softening, cfg,
+                          masses=masses)
+    live = pm.live_mask(pos_flat.shape[1], n_active, pos_flat.device)
+    wmins = _nested_wmins(pos_flat, live, cfg, levels, masses)
+    eps_outer = cfg.softening
+    for k, (c2, w) in enumerate(zip(levels, wmins)):
+        ker = None if kernels is None else kernels[k]
+        acc2 = _fine_accel_ref(pos_flat, n_active, cfg, c2, masses, w,
+                               kernels=ker, eps_outer=eps_outer)
+        inner = (_in_window(pos_flat, w, c2.window_size, c2.margin)
+                 & live).to(torch.float32)
+        acc = acc + acc2 * inner[None]
+        eps_outer = float(c2.softening)
+    return g_const * pm.momentum_clean(acc, n_active, masses)
+
+
+def pmn_accel(pos_flat: torch.Tensor, n_active, g_const,
+              cfg: "P.PMConfig", levels, *, masses=None,
+              kernels=None) -> torch.Tensor:
+    """f32[3, N] multi-level PM acceleration on the deposit and gather
+    kernels at any grid size (their plain versions on CPU tensors): the
+    coarse pm_cuda.pm_accel, then one deposit + difference solve + gather
+    a level (fine_accel_fast), then momentum_clean. Needs a static coarse
+    box."""
+    if cfg.auto_box:
+        raise ValueError("multi-level PM needs a static coarse box")
+    levels = _validate_levels(cfg, levels)
+    acc = pm_cuda.pm_accel(pos_flat, n_active, 1.0, cfg, masses=masses)
+    live = pm.live_mask(pos_flat.shape[1], n_active, pos_flat.device)
+    wmins = _nested_wmins(pos_flat, live, cfg, levels, masses)
+    eps_outer = cfg.softening
+    for k, (c2, w) in enumerate(zip(levels, wmins)):
+        ker = None if kernels is None else kernels[k]
+        acc = acc + fine_accel_fast(pos_flat, live, n_active, cfg, c2,
+                                    masses=masses, kernels=ker, wmin=w,
+                                    eps_outer=eps_outer)
+        eps_outer = float(c2.softening)
+    return g_const * pm.momentum_clean(acc, n_active, masses)
+
+
+def step_pmn(pos: torch.Tensor, vel: torch.Tensor, param_vec: torch.Tensor,
+             pair_vec: torch.Tensor, n_active, cfg: "P.PMConfig", levels, *,
+             masses=None, kernels=None, use_fast: bool = True
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One frame: multi-level PM self-gravity + the attractor step on
+    (3, R, LANE) planes. ``use_fast``: pmn_accel and pm_cuda.kick_and_step
+    (the step kernel on CUDA), IN PLACE; else the plain pmn_accel_ref and
+    physics.kick_and_step_planes (new tensors). -> (pos, vel)."""
+    flat = pos.reshape(3, -1)
+    fn = pmn_accel if use_fast else pmn_accel_ref
+    acc = fn(flat, n_active, pair_vec[0], cfg, levels, masses=masses,
+             kernels=kernels)
+    if use_fast:
+        return pm_cuda.kick_and_step(pos, vel, acc, param_vec)
+    return physics.kick_and_step_planes(pos, vel, acc.reshape(pos.shape),
+                                        param_vec)
+
+
+def step_pm2(pos: torch.Tensor, vel: torch.Tensor, param_vec: torch.Tensor,
+             pair_vec: torch.Tensor, n_active, cfg: "P.PMConfig",
+             cfg2: PM2Config, *, masses=None, kernels=None,
+             use_fast: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One frame of two-level PM (step_pmn with one level)."""
+    return step_pmn(pos, vel, param_vec, pair_vec, n_active, cfg, (cfg2,),
+                    masses=masses,
+                    kernels=None if kernels is None else (kernels,),
+                    use_fast=use_fast)

@@ -40,7 +40,7 @@ import torch
 
 from ..core import params as P
 from ..utils import cuda_build
-from . import pm, step_cuda
+from . import physics, pm, step_cuda
 
 #: Kernel launches in this process: the deposit with unit masses, the
 #: deposit with masses, and the gather.
@@ -90,13 +90,20 @@ def _device_args(pos, n_active, box_min, cell):
     return na, bmin, cell_t
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=64)
+def device_const(values, device: torch.device,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A constant tensor (``values``: a number or a tuple) on ``device``,
+    made once: an upload from pageable host memory on every call would
+    wait for the steps queued before it. Callers must not write into
+    it."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def static_box(box_min: tuple, cell: float, device: torch.device) -> tuple:
-    """(box_min f32[3], cell f32[1]) of a static box on ``device``, made
-    once: an upload from pageable host memory on every call would wait
-    for the steps queued before it."""
-    return (torch.tensor(box_min, dtype=torch.float32, device=device),
-            torch.tensor([cell], dtype=torch.float32, device=device))
+    """(box_min f32[3], cell f32[1]) of a static box on ``device``
+    (device_const)."""
+    return device_const(tuple(box_min), device), device_const((cell,), device)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -256,6 +263,22 @@ def pm_accel(pos_flat: torch.Tensor, n_active, g_const, cfg: "P.PMConfig",
     return g_const * pm.momentum_clean(acc, n_active, masses)
 
 
+def kick_and_step(pos: torch.Tensor, vel: torch.Tensor, acc: torch.Tensor,
+                  param_vec: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``vel += acc*dt``, then the attractor step, IN PLACE on (3, R, LANE)
+    planes: a plain add and the step kernel on CUDA,
+    physics.kick_and_step_planes copied back on the CPU. -> (pos, vel), the
+    same tensors."""
+    if pos.device.type == "cpu":
+        p, v = physics.kick_and_step_planes(pos, vel, acc.reshape(pos.shape),
+                                            param_vec)
+        pos.copy_(p)
+        vel.copy_(v)
+        return pos, vel
+    vel.add_(acc.reshape(vel.shape) * param_vec[P.P_DT])
+    return step_cuda.step(pos, vel, param_vec)
+
+
 def step_pm(pos: torch.Tensor, vel: torch.Tensor, param_vec: torch.Tensor,
             pair_vec: torch.Tensor, n_active, cfg: "P.PMConfig", *,
             masses=None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -270,5 +293,4 @@ def step_pm(pos: torch.Tensor, vel: torch.Tensor, param_vec: torch.Tensor,
         return pos, vel
     acc = pm_accel(pos.reshape(3, -1), n_active, pair_vec[0], cfg,
                    masses=masses)
-    vel.add_(acc.reshape(vel.shape) * param_vec[P.P_DT])
-    return step_cuda.step(pos, vel, param_vec)
+    return kick_and_step(pos, vel, acc, param_vec)

@@ -1,0 +1,224 @@
+"""Exact short-range forces in a tracked window — the P3M-style real-space
+correction, bounded by the window instead of a screening length.
+
+Counterpart of ``particle_sim_tpu/ops/pmx.py``, with the same functions,
+names and argument order. For member pairs (both ends inside the window's
+margin-shrunk mask) the correction adds
+
+    da_ij = [g(r_ij; eps_exact) - g(r_ij; eps_prev)] m_j r_ij
+
+where ``eps_prev`` is the softening the pair already feels from the mesh
+stack (the innermost pm2 level's, or the coarse PM's). Summed with the
+mesh field, member pairs feel the exact ``eps_exact``-softened force; the
+correction is antisymmetric over members (momentum-exact).
+
+``exact_accel`` on the card:
+
+  1. ``psort.sort((flag, idx))``: the radix kernels (csrc/radix_sort.cu)
+     sort an int32 0/1 flag, members first, carrying the slot index;
+     one digit pass is taken, the others are skipped. The sort is stable,
+     so members past ``capacity`` are the ones later in slot order; they
+     keep the mesh force, and the returned member count lets callers warn.
+  2. ``index_select`` of the first ``capacity`` slots' positions (and
+     masses) into a compact buffer.
+  3. Two passes of the pairwise kernel (csrc/pairwise.cu) over the buffer
+     with the in-budget masses, at ``eps_exact`` and at ``eps_prev``.
+  4. One ``index_copy_`` of the buffer's corrections into a zeroed
+     f32[3, N] at the sorted indices (the JAX un-sort by a second sort is
+     a TPU workaround; a scatter of a permutation is exact).
+
+The member count stays on the device. With ``use_kernels=False`` the same
+steps run on the plain versions (``psort.radix_sort_ref``,
+``pairwise.pairwise_accel``); on CPU tensors the wrappers take them
+anyway. ``exact_accel_ref`` is the O(N^2) oracle of small tests.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+
+from ..core import params as P
+from . import pairwise, pairwise_cuda, physics, pm, pm2, pm_cuda, psort
+
+
+@dataclass(frozen=True)
+class PMXConfig:
+    """Exact-force window (the JAX package's fields and checks).
+
+    window_size: window extent per axis (world units); meant for the
+                 densest core, nested inside the innermost mesh level.
+    softening:   eps_exact > 0, < the innermost mesh softening.
+    capacity:    member budget B of the all-pairs buffer (a multiple of
+                 512).
+    margin:      shrink of the member mask inside the window.
+    window_min:  static origin, or None to track the parent level's
+                 member centroid (pm2._nested_wmins semantics).
+    park:        carried for attribute parity with PM2Config.
+    """
+    window_size: float
+    softening: float
+    capacity: int = 65536
+    margin: float = 0.0
+    window_min: Optional[Tuple[float, float, float]] = None
+    park: float = 1.0
+
+    def __post_init__(self):
+        if self.capacity % 512:
+            raise ValueError(
+                f"pmx capacity {self.capacity} not a multiple of 512")
+        if self.softening <= 0.0:
+            raise ValueError("pmx needs softening > 0 (a pure 1/r^2 "
+                             "force diverges at CIC-coincident points)")
+
+
+def _member_mask(pos_flat, wmin, cfgx: PMXConfig, live):
+    return pm2._in_window(pos_flat, wmin, cfgx.window_size,
+                          cfgx.margin) & live
+
+
+def exact_accel_ref(pos_flat: torch.Tensor, live: torch.Tensor,
+                    cfgx: PMXConfig, eps_prev: float, *, masses=None,
+                    wmin=None) -> torch.Tensor:
+    """f32[3, N] window-exact correction — the plain O(N^2) oracle over all
+    slots (small tests). Member pairs feel g(eps_exact) - g(eps_prev)."""
+    if wmin is None:
+        wmin = pm2.window_min(pos_flat, None, cfgx, masses, live=live)
+    w = _member_mask(pos_flat, wmin, cfgx, live).to(torch.float32)
+    m_src = w if masses is None else w * masses
+    n = pos_flat.shape[1]
+    rec = pos_flat.T.contiguous()
+    a_x = pairwise.pairwise_accel(rec, pos_flat, n, 1.0, cfgx.softening,
+                                  masses=m_src)
+    a_p = pairwise.pairwise_accel(rec, pos_flat, n, 1.0, eps_prev,
+                                  masses=m_src)
+    return (a_x - a_p).T * w[None]
+
+
+def members_first(member: torch.Tensor, *,
+                  use_kernels: bool = True) -> torch.Tensor:
+    """int32[N] slot indices, members first, each group in slot order: the
+    stable sort of the int32 flag (0 member, 1 not) carrying the index,
+    through psort.sort (the radix kernels on CUDA) or, with
+    ``use_kernels=False``, psort.radix_sort_ref."""
+    flag = (~member).to(torch.int32)
+    idx = torch.arange(member.shape[0], dtype=torch.int32,
+                       device=member.device)
+    sort = psort.sort if use_kernels else psort.radix_sort_ref
+    return sort((flag, idx))[1]
+
+
+def exact_accel(pos_flat: torch.Tensor, live: torch.Tensor,
+                cfgx: PMXConfig, eps_prev: float, *, masses=None,
+                wmin=None, use_kernels: bool = True
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(corr f32[3, N], n_members int32 0-d, on the device) — the
+    compact-buffer path (module docstring). Members past the capacity get
+    no correction."""
+    n = pos_flat.shape[1]
+    dev = pos_flat.device
+    B = min(cfgx.capacity, n)
+    if wmin is None:
+        wmin = pm2.window_min(pos_flat, None, cfgx, masses, live=live)
+    member = _member_mask(pos_flat, wmin, cfgx, live)
+    n_m = member.sum(dtype=torch.int32)
+    idx_b = members_first(member, use_kernels=use_kernels)[:B].long()
+    in_budget = (torch.arange(B, dtype=torch.int32, device=dev)
+                 < torch.clamp_max(n_m, B))
+    buf = pos_flat.index_select(1, idx_b)               # f32[3, B]
+    m_buf = in_budget.to(torch.float32)
+    if masses is not None:
+        m_buf = m_buf * masses.index_select(0, idx_b)
+    accel = (pairwise_cuda.pairwise_accel if use_kernels
+             else pairwise.pairwise_accel)
+    # device constants: a Python number would be uploaded (and waited
+    # for) on every pass
+    n_b = pm_cuda.device_const(B, dev, torch.int32)
+    one, eps_x, eps_p = pm_cuda.device_const(
+        (1.0, cfgx.softening, eps_prev), dev)
+    rec = buf.T.contiguous()
+    a_x = accel(rec, buf, n_b, one, eps_x, masses=m_buf)
+    a_p = accel(rec, buf, n_b, one, eps_p, masses=m_buf)
+    corr_buf = (a_x - a_p).T * in_budget[None]
+    corr = torch.zeros((3, n), dtype=torch.float32, device=dev)
+    corr.index_copy_(1, idx_b, corr_buf)
+    return corr, n_m
+
+
+def _eps_prev(cfg: "P.PMConfig", levels) -> float:
+    return float(levels[-1].softening) if levels else float(cfg.softening)
+
+
+def _validate(cfg: "P.PMConfig", levels, cfgx: PMXConfig) -> None:
+    ep = _eps_prev(cfg, levels)
+    if cfgx.softening >= ep:
+        raise ValueError(
+            f"pmx softening {cfgx.softening} must be < the innermost "
+            f"mesh softening ({ep}) for the difference split")
+    parent_size = (float(levels[-1].window_size) if levels
+                   else float(cfg.box_size))
+    parent_margin = float(levels[-1].margin) if levels else 0.0
+    if cfgx.window_size > parent_size - 2.0 * parent_margin:
+        raise ValueError(
+            f"pmx window {cfgx.window_size} cannot nest inside the "
+            f"innermost mesh level (usable extent "
+            f"{parent_size - 2.0 * parent_margin})")
+
+
+def pmx_accel(pos_flat: torch.Tensor, n_active, g_const, cfg: "P.PMConfig",
+              levels, cfgx: PMXConfig, *, masses=None, kernels=None,
+              use_fast: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(acc f32[3, N], n_members) — the full stack: coarse PM + the pm2
+    refinement levels (possibly none) + the window-exact correction.
+    ``levels`` is () or a tuple of PM2Config (outermost first).
+    ``use_fast``: every layer on the kernels (their plain versions on CPU
+    tensors); else the plain path throughout."""
+    levels = tuple(levels) if levels else ()
+    _validate(cfg, levels, cfgx)
+    live = pm.live_mask(pos_flat.shape[1], n_active, pos_flat.device)
+    if levels:
+        base = pm2.pmn_accel if use_fast else pm2.pmn_accel_ref
+        acc = base(pos_flat, n_active, 1.0, cfg, levels, masses=masses,
+                   kernels=kernels)
+        wmins = pm2._nested_wmins(pos_flat, live, cfg, levels, masses)
+        # the exact window tracks the innermost mesh level's members
+        lv_live = (pm2._in_window(pos_flat, wmins[-1],
+                                  levels[-1].window_size,
+                                  levels[-1].margin) & live)
+        wmin = pm2.window_min(pos_flat, None, cfgx, masses, live=lv_live)
+        wmin = pm2.clamp_nested(wmin, wmins[-1], levels[-1],
+                                cfgx.window_size)
+    else:
+        if use_fast:
+            acc = pm_cuda.pm_accel(pos_flat, n_active, 1.0, cfg,
+                                   masses=masses)
+        else:
+            acc = pm.pm_accel_ref(pos_flat, n_active, 1.0, cfg.softening,
+                                  cfg, masses=masses)
+        wmin = pm2.window_min(pos_flat, None, cfgx, masses, live=live)
+    corr, n_m = exact_accel(pos_flat, live, cfgx, _eps_prev(cfg, levels),
+                            masses=masses, wmin=wmin, use_kernels=use_fast)
+    acc = acc + corr
+    return g_const * pm.momentum_clean(acc, n_active, masses), n_m
+
+
+def step_pmx(pos: torch.Tensor, vel: torch.Tensor, param_vec: torch.Tensor,
+             pair_vec: torch.Tensor, n_active, cfg: "P.PMConfig", levels,
+             cfgx: PMXConfig, *, masses=None, kernels=None,
+             use_fast: bool = True
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One frame: mesh stack + window-exact correction + the attractor
+    step, as pm2.step_pmn (in place with ``use_fast``), plus the window's
+    member count (a device int32) as a third output so the engine can
+    report capacity truncation."""
+    flat = pos.reshape(3, -1)
+    acc, n_m = pmx_accel(flat, n_active, pair_vec[0], cfg, levels, cfgx,
+                         masses=masses, kernels=kernels, use_fast=use_fast)
+    if use_fast:
+        pos, vel = pm_cuda.kick_and_step(pos, vel, acc, param_vec)
+    else:
+        pos, vel = physics.kick_and_step_planes(
+            pos, vel, acc.reshape(pos.shape), param_vec)
+    return pos, vel, n_m

@@ -193,19 +193,34 @@ def test_cli_diagnostics_line(flags, capsys):
 
 
 def test_port_pm_path_imports_no_jax(tmp_path):
-    """The PM CLI path, diagnostics and the server's pm event run without
-    importing jax."""
+    """The PM CLI path, diagnostics, the server's pm event and the pm2 /
+    pmx paths (the CLI's flags, the server's stack and window fields, a
+    checkpoint of both) run without importing jax."""
     script = (
         "import sys\n"
         "from particle_sim_tpu_torch.app import cli, server\n"
         "from particle_sim_tpu_torch.ops import diagnostics, pm, pm_cuda\n"
+        "from particle_sim_tpu_torch.ops import pm2, pmx\n"
+        "from particle_sim_tpu_torch.io import checkpoint\n"
         "s = server.make_server(['--device', 'cpu', '--count', '1024',"
         " '--pm'])\n"
         "s.handle_event({'type': 'solver', 'name': 'pm', 'g': 1.0,"
         " 'softening': 3.0})\n"
         "assert s.hello()['solver'] == 'pm'\n"
+        "s.handle_event({'type': 'solver', 'name': 'pm', 'g': 1.0,"
+        " 'softening': 3.0, 'pm2_sizes': [32], 'pm2_softenings': [0.75],"
+        " 'pmx_size': 8})\n"
+        "assert s.hello()['pm2_sizes'] == [32.0]\n"
+        "assert s.hello()['pmx_size'] == 8.0\n"
         "cli.main(['--device', 'cpu', '--count', '1024', '--steps', '2',"
         " '--pm', '--pm-grid', '32', '--diagnostics', '--stats-every', '2'])\n"
+        "cli.main(['--device', 'cpu', '--count', '1024', '--steps', '2',"
+        " '--pm-grid', '32', '--pm-softening', '3', '--pm2-size', '32', '8',"
+        " '--pm2-softening', '0.75', '0.25', '--pmx-size', '4',"
+        " '--pmx-capacity', '1024', '--stats-every', '0',"
+        " '--checkpoint-every', '2', '--checkpoint', 'c.npz'])\n"
+        "e, _ = checkpoint.load('c.npz', device='cpu')\n"
+        "assert len(e.pm2) == 2 and e.pmx.window_size == 4.0\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'particle_sim_tpu'))\n"
         "assert not bad, bad\n"
