@@ -174,12 +174,40 @@ Phases (each prints a line; any failure raises and exits non-zero):
      launch a digit) and one step a frame, a finite final state,
      momentum 0 and the centre of mass in place, the checkpoint's pm2 and
      pmx; psort.LIBRARY_CALLS unchanged through phases 17-18
+ 19. the persistent cell-sorted PM (ops/pm_persist.py): (1) accel_sorted
+     through the kernels against its plain version (accel_sorted_ref) on
+     the sorted 1M hollow sphere (G = 128, static box) within 1e-4
+     max|a|; a scrambled copy repairs itself (resorts 1, the live slots a
+     prefix, disorder 0) and matches the per-frame pm_accel permuted by
+     ids within 1e-4 max|a|; (2) the deposit and gather on a cell-sorted
+     copy against the original order at 1M and 16,777,216, and at 16M
+     against the disorder (the sorted state drifted by sigma cells); (4)
+     the main path: the CLI with --pm --pm-persist --central-mass 1000 at
+     1M x 200 steps: launches (deposit with masses = gather = step =
+     steps, one radix sort for the mirror and one a repair), a finite
+     final state, momentum 0 and the centre of mass in place, the
+     repairs; (3) at 1M, 4,194,304 and 16M (dt = 0) the per-frame PM
+     step, the steady persistent step, one repair (full, and
+     segment-local), the disorder verdict; the crossover (a win by more
+     than 5 %): 100 frames of (4)'s collapse through a per-frame and a
+     persistent engine from the same start, device time a frame;
+     (5) the examples/deep_zoom.py composition (pm2 32 / 0.6 + 8 / 0.2,
+     pmx 2 / 0.05, capacity 262,144, holding every member) at 1M: accel
+     against
+     the per-frame pmx_accel within 1e-4 max|a| + 2e-4 max|a_x|, the
+     persistent and the per-frame engine 3 steps each (launches;
+     positions after one step within G dt^2 times that bar); (6)
+     ensure_identity_order at 1M and 16M (equal to the identity planes)
+     beside index_copy_ by ids and a radix sort of the rows by ids;
+     (7) Engine(debug_checks=True): clean steps pass, a NaN planted in a
+     live slot raises StateValidationError; (8) tools/pm_profile.py's two
+     modes at 1M
 
 The line before the last is a JSON object with one entry per kernel (the
-launches of step are phases 4, 16 (the engine) and 18 together; of
+launches of step are phases 4, 16 (the engine), 18 and 19 together; of
 pairwise phases 8 and 18; of pm_deposit and pm_gather phase 12's runs (a)
-and (b), 16 and 18 together; those of sorted_deposit phases 8 and 12
-(b); of radix_hist and radix_pass phases 8, 12 (b) and 18; those of
+and (b), 16, 18 and 19 together; those of sorted_deposit phases 8 and 12
+(b); of radix_hist and radix_pass phases 8, 12 (b), 18 and 19; those of
 pairwise_mxu, hilbert_keys, inlier_box, block_sort and merge_round the
 drives of phases 14 and 15); the last line is {"ok": true, "device":
 {...}}.
@@ -613,6 +641,512 @@ class WsClient:
 
     def close(self) -> None:
         self.sock.close()
+
+
+def phase19(dev, states) -> dict:
+    """Phase 19: the persistent cell-sorted PM (ops/pm_persist.py) on the
+    card. ``states``: the hollow-sphere ParticleStates at 1,000,000 and
+    16,777,216 of phase 2. -> {"launches": the CLI run's launch counts,
+    "ms": the times it measured}."""
+    import numpy as np
+    import torch
+
+    from particle_sim_tpu_torch.app import cli
+    from particle_sim_tpu_torch.core import generate as gen
+    from particle_sim_tpu_torch.core.params import (
+        PairwiseParams, PMConfig, SimParams,
+    )
+    from particle_sim_tpu_torch.core.state import ParticleState
+    from particle_sim_tpu_torch.engine import Engine
+    from particle_sim_tpu_torch.engine import engine as engine_mod
+    from particle_sim_tpu_torch.ops import (
+        pairwise_cuda, pm, pm2, pm_cuda, pm_persist as pper, pmx, psort,
+        step_cuda,
+    )
+    from particle_sim_tpu_torch.tools import pm_profile
+    from particle_sim_tpu_torch.utils import debug
+
+    t_start = time.perf_counter()
+    cfg = PMConfig()                  # G = 128, static box, isolated
+    g = cfg.grid
+    box, cell = pm_cuda.static_box(tuple(cfg.box_min), float(cfg.cell_size),
+                                   dev)
+    ms = {}
+
+    def rel_err(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    # (1) accel_sorted through the kernels against its plain version on
+    # the same sorted state; a scrambled copy repairs (resorts rises) and
+    # still matches the per-frame pm_accel on the identity order
+    st1 = states[1_000_000]
+    flat1, na1 = st1.pos.reshape(3, -1), st1.n_active
+    n1, live_n1 = flat1.shape[1], int(na1)
+    ps = pper.init_sorted(flat1, na1, cfg, vel_flat=st1.vel.reshape(3, -1))
+    _, acc_k = pper.accel_sorted(ps, 1.0, cfg, n_active=na1, repair=False)
+    e_plain = rel_err(acc_k, pper.accel_sorted_ref(ps, 1.0, cfg,
+                                                   n_active=na1))
+    gen_t = torch.Generator(device=dev).manual_seed(19)
+    perm = torch.randperm(n1, generator=gen_t, device=dev)
+    scr = ps._replace(pos=ps.pos[:, perm], vel=ps.vel[:, perm],
+                      ids=ps.ids[perm])
+    d_scr = int(pper.disorder(pper.state_keys(scr, na1, cfg)))
+    rep, acc_s = pper.accel_sorted(scr, 1.0, cfg, n_active=na1)
+    e_scr = rel_err(acc_s, pm_cuda.pm_accel(flat1, na1, 1.0, cfg)[
+        :, rep.ids.long()])
+    prefix = bool((rep.ids[:live_n1] < live_n1).all()
+                  and (rep.ids[live_n1:] >= live_n1).all())
+    if not (e_plain <= 1e-4 and e_scr <= 1e-4):
+        fail(f"accel_sorted: kernels vs plain {e_plain:.3g}, scrambled vs "
+             f"per-frame pm_accel {e_scr:.3g} of max|a| (bar 1e-4)")
+    if rep.resorts != 1 or not prefix or int(pper.disorder(
+            pper.state_keys(rep, na1, cfg))) != 0:
+        fail(f"scramble: resorts {rep.resorts}, live prefix {prefix}")
+    print(f"phase 19 accel_sorted at {n1} (G = {g}): kernels vs plain "
+          f"{e_plain:.3g} max|a|; scrambled (disorder {d_scr}) repaired "
+          f"(resorts 1, live slots a prefix, disorder 0), vs per-frame "
+          f"pm_accel {e_scr:.3g} (bar 1e-4)")
+
+    # (2) the deposit and gather on a cell-sorted copy against the
+    # original order (the per-frame path), and against the disorder
+    for n, st in ((1_000_000, st1), (16_777_216, states[16_777_216])):
+        flat, na = st.pos.reshape(3, -1), st.n_active
+        sp = pper.init_sorted(flat, na, cfg)
+        live = sp.ids < na
+        grids = pm.solve_accel(pm_cuda.deposit(flat, na, box, cell, g,
+                                               periodic=False),
+                               cfg, cfg.softening)
+        big = n > 2_000_000
+        inner = 3 if big else 10
+        t = median_ms(
+            [lambda: pm_cuda.deposit(flat, na, box, cell, g, periodic=False),
+             lambda: pm_cuda.deposit(sp.pos, na, box, cell, g,
+                                     periodic=False, live=live),
+             lambda: pm_cuda.gather(grids, flat, na, box, cell,
+                                    periodic=False),
+             lambda: pm_cuda.gather(grids, sp.pos, na, box, cell,
+                                    periodic=False, live=live)],
+            reps=5, inner=inner, lead_ms=inner * (4.0 if big else 0.5))
+        ms[f"deposit {n}"], ms[f"deposit sorted {n}"] = t[0], t[1]
+        ms[f"gather {n}"], ms[f"gather sorted {n}"] = t[2], t[3]
+        print(f"phase 19 cell order at {n}: deposit {t[0]:.5f} -> sorted "
+              f"{t[1]:.5f} ms ({t[0] / t[1]:.2f}x), gather {t[2]:.5f} -> "
+              f"sorted {t[3]:.5f} ms ({t[2] / t[3]:.2f}x)")
+        sorted16 = (sp, grids, na, flat)      # the 16M case is the last
+    sp, grids, na, flat16 = sorted16
+    n16 = sp.pos.shape[1]
+    live = sp.ids < na
+    rows = []
+    for sigma in (0.0, 0.01, 0.03, 0.1, 0.3, 1.0, None):
+        if sigma is None:              # the original (random) order
+            p_d, lv = flat16, None
+        else:
+            noise = torch.randn(sp.pos.shape, generator=gen_t, device=dev)
+            p_d, lv = sp.pos + (sigma * cfg.cell_size) * noise, live
+        share = int(pper.disorder(pper.cell_keys(
+            p_d, torch.ones(n16, dtype=torch.bool, device=dev) if lv is None
+            else lv, cfg))) / int(na)
+        t = median_ms(
+            [lambda: pm_cuda.deposit(p_d, na, box, cell, g, periodic=False,
+                                     live=lv),
+             lambda: pm_cuda.gather(grids, p_d, na, box, cell,
+                                    periodic=False, live=lv)],
+            reps=5, inner=3, lead_ms=12.0)
+        rows.append((sigma, share, t[0], t[1]))
+    print(f"phase 19 deposit and gather against the disorder at {n16} "
+          "(drift sigma in cells: disorder share, deposit ms, gather ms): "
+          + " | ".join(f"{'random' if s is None else s}: {d:.4f}, "
+                       f"{td:.5f}, {tg:.5f}" for s, d, td, tg in rows))
+    ms["disorder rows 16M"] = rows
+
+    # (4) the persistent main path through the CLI: the shell falls onto
+    # a central mass (phase 12 (b) in the persistent mode)
+    n_d, steps_d = 1_000_000, 200
+    with tempfile.TemporaryDirectory() as tmp:
+        final = os.path.join(tmp, "final.npz")
+        argv = ["--device", "cuda", "--count", str(n_d), "--steps",
+                str(steps_d), "--pm", "--pm-persist", "--central-mass",
+                "1000", "--stats-every", "100", "--checkpoint-every",
+                str(steps_d), "--checkpoint", final]
+        step_cuda.LAUNCHES = pairwise_cuda.LAUNCHES = 0
+        pm_cuda.DEPOSIT_LAUNCHES = pm_cuda.DEPOSIT_MASS_LAUNCHES = 0
+        pm_cuda.GATHER_LAUNCHES = 0
+        psort.RADIX_HIST_LAUNCHES = psort.RADIX_PASS_LAUNCHES = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc_code = cli.main(argv)
+        wall_d = time.perf_counter() - t0
+        got = {"pm_deposit": pm_cuda.DEPOSIT_LAUNCHES,
+               "pm_deposit_mass": pm_cuda.DEPOSIT_MASS_LAUNCHES,
+               "pm_gather": pm_cuda.GATHER_LAUNCHES,
+               "pairwise": pairwise_cuda.LAUNCHES,
+               "radix_hist": psort.RADIX_HIST_LAUNCHES,
+               "radix_pass": psort.RADIX_PASS_LAUNCHES,
+               "step": step_cuda.LAUNCHES}
+        text = out.getvalue()
+        for ln in text.splitlines():
+            print(f"  cli (persistent pm): {ln}")
+        if rc_code != 0:
+            fail(f"persistent pm cli returned {rc_code}")
+        lines = [json.loads(ln) for ln in text.strip().splitlines()]
+        with np.load(final) as z:
+            p_end, v_end, m_end = z["positions"], z["velocities"], z["masses"]
+    # one sort makes the mirror; every repair is one sort more
+    repairs = got["radix_hist"] - 1
+    want = {"pm_deposit": 0, "pm_deposit_mass": steps_d,
+            "pm_gather": steps_d, "pairwise": 0,
+            "radix_hist": repairs + 1,
+            "radix_pass": psort.radix_digits() * (repairs + 1),
+            "step": steps_d}
+    if got != want or lines[-1].get("done") is not True:
+        fail(f"the persistent pm cli path missed a kernel: launches {got}, "
+             f"expected {want}")
+    # the collapse scatters the cell order: a run that never repairs has a
+    # dead trigger
+    if repairs < 1:
+        fail(f"persistent pm cli: {repairs} repairs in {steps_d} steps of a "
+             f"collapse (the repair trigger never fired)")
+    if not (np.isfinite(p_end).all() and np.isfinite(v_end).all()):
+        fail("persistent pm cli: final state not finite")
+    mom_d, com_d = momentum_and_com(gen.generate(n_d)[0].astype(np.float64),
+                                    p_end, v_end, m_end.astype(np.float64))
+    if not (mom_d < 1e-3 and com_d < 0.5):
+        fail(f"persistent pm cli: |P| / sum m|v| = {mom_d:.3g} (bar 1e-3), "
+             f"centre of mass moved {com_d:.3g} (bar 0.5)")
+    ms["cli wall"] = wall_d
+    print(f"phase 19 persistent pm main path: cli {n_d} x {steps_d} steps "
+          f"(--pm-persist --central-mass 1000) in {wall_d:.2f} s, "
+          f"{lines[-1].get('update_ms')} ms a step (host), {repairs} "
+          f"repairs (resorts), finite final state, |P| / sum m|v| "
+          f"{mom_d:.3g}, centre of mass moved {com_d:.3g}, launches {got}")
+
+    # the trigger on a live engine: a scrambled mirror is repaired within
+    # CHECK_EVERY + 1 frames when the host waits for every frame (no host
+    # lead: the verdict is read at the first frame after the next check),
+    # and at all when it does not (the lag then grows by the host's lead)
+    e_tr = Engine(1_000_000, device=dev, pm=cfg, pm_persist=True)
+    lags = []
+    for synced in (True, False):
+        for _ in range(3):
+            e_tr.step(SimParams())
+        torch.cuda.synchronize()
+        mir = e_tr._persist
+        perm_t = torch.randperm(mir.pos.shape[1], generator=gen_t, device=dev)
+        e_tr._persist = mir._replace(
+            pos=mir.pos[:, perm_t], vel=mir.vel[:, perm_t],
+            ids=mir.ids[perm_t], col24=mir.col24[perm_t])
+        before, frames = e_tr.resorts, 0
+        while e_tr.resorts == before and frames < 400:
+            e_tr.step(SimParams())
+            frames += 1
+            if synced:
+                torch.cuda.synchronize()
+        lags.append(frames)
+    if lags[0] > pper.CHECK_EVERY + 1 or e_tr.resorts != 2:
+        fail(f"repair trigger: a scrambled mirror repaired after {lags} "
+             f"frames (synchronized, not; bar {pper.CHECK_EVERY + 1} "
+             f"synchronized), {e_tr.resorts} repairs (want 2)")
+    print(f"phase 19 repair trigger: a scrambled 1M mirror repaired "
+          f"{lags[0]} frames later with the host waiting each frame (bar "
+          f"CHECK_EVERY + 1 = {pper.CHECK_EVERY + 1}), {lags[1]} frames "
+          f"later with the host running ahead")
+    del e_tr
+
+    # (3) at 1M, 4M and 16M: the per-frame PM step, the steady persistent
+    # step, one repair (full, and the JAX package's segment-local tier,
+    # built here as a composite key (segment << key bits | cell key), one
+    # 8-bit digit more for the radix sort, with the same payload gathers)
+    # and the disorder verdict at dt = 0 (the same work every call); then
+    # the crossover: 100
+    # frames of (4)'s collapse onto a central mass of 1000, from the same
+    # start, through a per-frame and a persistent engine (repairs and
+    # verdicts included), device time from the first frame's enqueue to
+    # the last one's end
+    pv0 = torch.from_numpy(SimParams(delta_time=0.0).pack()).to(dev)
+    pp0 = torch.from_numpy(PairwiseParams(1.0, cfg.softening).pack()).to(dev)
+    seg = 65536                       # slots a segment (the JAX tier 1)
+    key_bits = (g ** 3).bit_length()
+
+    def segment_repair(sp, na):
+        slot = torch.arange(sp.pos.shape[1], dtype=torch.int32, device=dev)
+        key = ((slot // seg) << key_bits) | pper.state_keys(sp, na, cfg)
+        order = psort.sort((key, slot))[1].long()
+        return tuple(t.index_select(-1, order)
+                     for t in (sp.pos, sp.vel, sp.ids))
+
+    wins = []
+    for n in (1_000_000, 4_194_304, 16_777_216):
+        st = states.get(n) or ParticleState.from_arrays(
+            *gen.generate(n), device=dev)
+        flat, na = st.pos.reshape(3, -1), st.n_active
+        pk, vk = st.pos.clone(), st.vel.clone()
+        sp = pper.init_sorted(flat, na, cfg, vel_flat=st.vel.reshape(3, -1))
+        tiled = sp.pos.shape[1] % seg == 0
+        big = n > 2_000_000
+        inner = 3 if big else 10
+        fns = [lambda: pm_cuda.step_pm(pk, vk, pv0, pp0, na, cfg),
+               lambda: pper.step_sorted(sp, pv0, pp0, na, cfg, repair=False),
+               lambda: pper.repair_state(sp, na, cfg),
+               lambda: pper.needs_repair(sp, na, cfg)]
+        if tiled:
+            fns.append(lambda: segment_repair(sp, na))
+            # each segment of a drifted state sorted on its own, every
+            # particle kept with its payloads
+            drift = sp._replace(pos=sp.pos + 0.5 * cfg.cell_size * torch.randn(
+                sp.pos.shape, generator=gen_t, device=dev))
+            p_l, v_l, ids_l = segment_repair(drift, na)
+            k_l = pper.cell_keys(p_l, ids_l < na, cfg).view(-1, seg)
+            inv = drift.ids.long().argsort()
+            if not (bool((k_l[:, 1:] >= k_l[:, :-1]).all())
+                    and torch.equal(ids_l.view(-1, seg).sort(1)[0],
+                                    drift.ids.view(-1, seg).sort(1)[0])
+                    and torch.equal(p_l, drift.pos[:, inv[ids_l.long()]])):
+                fail(f"segment-local repair at {n}: a segment out of order")
+        t = median_ms(fns, reps=5, inner=inner,
+                      lead_ms=inner * (8.0 if big else 2.0))
+        per_frame, steady, full, verdict = t[:4]
+        local = t[4] if tiled else float("nan")
+        masses_n = np.ones(n, np.float32)
+        masses_n[0] = 1000.0
+        dyn = {}
+        for persist in (False, True):
+            e = Engine(1024, device=dev, pm=cfg, pm_persist=persist)
+            e.state = ParticleState(pos=st.pos.clone(), vel=st.vel.clone(),
+                                    init_color=st.init_color, n_active=na)
+            e.set_masses(masses_n)
+            for _ in range(5):           # the persistent one makes its mirror
+                e.step(SimParams())
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            for _ in range(100):
+                e.step(SimParams())
+            end.record()
+            end.synchronize()
+            dyn[persist] = (start.elapsed_time(end) / 100, e.resorts)
+            del e
+        ms[f"steps {n}"] = (per_frame, steady, full, local, verdict, dyn)
+        # a win must clear the 5 % that such times spread between calls
+        if dyn[True][0] < 0.95 * dyn[False][0]:
+            wins.append(n)
+        print(f"phase 19 steps at {n} (dt = 0): per-frame PM step "
+              f"{per_frame:.5f} ms | persistent steady {steady:.5f} | repair "
+              f"{full:.5f} (segment-local {local:.5f}) | disorder verdict "
+              f"{verdict:.5f}; 100 collapse frames: per-frame "
+              f"{dyn[False][0]:.5f} ms a frame, persistent {dyn[True][0]:.5f}"
+              f" ({dyn[True][0] / dyn[False][0]:.3f} of it, "
+              f"{dyn[True][1]} repairs)")
+    print(f"phase 19 crossover: persistent wins by more than 5 % at "
+          f"{wins or 'no count'} of 1M / 4M / 16M; the engine's "
+          f"PERSIST_AUTO_MIN_N is {engine_mod.PERSIST_AUTO_MIN_N}")
+    # "auto" goes persistent from the smallest count that wins, and
+    # never when none does
+    if (min(wins) if wins else None) != engine_mod.PERSIST_AUTO_MIN_N:
+        fail(f"crossover: persistent wins at {wins}, but PERSIST_AUTO_MIN_N "
+             f"is {engine_mod.PERSIST_AUTO_MIN_N}")
+
+    # (5) the examples/deep_zoom.py composition (a pm2 tuple, pm_persist,
+    # pmx) at 1M against the per-frame pmn / pmx engine on the same start;
+    # the capacity holds every member, so both correct the same pairs. Two
+    # more per-frame engines, the witnesses, start from the same particles
+    # in two other orders: they differ from the first in f32 summation
+    # order only, as the persistent one does. The scene is violent (the
+    # core's max|a| G dt^2 is ~4.5, so the window loses most of its members
+    # in a step): such differences grow by ~270x in the second step, so
+    # from step 2 on the bar is set by the witnesses
+    n_z, steps_z = 1_000_000, 4
+    rng = np.random.default_rng(13)
+
+    def ball(k, radius, off):
+        d = rng.normal(size=(k, 3)).astype(np.float32)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        r = radius * rng.random(k).astype(np.float32) ** (1 / 3)
+        return d * r[:, None] + off
+
+    center = np.float32([14.0, 6.0, -4.0])
+    zpos = np.concatenate([ball(n_z // 4, 0.8, center),
+                           ball(n_z // 4, 4.0, center),
+                           ball(n_z - n_z // 2, 40.0, 0.0)])
+    perms = [rng.permutation(n_z) for _ in range(2)]
+    zcfg = PMConfig(softening=3.0)
+    levels = (pm2.PM2Config(window_min=None, window_size=32.0,
+                            softening=0.6),
+              pm2.PM2Config(window_min=None, window_size=8.0,
+                            softening=0.2))
+    zx = pmx.PMXConfig(window_size=2.0, softening=0.05, capacity=262144)
+    engines = []
+    for persist, start in ((True, zpos), (False, zpos),
+                           *((False, zpos[p]) for p in perms)):
+        e = Engine(n_z, device=dev, pm=zcfg,
+                   pairwise=PairwiseParams(0.05, 3.0), pm2=levels, pmx=zx,
+                   pm_persist=persist)
+        e.state = ParticleState.from_arrays(
+            start, np.zeros_like(start), np.full_like(start, 0.7),
+            device=dev, capacity=e.capacity)
+        engines.append(e)
+    e_p, e_f = engines[:2]
+    zflat, zna = e_f.state.pos.reshape(3, -1), e_f.state.n_active
+    zs = pper.init_sorted_multi(zflat, zna, zcfg, levels)
+    _, acc_zp, n_zp = pper.accel_sorted_multi(zs, 1.0, zcfg, levels,
+                                              n_active=zna, cfgx=zx,
+                                              repair=False)
+    acc_zf, n_zf = pmx.pmx_accel(zflat, zna, 1.0, zcfg, levels, zx)
+    # phase 16's bar on the mesh part, phase 17's on the exact correction
+    a_x = acc_zf - pm2.pmn_accel(zflat, zna, 1.0, zcfg, levels)
+    e_z = float((acc_zp - acc_zf[:, zs.ids.long()]).abs().max())
+    bar_z = (1e-4 * float(acc_zf.abs().max())
+             + 2e-4 * float(a_x.abs().max()))
+    if int(n_zp) != int(n_zf) or int(n_zf) > zx.capacity or e_z > bar_z:
+        fail(f"deep zoom composition: members {int(n_zp)} / {int(n_zf)} "
+             f"(capacity {zx.capacity}), max |da| {e_z:.3g} (bar "
+             f"{bar_z:.3g})")
+
+    def origins(e):
+        """f32[3, 3]: the two levels' window origins and the exact
+        window's, as the engine's next frame computes them from its
+        planes (the persistent one's in slot order)."""
+        if e is e_p:
+            m = e._persist
+            pos, live, masses = m.pos, m.ids < zna, m.masses
+        else:
+            pos = e.state.pos.reshape(3, -1)
+            live, masses = pm.live_mask(pos.shape[1], zna, dev), None
+        wm = pm2._nested_wmins(pos, live, zcfg, levels, masses)
+        lv_live = pm2._in_window(pos, wm[-1], levels[-1].window_size,
+                                 levels[-1].margin) & live
+        wx = pm2.clamp_nested(pm2.window_min(pos, None, zx, masses,
+                                             live=lv_live),
+                              wm[-1], levels[-1], zx.window_size)
+        return torch.stack([*wm, wx])
+
+    zp = SimParams(delta_time=0.016, gravity=0.0)
+    step_cuda.LAUNCHES = pairwise_cuda.LAUNCHES = 0
+    pm_cuda.DEPOSIT_LAUNCHES = pm_cuda.GATHER_LAUNCHES = 0
+    # per step, for the persistent engine and each witness against the
+    # per-frame one: max |dp| in identity order, the window origins' max
+    # difference, the member count's difference
+    dz, dw, d_org, members = [], [], [], []
+    for _ in range(steps_z):
+        for e in engines:
+            e.step(zp)
+        p_f = e_f.state.positions()
+        d_pos = [float(np.abs(e_p.state.positions() - p_f).max())]
+        for e, p in zip(engines[2:], perms):
+            p_w = np.empty_like(p_f)
+            p_w[p] = e.state.positions()
+            d_pos.append(float(np.abs(p_w - p_f).max()))
+        dz.append(d_pos[0])
+        dw.append(max(d_pos[1:]))
+        o_f = origins(e_f)
+        d_org.append([float((origins(e) - o_f).abs().max())
+                      for e in engines if e is not e_f])
+        members.append([e.pmx_member_count()[0] for e in engines])
+    z_launch = {"pm_deposit": pm_cuda.DEPOSIT_LAUNCHES,
+                "pm_gather": pm_cuda.GATHER_LAUNCHES,
+                "pairwise": pairwise_cuda.LAUNCHES, "step": step_cuda.LAUNCHES}
+    # one step from rest moves a particle by a G dt^2: the accelerations'
+    # bar, plus a few f32 roundings of the positions (|p| < 64)
+    bar_p = zp.delta_time ** 2 * 0.05 * bar_z + 64 * 2.0 ** -20
+    print(f"phase 19 deep zoom composition at {n_z} (pm2 32 / 0.6, 8 / 0.2, "
+          f"pmx 2 / 0.05, capacity {zx.capacity}, G 0.05): {int(n_zf)} "
+          f"members in both, persistent vs per-frame accel (G = 1) {e_z:.3g}"
+          f" (bar {bar_z:.3g}, max|a| {float(acc_zf.abs().max()):.4g}); "
+          f"positions after step 1 (bar {bar_p:.3g}) and on: persistent vs "
+          f"per-frame {[f'{d:.3g}' for d in dz]}, witnesses' worst "
+          f"(per-frame, permuted starts) {[f'{d:.3g}' for d in dw]}; window "
+          f"origins' max difference a step (persistent, witnesses) "
+          f"{[[f'{d:.3g}' for d in ds] for ds in d_org]}; members "
+          f"(persistent, per-frame, witnesses) {members}; launches of the "
+          f"four engines {z_launch}, repairs {e_p.resorts}")
+    frames_z = steps_z * len(engines)
+    if z_launch != {"pm_deposit": 3 * frames_z, "pm_gather": 3 * frames_z,
+                    "pairwise": 2 * frames_z, "step": frames_z}:
+        fail(f"deep zoom engines: launches {z_launch}")
+    if not (dz[0] <= bar_p and dw[0] <= bar_p) or not e_p.persist_resolved():
+        fail(f"deep zoom: persistent / witness vs per-frame positions differ "
+             f"by {dz[0]:.3g} / {dw[0]:.3g} after 1 step (bar {bar_p:.3g})")
+    # from step 2: within 5x the witnesses' worst (on an H100 the four
+    # steps read 1.0, 0.99, 3.7 and 2.9x the first witness's, and equal
+    # the second's to three digits); origins within a few f32
+    # roundings of |p| < 64 summed over 1M (any order); member counts
+    # within 5x the witnesses' worst difference (at least 1)
+    for k in range(1, steps_z):
+        d_m = [abs(m - members[k][1]) for m in members[k]]
+        if (dz[k] > 5.0 * dw[k] or max(d_org[k]) > 64 * 2.0 ** -18
+                or d_m[0] > 5 * max(1, *d_m[2:])):
+            fail(f"deep zoom step {k + 1}: persistent vs per-frame positions "
+                 f"{dz[k]:.3g} (bar 5 x the witnesses' {dw[k]:.3g}), origins "
+                 f"{d_org[k]} (bar {64 * 2.0 ** -18:.3g}), members "
+                 f"{members[k]}")
+
+    # (6) ensure_identity_order (pm_persist.unsort: the inverse permutation
+    # of ids, then index_select) at 1M and 16M, against a scatter by ids
+    # (index_copy_) and the JAX package's way, a sort of the rows by ids
+    # (psort.sort: the radix kernels), in turns
+    for n, st in ((1_000_000, st1), (16_777_216, states[16_777_216])):
+        e_id = Engine(1024, device=dev)
+        e_id.state = st
+        sp_id = pper.init_sorted(st.pos.reshape(3, -1), st.n_active, cfg,
+                                 vel_flat=st.vel.reshape(3, -1))
+        ids_l = sp_id.ids.long()
+        n_id = ids_l.shape[0]
+        dp, dv = torch.empty_like(sp_id.pos), torch.empty_like(sp_id.vel)
+        ids_o = torch.empty_like(sp_id.ids)
+
+        def rebuild():
+            e_id._persist, e_id._identity_dirty = sp_id, True
+            e_id.ensure_identity_order()
+
+        def scatter():
+            dp.index_copy_(1, ids_l, sp_id.pos)
+            dv.index_copy_(1, ids_l, sp_id.vel)
+
+        def sort_by_ids():
+            for src, dst in ((sp_id.pos, dp), (sp_id.vel, dv)):
+                psort.sort((sp_id.ids, *src), out=(ids_o, *dst))
+
+        rebuild()
+        if not (torch.equal(e_id.state.pos.reshape(3, -1),
+                            st.pos.reshape(3, -1))
+                and torch.equal(e_id.state.vel, st.vel)):
+            fail(f"ensure_identity_order at {n}: not the identity order")
+        big = n > 2_000_000
+        t = median_ms([rebuild, scatter, sort_by_ids], reps=5, inner=3,
+                      lead_ms=20.0 if big else 3.0)
+        ms[f"identity {n}"] = t
+        print(f"phase 19 ensure_identity_order at {n_id}: {t[0]:.5f} ms "
+              f"(the inverse permutation, index_select) | index_copy_ by "
+              f"ids {t[1]:.5f} | radix sort of the rows by ids "
+              f"{t[2]:.5f} | bound {bytes_ms(n_id * (24 + 24 + 4)):.5f} ms "
+              "(pos and vel read and written, ids read)")
+
+    # (7) Engine(debug_checks=True): clean steps pass, a NaN planted in a
+    # live slot of the sorted mirror raises StateValidationError
+    e_dbg = Engine(1_000_000, device=dev, pm=cfg, pm_persist=True,
+                   debug_checks=True)
+    for _ in range(3):
+        e_dbg.step(SimParams())
+    e_dbg._persist.vel[0, 10] = float("nan")
+    try:
+        e_dbg.step(SimParams())
+    except debug.StateValidationError as exc:
+        print(f"phase 19 debug_checks: 3 clean steps passed, a NaN planted "
+              f"in slot 10 raised StateValidationError({exc})")
+    else:
+        fail("debug_checks: a NaN in the state did not raise")
+
+    # (8) tools/pm_profile.py's two modes at 1M
+    for argv in (["1000000"], ["pmn", "1000000"]):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            prof = pm_profile.main(argv)
+        ms[f"pm_profile {argv[0]}"] = prof
+        print(f"phase 19 pm_profile {' '.join(argv)}: " + " | ".join(
+            f"{k.strip()} {v:.5f}" for k, v in prof.items()) + " ms")
+    print(f"phase 19 done in {time.perf_counter() - t_start:.1f} s")
+    return {"launches": got, "ms": ms}
 
 
 def main() -> int:
@@ -2541,12 +3075,15 @@ def main() -> int:
           f"{mom_r:.3g}, centre of mass moved {com_r:.3g}, launches "
           f"{pmx_launches}, torch.sort route 0 times in phases 17-18")
 
+    # -- phase 19: the persistent cell-sorted PM ------------------------------------
+    p19 = phase19(dev, states)["launches"]
+
     src = "particle_sim_tpu_torch/csrc/"
     kernels = [
         {"name": "step", "route": "cuda", "source": src + "step.cu",
          "replaces": "particle_sim_tpu/ops/step_pallas.py:38",
          "launches": launches["step"] + pmn_launches["step"]
-         + pmx_launches["step"], "max_abs_err": err["step"],
+         + pmx_launches["step"] + p19["step"], "max_abs_err": err["step"],
          "ms": timing[1_000_000][0], "plain_ms": timing[1_000_000][1],
          "bound_ms": bytes_ms(STEP_BYTES * 1_000_000), "bound_by": "bytes",
          "library_ms": None},
@@ -2588,7 +3125,7 @@ def main() -> int:
         {"name": "pm_deposit", "route": "cuda", "source": src + "pm.cu",
          "replaces": "particle_sim_tpu/ops/pm_pallas.py:247",
          "launches": sum(runs[k] for runs in (pm_launches, pmn_launches,
-                                              pmx_launches)
+                                              pmx_launches, p19)
                          for k in ("pm_deposit", "pm_deposit_mass")),
          "max_abs_err": err["pm_deposit"],
          "ms": pm_timing["n=1000000"][0],
@@ -2598,7 +3135,7 @@ def main() -> int:
         {"name": "pm_gather", "route": "cuda", "source": src + "pm.cu",
          "replaces": "particle_sim_tpu/ops/pm_pallas.py:259",
          "launches": pm_launches["pm_gather"] + pmn_launches["pm_gather"]
-         + pmx_launches["pm_gather"],
+         + pmx_launches["pm_gather"] + p19["pm_gather"],
          "max_abs_err": err["pm_gather"],
          "ms": pm_timing["n=1000000"][4],
          "plain_ms": pm_timing["n=1000000"][5],
@@ -2655,7 +3192,8 @@ def main() -> int:
          "source": src + "radix_sort.cu",
          "replaces": "particle_sim_tpu/ops/psort.py:232",
          "launches": g_launches["radix_hist"]
-         + pm_runs["b"][0]["radix_hist"] + pmx_launches["radix_hist"],
+         + pm_runs["b"][0]["radix_hist"] + pmx_launches["radix_hist"]
+         + p19["radix_hist"],
          "max_abs_err": err["sort"], "ms": sort_timing["16M"]["hist"],
          "plain_ms": sort_timing["16M"]["hist_plain"],
          "bound_ms": sort_timing["16M"]["hist_bound"], "bound_by": "bytes",
@@ -2664,7 +3202,8 @@ def main() -> int:
          "source": src + "radix_sort.cu",
          "replaces": "particle_sim_tpu/ops/psort.py:289",
          "launches": g_launches["radix_pass"]
-         + pm_runs["b"][0]["radix_pass"] + pmx_launches["radix_pass"],
+         + pm_runs["b"][0]["radix_pass"] + pmx_launches["radix_pass"]
+         + p19["radix_pass"],
          "max_abs_err": err["sort"], "ms": sort_timing["16M"]["pass_"],
          "plain_ms": sort_timing["16M"]["pass_plain"],
          "bound_ms": sort_timing["16M"]["pass_bound"], "bound_by": "bytes",

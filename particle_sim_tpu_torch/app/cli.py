@@ -5,10 +5,11 @@ checkpoints, stats (and physics diagnostics) to stdout.
 Counterpart of ``particle_sim_tpu/app/cli.py``, with the same flags and
 the same stats and ``done`` JSON lines, plus ``--device {cuda,cpu}``.
 ``--pm2-size`` (one value a refinement level, outermost first) and
-``--pmx-size`` imply ``--pm``. The flags of parts not ported yet (the
-persistent PM state, the multi-device mesh) are accepted by the parser
-and raise ``NotImplementedError`` naming the ROADMAP.md item that ports
-them.
+``--pmx-size`` imply ``--pm``, and so does ``--pm-persist`` (the
+persistent cell-sorted PM state, ops/pm_persist.py). The flag of the part
+not ported yet (the multi-device ``--mesh``) is accepted by the parser
+and raises ``NotImplementedError`` naming the ROADMAP.md item that ports
+it.
 
 Examples:
     python -m particle_sim_tpu_torch.app.cli --device cuda \
@@ -23,6 +24,8 @@ Examples:
     python -m particle_sim_tpu_torch.app.cli --device cuda --count 1000000 \
         --steps 300 --pm --pm2-size 24 --pm2-softening 0.8 --pmx-size 6 \
         --pmx-softening 0.1
+    python -m particle_sim_tpu_torch.app.cli --device cuda --count 1000000 \
+        --steps 200 --pm-persist --central-mass 1000
 """
 
 from __future__ import annotations
@@ -94,9 +97,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "(--pm-softening is then in CELL units)")
     p.add_argument("--pm-gradient", choices=["exact", "fd"], default="exact")
     p.add_argument("--no-two-tier", action="store_true",
-                   help="the persistent PM's repair strategy: full sort "
-                        "only (kept on the engine and in checkpoints; no "
-                        "effect on the per-frame PM)")
+                   help="the JAX package's persistent-PM repair strategy: "
+                        "full sort only (kept on the engine and in "
+                        "checkpoints; every repair of the port is the full "
+                        "sort)")
     # refinement levels (ops/pm2.py) and the exact window (ops/pmx.py)
     p.add_argument("--pm2-size", type=float, nargs="+", default=[0.0],
                    help="refinement-window extent(s), outermost first "
@@ -113,8 +117,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "window of this size; implies --pm")
     p.add_argument("--pmx-softening", type=float, default=0.1)
     p.add_argument("--pmx-capacity", type=int, default=65536)
-    # not ported yet: raises NotImplementedError
-    p.add_argument("--pm-persist", action="store_true")
+    p.add_argument("--pm-persist", action="store_true",
+                   help="the persistent cell-sorted PM state (implies --pm; "
+                        "needs a static box)")
     # rendering
     p.add_argument("--render-every", type=int, default=0)
     p.add_argument("--render-dir", default="frames")
@@ -139,11 +144,8 @@ def build_parser() -> argparse.ArgumentParser:
 def _refuse_not_ported(args) -> None:
     from ..engine.engine import not_ported
 
-    for feature, given in (
-            ("mesh", args.mesh != "none"),
-            ("pm_persist", args.pm_persist)):
-        if given:
-            raise not_ported(feature)
+    if args.mesh != "none":
+        raise not_ported("mesh")
 
 
 def main(argv=None) -> int:
@@ -170,7 +172,7 @@ def main(argv=None) -> int:
               f"({engine.particle_count} particles)", file=sys.stderr)
         ignored = [name for name, given in (
             ("--count", args.count),
-            ("--pm", args.pm),
+            ("--pm", args.pm), ("--pm-persist", args.pm_persist),
             ("--pairwise", args.pairwise),
             ("--no-two-tier", args.no_two_tier),
             ("--substeps", args.substeps != 1),
@@ -180,8 +182,9 @@ def main(argv=None) -> int:
             print(f"note: {', '.join(ignored)} ignored on --resume "
                   "(the checkpoint's configuration wins)", file=sys.stderr)
     else:
-        # --pm2-size / --pmx-size are PM solver modes: they imply --pm
-        if args.pm2_size[0] > 0.0 or args.pmx_size > 0.0:
+        # --pm-persist / --pm2-size / --pmx-size are PM solver modes:
+        # they imply --pm
+        if args.pm_persist or args.pm2_size[0] > 0.0 or args.pmx_size > 0.0:
             args.pm = True
         pm_cfg = None
         if args.pm:
@@ -228,6 +231,8 @@ def main(argv=None) -> int:
             pm=pm_cfg,
             pm2=pm2_cfg,
             pmx=pmx_cfg,
+            # bare --pm keeps "auto": Engine.PERSIST_AUTO_MIN_N decides
+            pm_persist=True if args.pm_persist else "auto",
             two_tier=not args.no_two_tier,
         )
 

@@ -38,17 +38,21 @@ event may carry a refinement stack (``pm2_sizes`` with one
 exact window (``pmx_size``, ``pmx_softening``, ``pmx_capacity``;
 ``pmx_size`` <= 0 clears it); absent fields keep what is installed. The
 whole candidate solver is validated before any of it is committed: a bad
-event is rejected with a logged warning and the running solver stays. The
-persistent PM state ("pm_persist"), not ported yet, is rejected the same
-way, naming its ROADMAP.md item. A "pm" event's ``two_tier`` field sets
-the engine's flag of that name (the persistent PM's repair strategy). The
-hello reports the stack, the window and the flag.
+event is rejected with a logged warning and the running solver stays. A
+"pm_persist" event is the "pm" event on the persistent cell-sorted state
+(ops/pm_persist.py); with an exact window it needs a multi-level stack.
+A "pm" event's ``two_tier`` field sets the engine's flag of that name
+(the JAX package's persistent-PM repair strategy). The hello reports the
+stack, the window, the flag and ``"solver": "pm_persist"`` when the
+engine runs the persistent mode.
 
     python -m particle_sim_tpu_torch.app.server --device cuda --count 65536
     python -m particle_sim_tpu_torch.app.server --device cuda --pm \
         --count 1000000
     python -m particle_sim_tpu_torch.app.server --device cuda --count 1000000 \
         --pm2-size 32 8 --pm2-softening 0.75 0.25
+    python -m particle_sim_tpu_torch.app.server --device cuda --count 4000000 \
+        --pm-persist
 """
 
 from __future__ import annotations
@@ -70,9 +74,9 @@ from ..core.params import (
     Method, PairwiseParams, PMConfig, SimParams, SphereGeneration,
 )
 from ..engine import Engine, available_methods
-from ..engine.engine import not_ported
 from ..io import packer
 from ..ops import pm2 as pm2_ops
+from ..ops import pm_persist
 from ..ops import pmx as pmx_ops
 from ..render.camera import Camera
 
@@ -286,12 +290,9 @@ class StreamServer:
                 name = ev.get("name", "off")
                 g = float(ev.get("g", 1.0))
                 eps = float(ev.get("softening", 2.0))
-                if name == "pm_persist":
-                    logger.warning("solver event rejected: %s (keeping the "
-                                   "current solver)",
-                                   not_ported("pm_persist"))
-                elif name == "pm":
-                    self._apply_pm_solver_event(ev, g, eps)
+                if name in ("pm", "pm_persist"):
+                    self._apply_pm_solver_event(ev, g, eps,
+                                                persist=name == "pm_persist")
                 elif name == "direct":
                     self.engine.pm = None
                     self.engine.set_pmx(None)   # window first: set_pm2
@@ -308,10 +309,12 @@ class StreamServer:
             # sim is paused (a paused engine stops bumping it in _sim_loop)
             self._state_version += 1
 
-    def _apply_pm_solver_event(self, ev: dict, g: float, eps: float) -> None:
+    def _apply_pm_solver_event(self, ev: dict, g: float, eps: float,
+                               persist: bool) -> None:
         """Validate the whole candidate solver (coarse PM, refinement
-        stack, exact window) before committing any of it: a bad event is
-        rejected with a warning and the running solver is kept."""
+        stack, exact window, ``persist``: the persistent PM) before
+        committing any of it: a bad event is rejected with a warning and
+        the running solver is kept."""
         eng = self.engine
         try:
             new_pm = PMConfig(softening=eps,
@@ -339,7 +342,8 @@ class StreamServer:
             if levels:
                 pm2_ops._validate_levels(new_pm, levels)
             if window is not None:
-                pmx_ops._validate(new_pm, levels, window)
+                (pm_persist.validate if persist
+                 else pmx_ops._validate)(new_pm, levels, window)
         except (TypeError, ValueError) as e:
             logger.warning("solver event rejected: %s (keeping the current "
                            "solver)", e)
@@ -349,13 +353,13 @@ class StreamServer:
         # never see an old/new mix
         eng.pm = new_pm
         eng.pairwise = PairwiseParams(g, eps)
-        eng.pm_persist = False
+        eng.pm_persist = persist
         eng.set_pmx(None)
         eng.set_pm2(stack)
         eng.set_pmx(window)
         if "two_tier" in ev:
-            # the persistent PM's repair strategy, kept for when that mode
-            # is ported (the JAX server sets it from the same field)
+            # the JAX package's persistent-PM repair strategy (the JAX
+            # server sets it from the same field)
             eng.two_tier = bool(ev["two_tier"])
 
     # -- frame production -----------------------------------------------------
@@ -488,8 +492,8 @@ class StreamServer:
         the server's state."""
         eng = self.engine
         pw = eng.pairwise
-        solver = ("pm" if eng.pm is not None
-                  else "direct" if pw else "off")
+        solver = (("pm_persist" if eng.persist_resolved() else "pm")
+                  if eng.pm is not None else "direct" if pw else "off")
         return {
             "type": "hello",
             "methods": [WIRE_METHOD[m] for m in available_methods(eng.device)],
@@ -667,17 +671,17 @@ def build_parser():
     ap.add_argument("--pm-g", type=float, default=1.0)
     ap.add_argument("--pm-softening", type=float, default=2.0)
     ap.add_argument("--no-two-tier", action="store_true",
-                    help="the persistent PM's repair strategy: full sort "
-                    "only (kept on the engine; no effect on the per-frame "
-                    "PM)")
+                    help="the JAX package's persistent-PM repair strategy: "
+                    "full sort only (kept on the engine; every repair of the "
+                    "port is the full sort)")
     ap.add_argument("--pm2-size", type=float, nargs="+", default=[0.0],
                     help="refinement-window extent(s), outermost first "
                     "(several values nest levels); implies --pm")
     ap.add_argument("--pm2-softening", type=float, nargs="+",
                     default=[0.5], help="fine softening, one a --pm2-size "
                     "value")
-    # not ported yet: raises NotImplementedError
-    ap.add_argument("--pm-persist", action="store_true")
+    ap.add_argument("--pm-persist", action="store_true",
+                    help="the persistent cell-sorted PM state (implies --pm)")
     return ap
 
 
@@ -687,14 +691,12 @@ def make_server(argv=None) -> StreamServer:
 
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.pm_persist:
-        raise not_ported("pm_persist")
     m = re.fullmatch(r"(\d+)x(\d+)", args.raster_size.strip().lower())
     if m is None:
         ap.error(f"--raster-size must be WxH (got {args.raster_size!r})")
     method = {"auto": None, "torch": Method.TORCH,
               "cuda": Method.CUDA}[args.method]
-    want_pm = args.pm or args.pm2_size[0] > 0.0
+    want_pm = args.pm or args.pm_persist or args.pm2_size[0] > 0.0
     pm2_cfg = None
     if args.pm2_size[0] > 0.0:
         sizes, softs = args.pm2_size, args.pm2_softening
@@ -710,6 +712,8 @@ def make_server(argv=None) -> StreamServer:
         pairwise=(PairwiseParams(args.pm_g, args.pm_softening)
                   if want_pm else None),
         pm2=pm2_cfg,
+        # bare --pm keeps "auto": Engine.PERSIST_AUTO_MIN_N decides
+        pm_persist=True if args.pm_persist else "auto",
         two_tier=not args.no_two_tier)
     server = StreamServer(engine, host=args.host, port=args.port,
                           target_fps=args.fps)

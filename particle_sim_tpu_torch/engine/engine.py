@@ -32,16 +32,24 @@ Lifecycle, as there:
     pairwise-kernel passes). Members past its capacity keep the mesh
     force; ``step`` polls the member count every 120 frames and logs
     each overflow episode once (``pmx_member_count`` reads it).
+  * **pm_persist**: the PM solver on the persistent cell-sorted state
+    (ops/pm_persist.py): the particles stay in cell order between frames
+    (a sorted mirror of the state), repaired by the radix sort when the
+    disorder passes its threshold; ``state`` rebuilds the identity order
+    lazily, when it is read (a gather by the inverse permutation of the
+    particles' ids), and the frame and stream accessors read the sorted
+    planes directly.
   * **masses**: f32 source masses, kept across resizes; grown particles
     get mass 1.
+  * **debug_checks**: ``utils/debug.validate_state`` after every step (a
+    read of four numbers, so a wait for the device each step).
 
 The state lives on ``device`` for the engine's life; nothing moves to
 another device behind the caller's back, and asking for ``"cuda"``
 without CUDA raises. The CUDA method steps the planes in place.
 
 Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP.md
-item that ports them: the persistent cell-sorted PM state
-(``pm_persist=True``) and the multi-device ``mesh``.
+item that ports it: the multi-device ``mesh``.
 """
 
 from __future__ import annotations
@@ -59,8 +67,8 @@ from ..core.params import (
 )
 from ..core.state import LANE, ParticleState, capacity_rows, grow_state
 from ..ops import (
-    pairwise, pairwise_cuda, pm, pm2 as pm2_ops, pm_cuda, pmx as pmx_ops,
-    step_cuda, step_ref,
+    pairwise, pairwise_cuda, pm, pm2 as pm2_ops, pm_cuda, pm_persist as pper,
+    pmx as pmx_ops, step_cuda, step_ref,
 )
 from ..render import raster, raster_compact, raster_sorted
 from ..render.camera import Camera
@@ -70,12 +78,17 @@ DEFAULT_COUNT_TORCH = 100_000
 DEFAULT_COUNT_CUDA = 1_000_000
 #: Frames between two reads of the pmx member count (about 2 s at 60 FPS).
 PMX_CHECK_EVERY = 120
+#: The count from which pm_persist="auto" runs the persistent PM (without
+#: pm2 or pmx): the smallest count at which 100 frames of a collapse ran
+#: more than 5 % faster persistent than per frame, repairs included, on
+#: the H100 (chip_smoke.py phase 19: at 4,194,304 and 16,777,216, not at
+#: 1M; PERF.md).
+PERSIST_AUTO_MIN_N: Optional[int] = 4_194_304
 
 logger = logging.getLogger("particle_sim_tpu_torch.engine")
 
 #: Where in ROADMAP.md each feature that is not ported yet is queued.
 NOT_PORTED = {
-    "pm_persist": "ROADMAP.md queue 1 item 13 (ops/pm_persist.py)",
     "mesh": "ROADMAP.md queue 1 item 15 (parallel/)",
 }
 
@@ -123,6 +136,8 @@ class Engine:
         pm_persist: Union[bool, str] = "auto",
         two_tier: bool = True,
         masses=None,
+        debug_checks: bool = False,
+        interpret: bool = False,
         mesh=None,
     ):
         """``pm``: solve the gravity with the per-frame particle-mesh
@@ -136,23 +151,44 @@ class Engine:
         Both are validated here, as :meth:`set_pm2` and :meth:`set_pmx`
         validate a swap.
 
-        ``pm_persist``: "auto" and False are accepted and resolve to the
-        per-frame path at every count (:meth:`persist_resolved`); the JAX
-        engine's "auto" goes persistent at 4M particles and more (its
-        ``PERSIST_AUTO_MIN_N``) without pm2 or pmx, a mode not ported
-        yet, like True.
+        ``pm_persist``: True runs the PM solver on the persistent
+        cell-sorted state (ops/pm_persist.py); it needs ``pm`` with a
+        static box and a grid in pm_persist.SUPPORTED_GRIDS, and with
+        ``pmx`` a multi-level ``pm2`` tuple. "auto" goes persistent from
+        PERSIST_AUTO_MIN_N particles (the H100's crossover; None: never)
+        without pm2 and pmx, re-evaluated every step; False never.
+        :meth:`persist_resolved` says what a step runs.
 
-        ``two_tier``: the persistent PM's repair strategy, kept as
+        ``two_tier``: the persistent PM's repair strategy in the JAX
+        package (a segment-local sort before the full one), kept as
         ``engine.two_tier`` and carried through checkpoints and the
-        server's ``"pm"`` events as the JAX engine carries it. It changes
-        no physics until the persistent PM is ported."""
-        for feature, given in (("pm_persist", pm_persist is True),
-                               ("mesh", mesh is not None)):
-            if given:
-                raise not_ported(feature)
-        if pm_persist not in ("auto", False):
+        server's ``"pm"`` events. Every repair of the port is the full
+        sort: the segment-local one costs the radix sort a pass more.
+
+        ``debug_checks``: validate the state after every step
+        (utils/debug.validate_state; on the sorted planes when the
+        identity order is stale).
+
+        ``interpret``: the JAX package's Pallas interpret mode. The CUDA
+        kernels have none: their plain versions run on CPU tensors, so
+        True is accepted only with ``device="cpu"``."""
+        if mesh is not None:
+            raise not_ported("mesh")
+        if pm_persist not in ("auto", True, False):
             raise ValueError(f"pm_persist must be 'auto', True or False, "
                              f"got {pm_persist!r}")
+        if interpret and torch.device(device).type != "cpu":
+            raise ValueError("interpret=True: the CUDA kernels have no "
+                             "interpret mode; their plain versions run with "
+                             "device='cpu'")
+        if pm_persist is True:
+            if pm is None:
+                raise ValueError("pm_persist requires a PMConfig")
+            if pm.auto_box or pm.grid not in pper.SUPPORTED_GRIDS:
+                raise ValueError(
+                    "pm_persist needs a static box and a grid in "
+                    f"{pper.SUPPORTED_GRIDS} (got auto_box={pm.auto_box}, "
+                    f"grid={pm.grid})")
         if substeps < 1:
             raise ValueError(f"substeps must be >= 1, got {substeps}")
         self.device = _resolve_device(device)
@@ -181,6 +217,12 @@ class Engine:
             pm_persist = False    # auto keeps the per-frame pmn / pmx
         self.pairwise = pairwise
         self.pm = pm
+        self.pm_persist = pm_persist
+        self.two_tier = bool(two_tier)
+        self.debug_checks = bool(debug_checks)
+        self._persist: Optional[pper.SortedPMState] = None  # sorted mirror
+        self._identity_dirty = False   # state planes stale against it
+        self._trigger: Optional[pper.RepairTrigger] = None
         self.pm2 = None
         self.pmx = None
         self.set_pm2(pm2)
@@ -189,8 +231,6 @@ class Engine:
         self._pmx_check_at = 0         # next frame index to read them
         self._pmx_overflowing = False  # warn once per overflow episode
         self._frame_index = 0
-        self.pm_persist = pm_persist
-        self.two_tier = bool(two_tier)
         self.paused = False
         self.stats = FrameStats()
         self.state = self._generate_state(particle_count)
@@ -213,12 +253,28 @@ class Engine:
 
     # -- properties -----------------------------------------------------------
     @property
+    def state(self) -> ParticleState:
+        """The identity-order state planes. After persistent steps they
+        are rebuilt from the sorted mirror on this read (paid per consumed
+        frame, never per simulated one)."""
+        self.ensure_identity_order()
+        return self._state
+
+    @state.setter
+    def state(self, value: ParticleState) -> None:
+        # assigned planes supersede the sorted mirror; the count is read
+        # here once, so that steps never read it back
+        self._state = value
+        self._count = int(value.n_active)
+        self._drop_persist()
+
+    @property
     def particle_count(self) -> int:
-        return int(self.state.n_active)
+        return self._count
 
     @property
     def capacity(self) -> int:
-        return self.state.capacity
+        return self._state.capacity
 
     # -- masses -----------------------------------------------------------------
     @property
@@ -228,6 +284,8 @@ class Engine:
 
     def set_masses(self, masses) -> None:
         """Set per-particle source masses (length = particle_count)."""
+        self.ensure_identity_order()
+        self._drop_persist()          # the sorted masses are stale
         m = np.asarray(masses, dtype=np.float32).ravel()
         if m.shape[0] != self.particle_count:
             raise ValueError(
@@ -256,7 +314,23 @@ class Engine:
             return
         pv = self._param_vec(params)
         t0 = time.perf_counter()
-        st = self.state
+        if self._persist_eligible():
+            self._step_persist(pv)
+        else:
+            self._step_identity(pv)
+        self.stats.record_update(time.perf_counter() - t0)
+        self._check_pmx_overflow()
+        if self.debug_checks:
+            from ..utils.debug import validate_state
+            st = self._persist if self._identity_dirty else self._state
+            validate_state(st.pos, st.vel)
+
+    def _step_identity(self, pv: torch.Tensor) -> None:
+        """A step of every mode but the persistent PM, on the identity
+        planes (rebuilt first when the solver just left that mode)."""
+        self.ensure_identity_order()
+        self._persist = None
+        st = self._state
         if self.pm is not None:
             self._step_pm(pv)
         elif self.pairwise is not None:
@@ -271,27 +345,24 @@ class Engine:
                     pos, vel = pairwise.step_pairwise(pos, vel, pv, pp,
                                                       st.n_active,
                                                       masses=masses)
-            self.state = ParticleState(pos=pos, vel=vel,
-                                       init_color=st.init_color,
-                                       n_active=st.n_active)
+            self._state = ParticleState(pos=pos, vel=vel,
+                                        init_color=st.init_color,
+                                        n_active=st.n_active)
         elif self.method == Method.CUDA:
             step_cuda.step(st.pos, st.vel, pv, substeps=self.substeps)
         else:
             pos, vel = step_ref.step_n(st.pos, st.vel, pv, self.substeps)
-            self.state = ParticleState(pos=pos, vel=vel,
-                                       init_color=st.init_color,
-                                       n_active=st.n_active)
-        self.stats.record_update(time.perf_counter() - t0)
-        self._check_pmx_overflow()
+            self._state = ParticleState(pos=pos, vel=vel,
+                                        init_color=st.init_color,
+                                        n_active=st.n_active)
 
     def _step_pm(self, pv: torch.Tensor) -> None:
         """``substeps`` particle-mesh steps, with the refinement levels and
         the exact window when set (the JAX engine's order: pmx, then pm2,
         then pm): the kernels on Method.CUDA (in place), the plain solvers
         on Method.TORCH."""
-        cfg, st = self.pm, self.state
-        pp = self._param_vec((self.pairwise or PairwiseParams(
-            1.0, cfg.softening)).pack())
+        cfg, st = self.pm, self._state
+        pp = self._pair_vec()
         masses = self._masses_for_capacity()
         levels = pm2_ops.as_levels(self.pm2)
         fast = self.method == Method.CUDA
@@ -316,8 +387,105 @@ class Engine:
             # overflow check in step): never a sync here
             self._pmx_members = (n_m, torch.clamp_max(n_m,
                                                       self.pmx.capacity))
-        self.state = ParticleState(pos=pos, vel=vel, init_color=st.init_color,
-                                   n_active=st.n_active)
+        self._state = ParticleState(pos=pos, vel=vel,
+                                    init_color=st.init_color,
+                                    n_active=st.n_active)
+
+    def _pair_vec(self) -> torch.Tensor:
+        """(G, softening) on the device; the PM softening comes from the
+        config, G from ``pairwise`` (1 when unset)."""
+        return self._param_vec((self.pairwise or PairwiseParams(
+            1.0, self.pm.softening)).pack())
+
+    # -- the persistent cell-sorted PM (ops/pm_persist.py) ---------------------
+    def persist_resolved(self) -> bool:
+        """Whether a step right now runs the persistent PM: pm_persist
+        True with a PM config that has a static box and a supported grid
+        (a solver event may swap it for one that has not: the step then
+        falls back to the per-frame path), or "auto" from
+        PERSIST_AUTO_MIN_N particles without pm2 and pmx."""
+        return self._persist_eligible()
+
+    def _persist_eligible(self) -> bool:
+        cfg = self.pm
+        if (self.pm_persist is False or cfg is None or cfg.auto_box
+                or cfg.grid not in pper.SUPPORTED_GRIDS):
+            return False
+        if self.pm_persist == "auto":
+            return (PERSIST_AUTO_MIN_N is not None and self.pm2 is None
+                    and self.pmx is None
+                    and self.particle_count >= PERSIST_AUTO_MIN_N)
+        return True
+
+    def _step_persist(self, pv: torch.Tensor) -> None:
+        """``substeps`` frames on the sorted mirror (made on the first
+        one: one sort by coarse cell, or with refinement levels into
+        their class order). A repair fires when the RepairTrigger
+        reads a disorder verdict from an earlier frame; a verdict is
+        queued after every pper.CHECK_EVERY-th frame while none is in
+        flight. Nothing here waits for the device."""
+        cfg, st = self.pm, self._state
+        n_active = st.n_active
+        levels = pm2_ops.as_levels(self.pm2)
+        fast = self.method == Method.CUDA
+        if self._persist is None:
+            kw = dict(vel_flat=st.vel.reshape(3, -1),
+                      masses=self._masses_for_capacity(),
+                      col24=raster.pack_col24(st.init_color.reshape(3, -1)),
+                      use_kernels=fast)
+            if isinstance(self.pm2, tuple):
+                self._persist = pper.init_sorted_multi(
+                    st.pos.reshape(3, -1), n_active, cfg, self.pm2, **kw)
+            else:
+                self._persist = pper.init_sorted(
+                    st.pos.reshape(3, -1), n_active, cfg, cfg2=self.pm2,
+                    **kw)
+            self._trigger = pper.RepairTrigger(self.device)
+            repair = False
+        else:
+            repair = self._trigger.due()
+        pp = self._pair_vec()
+        for _ in range(self.substeps):
+            out = pper.step_sorted(self._persist, pv, pp, n_active, cfg,
+                                   cfg2=self.pm2, cfgx=self.pmx,
+                                   repair=repair, use_fast=fast)
+            repair = False
+            if self.pmx is not None:
+                self._persist, n_m = out
+                self._pmx_members = (n_m, torch.clamp_max(
+                    n_m, self.pmx.capacity))
+            else:
+                self._persist = out
+        self._identity_dirty = True
+        if self._frame_index % pper.CHECK_EVERY == 0:
+            st = self._persist
+            self._trigger.measure(
+                lambda: pper.needs_repair(st, n_active, cfg, levels))
+
+    def ensure_identity_order(self) -> None:
+        """Rebuild the identity-order planes from the sorted mirror
+        (pm_persist.unsort); a no-op when they are current."""
+        if not self._identity_dirty:
+            return
+        st = self._state
+        pos, vel = pper.unsort(self._persist,
+                               (self._persist.pos, self._persist.vel))
+        self._state = ParticleState(pos=pos.view(st.pos.shape),
+                                    vel=vel.view(st.vel.shape),
+                                    init_color=st.init_color,
+                                    n_active=st.n_active)
+        self._identity_dirty = False
+
+    def _drop_persist(self) -> None:
+        """Forget the sorted mirror (the state is about to be rebuilt, or
+        was just assigned)."""
+        self._persist = None
+        self._identity_dirty = False
+
+    @property
+    def resorts(self) -> int:
+        """Repairs of the current sorted mirror (0 without one)."""
+        return 0 if self._persist is None else self._persist.resorts
 
     def _check_pmx_overflow(self) -> None:
         """Loud truncation: members beyond the exact buffer's capacity keep
@@ -366,6 +534,8 @@ class Engine:
                generation_mode: Optional[SphereGeneration] = None) -> None:
         """Grow appends preserving state; shrink keeps capacity."""
         new_count = max(int(new_count), 1)
+        self.ensure_identity_order()   # grow and shrink read the planes
+        self._drop_persist()           # capacity or count change: re-init
         if (generation_mode is not None
                 and generation_mode != self.generation_mode):
             # a generation-mode change regenerates everything
@@ -426,23 +596,36 @@ class Engine:
         if levels:
             pm2_ops._validate_levels(self.pm, levels)
         if self.pmx is not None:
-            pmx_ops._validate(self.pm, levels, self.pmx)
+            self._validate_pmx(levels, self.pmx)
+        if pm2 == self.pm2:
+            return
+        self.ensure_identity_order()   # the class order changes with it
+        self._drop_persist()
         self.pm2 = pm2
 
     def set_pmx(self, pmx) -> None:
         """Install, replace or clear (None) the window-exact correction
         between steps, validated against the current PM and stack at the
         call site (a rejected window keeps the old one). A change forgets
-        the member counts of the old window."""
+        the member counts of the old window. The sorted mirror is kept:
+        its class order depends on the pm2 stack only."""
         if pmx is not None:
             if self.pm is None:
                 raise ValueError("pmx requires the PM solver (pm=...)")
-            pmx_ops._validate(self.pm, pm2_ops.as_levels(self.pm2), pmx)
+            self._validate_pmx(pm2_ops.as_levels(self.pm2), pmx)
         if pmx == self.pmx:
             return
         self.pmx = pmx
         self._pmx_members = None
         self._pmx_overflowing = False
+
+    def _validate_pmx(self, levels, pmx) -> None:
+        """pmx's rules, and with pm_persist=True the persistent order's
+        (pm_persist.validate)."""
+        if self.pm_persist is True:
+            pper.validate(self.pm, levels, pmx)
+        else:
+            pmx_ops._validate(self.pm, levels, pmx)
 
     def pmx_member_count(self):
         """(n_members, n_corrected) of the newest pmx frame, or None before
@@ -452,13 +635,6 @@ class Engine:
         if self._pmx_members is None:
             return None
         return tuple(int(c) for c in self._pmx_members)
-
-    def persist_resolved(self) -> bool:
-        """Whether a step right now would run the persistent cell-sorted PM
-        mode: always False here (the mode is not ported; "auto" and False
-        run the per-frame path, where the JAX engine's "auto" would turn
-        persistent at 4M particles and more without pm2)."""
-        return False
 
     def diagnostics(self, potential: bool = False):
         """Physics observables (ops/diagnostics.py): kinetic energy,
@@ -504,15 +680,21 @@ class Engine:
     ) -> tuple:
         """frame_arrays on the engine's device: queues the pack and
         returns without the device->host copy, so a caller can release its
-        locks before the fetch."""
-        st = self.state
+        locks before the fetch.
+
+        After persistent steps the points come straight from the sorted
+        planes, coloured from the mirror's col24 (no un-sort): a point
+        cloud draws the same in any order, and the live slots are a
+        prefix of the mirror (dead slots sort last at every repair and
+        slots do not move between repairs). A strided subsample of the
+        cell order is spatially even; a repair can change its members."""
+        pos, vel, col = self._display_planes()
         n = self.particle_count
         stride = 1
         if max_points and n > max_points:
             stride = -(-n // max_points)
         pos_dev, rgba_dev = raster.pack_points(
-            st.pos, st.vel, st.init_color, self._param_vec(params),
-            n_stop=n, stride=stride)
+            pos, vel, col, self._param_vec(params), n_stop=n, stride=stride)
         # the pack strides the padded capacity; slice to the live range so
         # the payload honours max_points even when capacity >> n_active
         out_n = -(-max(n, 1) // stride)
@@ -534,7 +716,7 @@ class Engine:
         """
         if renderer not in ("auto", "scatter", "compact", "sorted"):
             raise ValueError(f"unknown renderer {renderer!r}")
-        st = self.state
+        pos, vel, col = self._display_planes()
         pv = self._param_vec(params)
         vp = torch.from_numpy(camera.view_proj()).to(self.device,
                                                      non_blocking=True)
@@ -542,7 +724,7 @@ class Engine:
                     and width % raster_compact.TILE_W == 0
                     and height % raster_compact.TILE_H == 0
                     and self.capacity % raster_compact.CHUNK == 0)
-        args = (st.pos, st.vel, st.init_color, pv, vp, st.n_active)
+        args = (pos, vel, col, pv, vp, self._state.n_active)
         if renderer == "compact" or (renderer == "auto" and eligible):
             fb = raster_compact.render(*args, width=width, height=height)
         elif renderer == "sorted":
@@ -550,6 +732,19 @@ class Engine:
         else:
             fb = raster.render(*args, width=width, height=height)
         return raster.to_rgba8(fb)
+
+    def _display_planes(self) -> tuple:
+        """(pos, vel, init_color) planes for the renderers and the stream:
+        the sorted mirror's after persistent steps (a frame does not
+        depend on the order of its points; the colours of mode 0 come
+        from the mirror's col24, u8 a channel), else the identity
+        planes."""
+        st = self._state
+        if self._identity_dirty:
+            p = self._persist
+            return (p.pos.view(st.pos.shape), p.vel.view(st.vel.shape),
+                    raster.unpack_col24(p.col24).view(st.init_color.shape))
+        return st.pos, st.vel, st.init_color
 
     def render_frame(
         self, camera: Camera, params: Union[SimParams, np.ndarray],

@@ -5,9 +5,9 @@ format (``FORMAT_VERSION = 1``: one .npz holding positions, velocities
 and init colors sliced to the active count, an optional ``masses``
 array, and a JSON ``meta`` with the same keys, ``pairwise`` and ``pm``
 included, and ``pm2``: one dict or a list of dicts, outermost level
-first, and ``pmx``), so a file saved by either package loads in the
-other. A checkpoint whose configuration needs a part not ported yet
-(``pm_persist: true``) raises ``NotImplementedError`` on load.
+first, ``pmx`` and ``pm_persist``), so a file saved by either package
+loads in the other. The state is saved in identity order (the engine's
+``state`` rebuilds it from the persistent PM's sorted mirror).
 """
 
 from __future__ import annotations
@@ -22,7 +22,6 @@ import numpy as np
 from ..core.params import Method, PairwiseParams, PMConfig, SphereGeneration
 from ..core.state import ParticleState
 from ..engine import Engine
-from ..engine.engine import not_ported
 from ..ops.pm2 import PM2Config
 from ..ops.pmx import PMXConfig
 
@@ -43,7 +42,7 @@ def save(path: str, engine: Engine, step_index: int = 0) -> None:
             [engine.pairwise.gravitational_constant, engine.pairwise.softening]
             if engine.pairwise else None),
         "pm": dataclasses.asdict(engine.pm) if engine.pm else None,
-        # the raw mode ("auto" | False), not its resolution
+        # the raw mode ("auto" | True | False), not its resolution
         "pm_persist": engine.pm_persist,
         # one PM2Config -> a dict; a multi-level tuple -> a list of dicts
         "pm2": ([dataclasses.asdict(c) for c in engine.pm2]
@@ -91,8 +90,6 @@ def load(path: str, method: Optional[Method] = None, *,
         masses = z["masses"] if "masses" in z.files else None
 
     pm_persist = meta.get("pm_persist", False)
-    if pm_persist is True:
-        raise not_ported("pm_persist")
     pair = meta.get("pairwise")
     pm_meta = meta.get("pm")
     if pm_meta:

@@ -429,14 +429,18 @@ def solve_accel_pair(rho: torch.Tensor, rho2: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def momentum_clean(acc: torch.Tensor, n_active,
-                   masses=None) -> torch.Tensor:
+                   masses=None, live=None) -> torch.Tensor:
     """Subtract the live mass-weighted mean acceleration (zero padding).
 
     The exact PM self-force sums (mass-weighted) to zero by the
     antisymmetry of the kernel; what survives numerically is solver bias.
     Removing the weighted mean restores conservation: net momentum change
-    = sum_i m_i (a_i - mean) = 0 when mean = sum m_i a_i / sum m_i."""
-    live = live_mask(acc.shape[1], n_active, acc.device).to(torch.float32)
+    = sum_i m_i (a_i - mean) = 0 when mean = sum m_i a_i / sum m_i.
+    ``live`` (bool[N]) overrides ``arange < n_active``: for slot orders
+    other than the identity (ops/pm_persist.py)."""
+    if live is None:
+        live = live_mask(acc.shape[1], n_active, acc.device)
+    live = live.to(torch.float32)
     w = live if masses is None else live * masses
     count = torch.clamp_min(w.sum(), 1e-12)
     mean = (acc * w[None]).sum(dim=1, keepdim=True) / count

@@ -295,17 +295,19 @@ def pmn_accel_ref(pos_flat: torch.Tensor, n_active, g_const,
 
 def pmn_accel(pos_flat: torch.Tensor, n_active, g_const,
               cfg: "P.PMConfig", levels, *, masses=None,
-              kernels=None) -> torch.Tensor:
+              kernels=None, live=None) -> torch.Tensor:
     """f32[3, N] multi-level PM acceleration on the deposit and gather
     kernels at any grid size (their plain versions on CPU tensors): the
     coarse pm_cuda.pm_accel, then one deposit + difference solve + gather
     a level (fine_accel_fast), then momentum_clean. Needs a static coarse
-    box."""
+    box. ``live`` (bool[N]) overrides ``arange < n_active``."""
     if cfg.auto_box:
         raise ValueError("multi-level PM needs a static coarse box")
     levels = _validate_levels(cfg, levels)
-    acc = pm_cuda.pm_accel(pos_flat, n_active, 1.0, cfg, masses=masses)
-    live = pm.live_mask(pos_flat.shape[1], n_active, pos_flat.device)
+    if live is None:
+        live = pm.live_mask(pos_flat.shape[1], n_active, pos_flat.device)
+    acc = pm_cuda.pm_accel(pos_flat, n_active, 1.0, cfg, masses=masses,
+                           live=live)
     wmins = _nested_wmins(pos_flat, live, cfg, levels, masses)
     eps_outer = cfg.softening
     for k, (c2, w) in enumerate(zip(levels, wmins)):
@@ -314,7 +316,7 @@ def pmn_accel(pos_flat: torch.Tensor, n_active, g_const,
                                     masses=masses, kernels=ker, wmin=w,
                                     eps_outer=eps_outer)
         eps_outer = float(c2.softening)
-    return g_const * pm.momentum_clean(acc, n_active, masses)
+    return g_const * pm.momentum_clean(acc, n_active, masses, live=live)
 
 
 def step_pmn(pos: torch.Tensor, vel: torch.Tensor, param_vec: torch.Tensor,

@@ -235,14 +235,18 @@ def gather(grids: torch.Tensor, pos: torch.Tensor, n_active, box_min, cell,
 
 # -- the pipeline --------------------------------------------------------------------
 def pm_accel(pos_flat: torch.Tensor, n_active, g_const, cfg: "P.PMConfig",
-             *, masses=None) -> torch.Tensor:
+             *, masses=None, live=None) -> torch.Tensor:
     """f32[3, N] PM acceleration through the deposit and gather kernels
     (the plain versions on CPU tensors), at any grid size. ``cfg.auto_box``
     solves in cell units inside a box
     tracking the cloud (computed on the device) and rescales by 1/h^2, as
     pm.pm_accel_ref does. ``masses`` f32[N] weights the deposit (the
-    sources); the gather gives an acceleration field."""
+    sources); the gather gives an acceleration field. ``live`` (bool[N],
+    static box only) overrides ``arange < n_active``, as in
+    :func:`deposit`."""
     if cfg.auto_box:
+        if live is not None:
+            raise ValueError("a live mask needs a static box")
         # coords clamp into the traced box in either boundary mode, as in
         # pm.pm_accel_ref: the upper corner never needs the wrap
         box_min, cell = pm.auto_box(pos_flat, n_active, cfg.grid)
@@ -257,10 +261,11 @@ def pm_accel(pos_flat: torch.Tensor, n_active, g_const, cfg: "P.PMConfig",
     box_min, cell = static_box(tuple(cfg.box_min), float(cfg.cell_size),
                                pos_flat.device)
     rho = deposit(pos_flat, n_active, box_min, cell, cfg.grid,
-                  periodic=periodic, masses=masses)
+                  periodic=periodic, masses=masses, live=live)
     grids = pm.solve_accel(rho, cfg, cfg.softening)
-    acc = gather(grids, pos_flat, n_active, box_min, cell, periodic=periodic)
-    return g_const * pm.momentum_clean(acc, n_active, masses)
+    acc = gather(grids, pos_flat, n_active, box_min, cell, periodic=periodic,
+                 live=live)
+    return g_const * pm.momentum_clean(acc, n_active, masses, live=live)
 
 
 def kick_and_step(pos: torch.Tensor, vel: torch.Tensor, acc: torch.Tensor,

@@ -169,19 +169,25 @@ def _validate(cfg: "P.PMConfig", levels, cfgx: PMXConfig) -> None:
 
 def pmx_accel(pos_flat: torch.Tensor, n_active, g_const, cfg: "P.PMConfig",
               levels, cfgx: PMXConfig, *, masses=None, kernels=None,
-              use_fast: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+              use_fast: bool = True, live=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(acc f32[3, N], n_members) — the full stack: coarse PM + the pm2
     refinement levels (possibly none) + the window-exact correction.
     ``levels`` is () or a tuple of PM2Config (outermost first).
     ``use_fast``: every layer on the kernels (their plain versions on CPU
-    tensors); else the plain path throughout."""
+    tensors); else the plain path throughout. ``live`` (bool[N], with
+    ``use_fast`` only) overrides ``arange < n_active``."""
     levels = tuple(levels) if levels else ()
     _validate(cfg, levels, cfgx)
-    live = pm.live_mask(pos_flat.shape[1], n_active, pos_flat.device)
+    if live is None:
+        live = pm.live_mask(pos_flat.shape[1], n_active, pos_flat.device)
     if levels:
-        base = pm2.pmn_accel if use_fast else pm2.pmn_accel_ref
-        acc = base(pos_flat, n_active, 1.0, cfg, levels, masses=masses,
-                   kernels=kernels)
+        if use_fast:
+            acc = pm2.pmn_accel(pos_flat, n_active, 1.0, cfg, levels,
+                                masses=masses, kernels=kernels, live=live)
+        else:
+            acc = pm2.pmn_accel_ref(pos_flat, n_active, 1.0, cfg, levels,
+                                    masses=masses, kernels=kernels)
         wmins = pm2._nested_wmins(pos_flat, live, cfg, levels, masses)
         # the exact window tracks the innermost mesh level's members
         lv_live = (pm2._in_window(pos_flat, wmins[-1],
@@ -193,7 +199,7 @@ def pmx_accel(pos_flat: torch.Tensor, n_active, g_const, cfg: "P.PMConfig",
     else:
         if use_fast:
             acc = pm_cuda.pm_accel(pos_flat, n_active, 1.0, cfg,
-                                   masses=masses)
+                                   masses=masses, live=live)
         else:
             acc = pm.pm_accel_ref(pos_flat, n_active, 1.0, cfg.softening,
                                   cfg, masses=masses)
@@ -201,7 +207,8 @@ def pmx_accel(pos_flat: torch.Tensor, n_active, g_const, cfg: "P.PMConfig",
     corr, n_m = exact_accel(pos_flat, live, cfgx, _eps_prev(cfg, levels),
                             masses=masses, wmin=wmin, use_kernels=use_fast)
     acc = acc + corr
-    return g_const * pm.momentum_clean(acc, n_active, masses), n_m
+    return g_const * pm.momentum_clean(acc, n_active, masses,
+                                       live=live), n_m
 
 
 def step_pmx(pos: torch.Tensor, vel: torch.Tensor, param_vec: torch.Tensor,

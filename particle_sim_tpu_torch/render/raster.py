@@ -181,6 +181,20 @@ def pack_points(pos, vel, init_color, param_vec, n_stop, stride: int = 1):
     return flat_pos, rgba8
 
 
+def pack_col24(col_flat: torch.Tensor) -> torch.Tensor:
+    """f32[3, N] in [0, 1] -> i32[N] 8:8:8-packed display colour, the
+    codec of pm_persist.SortedPMState.col24 (u8 a channel, the wire
+    format's rgba8 quantization); bit for bit the JAX package's."""
+    c8 = (torch.clamp(col_flat, 0.0, 1.0) * 255.0 + 0.5).to(torch.int32)
+    return c8[0] | (c8[1] << 8) | (c8[2] << 16)
+
+
+def unpack_col24(col24: torch.Tensor) -> torch.Tensor:
+    """i32[N] packed display colour -> f32[3, N] in [0, 1]."""
+    return torch.stack([(col24 >> s) & 0xFF for s in (0, 8, 16)]).to(
+        torch.float32) / 255.0
+
+
 def to_rgba8(fb: torch.Tensor) -> torch.Tensor:
     """f32[H,W,3] -> u8[H,W,4] (alpha 255)."""
     rgb8 = (torch.clamp(fb, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)

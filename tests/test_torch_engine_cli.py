@@ -334,14 +334,15 @@ def test_frame_arrays_match_jax(max_points):
 
 # -- what is not ported, and devices ---------------------------------------------
 @pytest.mark.parametrize("kw", [
-    dict(pm=PMConfig(grid=32), pm_persist=True),
+    dict(pm=PMConfig(grid=32), pm_persist=True, mesh=object()),
     dict(pm=PMConfig(grid=32), pm2=PM2Config(None, 24.0, 0.5),
-         pm_persist=True),
+         pm_persist=True, mesh=object()),
     dict(pm=PMConfig(grid=32), pmx=PMXConfig(6.0, 0.1), mesh=object()),
-    dict(pm_persist=True), dict(mesh=object())])
+    dict(pm_persist=True, mesh=object()), dict(mesh=object())])
 def test_engine_not_ported_raises(kw):
-    """pm_persist=True and mesh raise, with pm2 and pmx too (those two
-    are ported: tests/test_torch_pm2.py, tests/test_torch_pmx.py)."""
+    """mesh raises, with pm_persist, pm2 and pmx too (those three are
+    ported: tests/test_torch_pm_persist.py, tests/test_torch_pm2.py,
+    tests/test_torch_pmx.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Engine(particle_count=10, device="cpu", **kw)
 
@@ -426,8 +427,9 @@ def test_checkpoint_roundtrip_preserves_trajectory(tmp_path):
 
 
 def test_checkpoint_with_solver_not_ported(tmp_path):
-    """A per-frame particle-mesh checkpoint loads, with a pm2 stack too;
-    one that asks for the persistent PM state still raises on load."""
+    """A per-frame particle-mesh checkpoint loads, with a pm2 stack and
+    with the persistent PM state too (the mesh is the one part not
+    ported; no checkpoint holds one)."""
     from particle_sim_tpu.core.params import PMConfig as JPM
 
     path = str(tmp_path / "pm.npz")
@@ -441,17 +443,12 @@ def test_checkpoint_with_solver_not_ported(tmp_path):
     meta = json.loads(str(arrays["meta"]))
     level = {"window_min": None, "window_size": 24.0, "softening": 0.5,
              "margin": 0.0, "gradient": "exact", "park": 1.0}
-    for key, value, feature in (("pm_persist", True, "pm_persist"),
-                                ("pm2", level, None)):
-        bad = str(tmp_path / f"{key}.npz")
-        np.savez(bad, **{**arrays, "meta": json.dumps({**meta,
-                                                       key: value})})
-        if feature is None:
-            assert ckpt.load(bad, device="cpu")[0].pm2 == PM2Config(**value)
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP.md.*"
-                           + feature):
-            ckpt.load(bad, device="cpu")
+    for key, value, want in (("pm_persist", True, True),
+                             ("pm2", level, PM2Config(**level))):
+        other = str(tmp_path / f"{key}.npz")
+        np.savez(other, **{**arrays, "meta": json.dumps({**meta,
+                                                         key: value})})
+        assert getattr(ckpt.load(other, device="cpu")[0], key) == want
 
 
 def test_checkpoint_pairwise_masses_jax_to_port(tmp_path):
@@ -554,13 +551,15 @@ def test_cli_pairwise_central_mass_sorted(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--pm", "--pm-persist"], ["--pm-persist"],
-    ["--pm2-size", "24", "--pm-persist"], ["--pmx-size", "6", "--mesh",
-                                           "auto"],
+    ["--pm", "--pm-persist", "--mesh", "auto"],
+    ["--pm-persist", "--mesh", "auto"],
+    ["--pm2-size", "24", "--pm-persist", "--mesh", "auto"],
+    ["--pmx-size", "6", "--mesh", "auto"],
     ["--mesh", "auto"], ["--pm", "--mesh", "auto"]])
 def test_cli_not_ported_flags_raise(flags):
-    """--pm-persist and --mesh raise, with --pm2-size / --pmx-size too
-    (those run: tests/test_torch_pm2.py, tests/test_torch_pmx.py)."""
+    """--mesh raises, with --pm-persist / --pm2-size / --pmx-size too
+    (those run: tests/test_torch_engine_persist.py,
+    tests/test_torch_pm2.py, tests/test_torch_pmx.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cli.main(["--device", "cpu", "--count", "1024", "--steps", "1",
                   *flags])

@@ -246,7 +246,7 @@ def test_set_pm2_and_set_pmx_validate_at_call_site():
     assert e.pmx is None and e.pmx_member_count() is None
     with pytest.raises(ValueError, match="pm="):
         make_engine(1024, pmx=CFGX)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="MULTI-level"):
         make_engine(1024, pm=CFG, pmx=CFGX, pm_persist=True)
 
 

@@ -297,11 +297,13 @@ def test_solver_events_switch_pairwise(caplog):
     assert eng.pairwise == PairwiseParams(1.5, 3.0)
     hello = srv.hello()
     assert hello["solver"] == "pm" and hello["solver_softening"] == 3.0
-    # the persistent state (not ported), a pm2 stack whose softening is
-    # not below the coarse one and an exact window that is not below the
-    # stack's: each rejected whole, the solver kept
+    # the persistent state with an exact window but no multi-level
+    # stack, a pm2 stack whose softening is not below the coarse one and
+    # an exact window that is not below the stack's: each rejected whole,
+    # the solver kept
     with caplog.at_level(logging.WARNING, logger=server.logger.name):
-        srv.handle_event({"type": "solver", "name": "pm_persist"})
+        srv.handle_event({"type": "solver", "name": "pm_persist",
+                          "pmx_size": 6.0, "pmx_softening": 0.1})
         srv.handle_event({"type": "solver", "name": "pm", "g": 9.0,
                           "softening": 5.0, "pm2_sizes": [24.0],
                           "pm2_softenings": [6.0]})
@@ -311,7 +313,8 @@ def test_solver_events_switch_pairwise(caplog):
     assert eng.pm == PMConfig(softening=3.0, auto_box=True)
     assert eng.pairwise == PairwiseParams(1.5, 3.0)
     assert eng.pm2 is None and eng.pmx is None
-    assert sum("ROADMAP.md" in r.getMessage() for r in caplog.records) == 1
+    assert sum("MULTI-level" in r.getMessage()
+               for r in caplog.records) == 1
     assert sum("rejected" in r.getMessage() for r in caplog.records) == 3
     srv.handle_event({"type": "solver", "name": "direct", "g": 2.0,
                       "softening": 0.3})
@@ -397,10 +400,14 @@ def test_make_server_flags():
                             "--pm2-size", "24"])
     assert s.engine.pm == PMConfig(softening=2.0)
     assert s.hello()["pm2_sizes"] == [24.0]
+    # --pm-persist implies --pm, alone and with a pm2 stack
     for flags in (["--pm", "--pm-persist"], ["--pm-persist"],
                   ["--pm2-size", "24", "--pm-persist"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            server.make_server(["--device", "cpu", *flags])
+        s = server.make_server(["--device", "cpu", "--count", "1024",
+                                *flags])
+        assert s.engine.pm == PMConfig(softening=2.0)
+        assert s.engine.pm_persist is True
+        assert s.hello()["solver"] == "pm_persist"
 
 
 def test_wire_constants_match_jax():
