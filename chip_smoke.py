@@ -4,7 +4,8 @@ NVIDIA GPU: builds the hand-written kernels, holds each against its plain
 PyTorch version, drives the headless CLI at 1M particles (the attractor),
 at 65,536 (direct-sum gravity) and at 1M (particle-mesh gravity, and the
 multi-level mesh with the window-exact correction), drives the WebSocket
-server at 65,536, and times the kernels.
+server at 65,536, the mesh path at world size 1 and the packaging tool,
+and times the kernels.
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
@@ -202,12 +203,39 @@ Phases (each prints a line; any failure raises and exits non-zero):
      (7) Engine(debug_checks=True): clean steps pass, a NaN planted in a
      live slot raises StateValidationError; (8) tools/pm_profile.py's two
      modes at 1M
+ 20. the mesh path (particle_sim_tpu_torch/parallel/) at world size 1
+     under NCCL (a group started here on a file:// store under build/,
+     destroyed at the end of the phase): Engine(mesh=make_mesh()) beside
+     Engine() from the same state, the mesh engine's launches counted:
+     (a) the attractor (dp) at 16,777,216 x 100 steps, equal bit for bit;
+     (b) the direct ring with a central mass of 1000 at 65,536 x 20,
+     within 1e-4 (JAX's bar); (c) pm_dp at 1M x 20 (G = 128, static box)
+     within 1e-4; (d) the persistent PM at 16M x 20 frames of the hollow
+     sphere (G 0.01), within JAX's persistent-dp bars (positions 1e-2,
+     velocities 0.02 max|v|); (f) render_dp at 16M @ 1920x1080 from the
+     persistent carry, equal bit for bit to the single-device compact
+     frame of the same carry; (e) the deep-zoom composition of phase 19
+     at 1M, one frame, the pmx counts equal and JAX's bars; each mesh
+     step timed beside the same step without a mesh (the collectives'
+     cost at world size 1); then the attractor CLI at 1M x 100 (frames
+     and a checkpoint) without a mesh and with --mesh auto under
+     torchrun (python -m torch.distributed.run --standalone
+     --nproc_per_node <visible GPUs>) and without it: 'mesh: dp over N
+     devices', the done line, the checkpoint equal to the single run's
+     bit for bit and the frames within one u8 level; and the persistent
+     PM CLI with a central mass under torchrun
+ 21. the packaging tool (app/release.py --web --native --warm --aot) into
+     a directory under build/: every MANIFEST sha256 matches its file,
+     the warmed kernel library loads and its step kernel matches the
+     plain step (1e-6), the exported step (torch.export) loads and equals
+     step_ref on the card
 
 The line before the last is a JSON object with one entry per kernel (the
-launches of step are phases 4, 16 (the engine), 18 and 19 together; of
-pairwise phases 8 and 18; of pm_deposit and pm_gather phase 12's runs (a)
-and (b), 16, 18 and 19 together; those of sorted_deposit phases 8 and 12
-(b); of radix_hist and radix_pass phases 8, 12 (b), 18 and 19; those of
+launches of step are phases 4, 16 (the engine), 18, 19 and 20 together;
+of pairwise phases 8, 18 and 20; of pm_deposit and pm_gather phase 12's
+runs (a) and (b), 16, 18, 19 and 20 together; of compact and deposit
+phases 4 and 20; those of sorted_deposit phases 8 and 12 (b); of
+radix_hist and radix_pass phases 8, 12 (b), 18, 19 and 20; those of
 pairwise_mxu, hilbert_keys, inlier_box, block_sort and merge_round the
 drives of phases 14 and 15); the last line is {"ok": true, "device":
 {...}}.
@@ -1147,6 +1175,449 @@ def phase19(dev, states) -> dict:
             f"{k.strip()} {v:.5f}" for k, v in prof.items()) + " ms")
     print(f"phase 19 done in {time.perf_counter() - t_start:.1f} s")
     return {"launches": got, "ms": ms}
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count, by kernel name."""
+    from particle_sim_tpu_torch.ops import (
+        pairwise_cuda, pm_cuda, psort, step_cuda,
+    )
+    from particle_sim_tpu_torch.render import raster_compact as rc
+    from particle_sim_tpu_torch.render import raster_sorted as rs
+
+    return {"step": step_cuda.LAUNCHES, "pairwise": pairwise_cuda.LAUNCHES,
+            "pm_deposit": pm_cuda.DEPOSIT_LAUNCHES
+            + pm_cuda.DEPOSIT_MASS_LAUNCHES,
+            "pm_gather": pm_cuda.GATHER_LAUNCHES,
+            "radix_hist": psort.RADIX_HIST_LAUNCHES,
+            "radix_pass": psort.RADIX_PASS_LAUNCHES,
+            "compact": rc.COMPACT_LAUNCHES, "deposit": rc.DEPOSIT_LAUNCHES,
+            "sorted_deposit": rs.LAUNCHES}
+
+
+def zero_launches() -> None:
+    from particle_sim_tpu_torch.ops import (
+        pairwise_cuda, pm_cuda, psort, step_cuda,
+    )
+    from particle_sim_tpu_torch.render import raster_compact as rc
+    from particle_sim_tpu_torch.render import raster_sorted as rs
+
+    step_cuda.LAUNCHES = pairwise_cuda.LAUNCHES = 0
+    pm_cuda.DEPOSIT_LAUNCHES = pm_cuda.DEPOSIT_MASS_LAUNCHES = 0
+    pm_cuda.GATHER_LAUNCHES = 0
+    psort.RADIX_HIST_LAUNCHES = psort.RADIX_PASS_LAUNCHES = 0
+    rc.COMPACT_LAUNCHES = rc.DEPOSIT_LAUNCHES = rs.LAUNCHES = 0
+
+
+def phase20(dev, states) -> dict:
+    """Phase 20: the mesh path (particle_sim_tpu_torch/parallel/) at world
+    size 1 under NCCL, at full width: the process group starts here with
+    a file:// store under build/ and is destroyed at the end. Each path
+    runs ``Engine(mesh=make_mesh())`` beside ``Engine()`` from the same
+    state; the launch counts are the mesh engines' drives only. ``states``:
+    phase 2's ParticleStates. -> {"launches": summed counts, "ms": the
+    mesh and single-device step times, "gaps": the measured gaps}."""
+    import numpy as np
+    import torch
+
+    from particle_sim_tpu_torch.core.params import (
+        PairwiseParams, PMConfig, SimParams,
+    )
+    from particle_sim_tpu_torch.core.state import ParticleState
+    from particle_sim_tpu_torch.engine import Engine
+    from particle_sim_tpu_torch.ops import pm2, pmx
+    from particle_sim_tpu_torch.parallel import distributed, mesh as ml
+    from particle_sim_tpu_torch.render import raster, raster_compact as rc
+    from particle_sim_tpu_torch.render.camera import Camera
+
+    t_start = time.perf_counter()
+    store = os.path.join(ROOT, "build", f"phase20_store_{os.getpid()}")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    distributed.initialize(f"file://{store}", 1, 0, device="cuda",
+                           timeout_s=120)
+    if torch.distributed.get_backend() != "nccl":
+        fail(f"phase 20: backend {torch.distributed.get_backend()}")
+    mesh = ml.make_mesh("cuda")
+    total = {}
+    ms, gaps = {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    def clone_state(st):
+        return ParticleState(pos=st.pos.clone(), vel=st.vel.clone(),
+                             init_color=st.init_color.clone(),
+                             n_active=st.n_active.clone())
+
+    def drive(name, kw, params, steps, start=None, expect=None):
+        """(single, mesh) engines after ``steps`` steps from the same
+        state; the mesh engine's launches counted (and held to
+        ``expect``, a dict of exact counts)."""
+        one = Engine(device=dev, **kw)
+        two = Engine(device=dev, mesh=mesh, **kw)
+        if start is not None:
+            one.state = clone_state(start)
+            two.state = clone_state(start)
+        for _ in range(steps):
+            one.step(params)
+        torch.cuda.synchronize()
+        zero_launches()
+        for _ in range(steps):
+            two.step(params)
+        torch.cuda.synchronize()
+        got = launch_counts()
+        add(got)
+        if expect and any(got[k] != v for k, v in expect.items()):
+            fail(f"phase 20 {name}: launches {got}, expected {expect}")
+        return one, two, got
+
+    def timed(name, one, two, params, lead=0.0):
+        t = median_ms([lambda: one.step(params), lambda: two.step(params)],
+                      reps=5, inner=5, lead_ms=lead)
+        ms[name] = t
+        return t
+
+    def gap(a, b):
+        return float((a - b).abs().max())
+
+    orbit = SimParams(is_mouse_dragging=True, mouse_position=(20.0, 5.0, 30.0),
+                      mouse_force=60.0, mouse_radius=30.0, gravity=0.5,
+                      color_mode=1)
+    n16 = 16_777_216
+
+    # (a) the attractor, dp: 16M x 100 steps, bit for bit
+    one, two, got = drive("dp", dict(particle_count=n16), orbit, 100,
+                          start=states[n16], expect={"step": 100})
+    sa, sb = one.state, two.state
+    if not (torch.equal(sa.pos, sb.pos) and torch.equal(sa.vel, sb.vel)):
+        fail(f"phase 20 dp: mesh vs single differ by {gap(sa.pos, sb.pos)}")
+    t = timed("dp 16M", one, two, orbit, lead=2.0)
+    print(f"phase 20 (a) dp {n16} x 100: mesh == single bit for bit, "
+          f"launches {got}; a step {t[1]:.5f} ms on the mesh, {t[0]:.5f} "
+          f"without")
+    del one, two, sa, sb
+
+    # (b) the direct ring with masses: 65,536 x 20, JAX's 1e-4
+    n_g = 65_536
+    masses = np.ones(n_g, np.float32)
+    masses[0] = 1000.0
+    one, two, got = drive(
+        "ring", dict(particle_count=n_g, pairwise=PairwiseParams(1.0, 0.5),
+                     masses=masses), SimParams(), 20,
+        expect={"pairwise": 20, "step": 20})
+    pa, pb = one.state.pos, two.state.pos
+    g_ring = gap(pa, pb)
+    if not torch.allclose(pb, pa, rtol=1e-4, atol=1e-4):
+        fail(f"phase 20 ring: mesh vs single {g_ring:.3g} (bar 1e-4)")
+    gaps["ring"] = g_ring
+    t = timed("ring 65536", one, two, SimParams())
+    print(f"phase 20 (b) ring {n_g} x 20 with masses: mesh vs single max "
+          f"|dp| {g_ring:.3g} (bar 1e-4), launches {got}; a step "
+          f"{t[1]:.4f} ms on the mesh, {t[0]:.4f} without")
+    del one, two
+
+    # (c) pm_dp: 1M, G = 128, static box, 20 steps
+    n1 = 1_000_000
+    cfg = PMConfig()
+    one, two, got = drive(
+        "pm_dp", dict(particle_count=n1, pm=cfg, pm_persist=False,
+                      pairwise=PairwiseParams(0.05, cfg.softening)),
+        SimParams(), 20, start=states[n1],
+        expect={"pm_deposit": 20, "pm_gather": 20, "step": 20})
+    pa, pb = one.state.pos, two.state.pos
+    g_pm = gap(pa, pb)
+    if not torch.allclose(pb, pa, rtol=1e-4, atol=1e-4):
+        fail(f"phase 20 pm_dp: mesh vs single {g_pm:.3g} (bar 1e-4)")
+    gaps["pm_dp"] = g_pm
+    t = timed("pm_dp 1M", one, two, SimParams(), lead=5.0)
+    tw = timed("pm_dp 1M wall", one, two, SimParams())
+    print(f"phase 20 (c) pm_dp {n1} x 20 (G = 128, static box): mesh vs "
+          f"single max |dp| {g_pm:.3g} (bar 1e-4), launches {got}; a step "
+          f"{t[1]:.4f} ms on the mesh (the 8 MB grid all-reduce), "
+          f"{t[0]:.4f} without (queued behind a spin); {tw[1]:.4f} and "
+          f"{tw[0]:.4f} with the host's own pace")
+    del one, two
+
+    # (d) the persistent PM on the mesh: the 16M hollow sphere, 20 frames
+    # (G 0.01: the shell falls a few cells), JAX's persistent-dp bars
+    pp16 = dict(particle_count=n16, pm=cfg, pm_persist=True,
+                pairwise=PairwiseParams(0.01, cfg.softening))
+    frame = SimParams(color_mode=0)
+    one, two, got = drive("persist", pp16, frame, 20,
+                          expect={"pm_deposit": 20, "pm_gather": 20,
+                                  "step": 20})
+    sa, sb = one.state, two.state
+    dpos, dvel = gap(sa.pos, sb.pos), gap(sa.vel, sb.vel)
+    vbar = max(0.02 * float(sa.vel.abs().max()), 2e-3)
+    if dpos > 1e-2 or dvel > vbar:
+        fail(f"phase 20 persistent: mesh vs single |dp| {dpos:.3g} (bar "
+             f"1e-2), |dv| {dvel:.3g} (bar {vbar:.3g})")
+    gaps["persist"] = (dpos, dvel)
+    print(f"phase 20 (d) persistent pm {n16} x 20: mesh vs single max |dp| "
+          f"{dpos:.3g} (bar 1e-2), |dv| {dvel:.3g} (bar {vbar:.3g}), "
+          f"repairs {two.resorts} / {one.resorts}, launches {got}")
+
+    # (f) render_dp at 16M @ 1920x1080 from the persistent carry: bit for
+    # bit the single-device compact frame of the same carry
+    cam = Camera(aspect=16 / 9)
+    for e in (one, two):                  # both frames from a live carry
+        e.step(frame)
+    zero_launches()
+    img = two.render_frame_device(cam, frame, width=1920, height=1080)
+    torch.cuda.synchronize()
+    got_r = launch_counts()
+    add(got_r)
+    if not two._identity_dirty or got_r["compact"] != 1 \
+            or got_r["deposit"] != 1:
+        fail(f"phase 20 render_dp: not from the carry, launches {got_r}")
+    c = two._persist
+    planes = (3, -1, 128)
+    fb1 = rc.render(c.pos.view(planes), c.vel.view(planes),
+                    raster.unpack_col24(c.col24).view(planes),
+                    two._param_vec(frame),
+                    torch.from_numpy(cam.view_proj()).to(dev),
+                    two._state.n_active, width=1920, height=1080)
+    if not torch.equal(img, raster.to_rgba8(fb1)):
+        fail("phase 20 render_dp: the mesh frame differs from the "
+             "single-device frame of the same carry")
+    lit = int((img[..., :3].amax(-1) > 0).sum())
+
+    def render_one():
+        one.render_frame_device(cam, frame, width=1920, height=1080)
+
+    def render_two():
+        two.render_frame_device(cam, frame, width=1920, height=1080)
+
+    t = median_ms([render_one, render_two], reps=5, inner=3)
+    if not one._identity_dirty:
+        fail("phase 20 render: the single-device frame rebuilt the identity")
+    ms["render_dp 16M"] = t
+    print(f"phase 20 (f) render_dp {n16} @ 1920x1080 from the persistent "
+          f"carry: == the single-device frame bit for bit, {lit} lit "
+          f"pixels, launches {got_r}; a frame {t[1]:.4f} ms on the mesh "
+          f"(the 24 MB tile all-reduce), {t[0]:.4f} without")
+    still = SimParams(delta_time=0.0, color_mode=0)
+    t = timed("persist 16M", one, two, still, lead=5.0)
+    print(f"phase 20 (d) persistent step {n16} (dt = 0): {t[1]:.4f} ms on "
+          f"the mesh, {t[0]:.4f} without")
+    del one, two, sa, sb, c, img, fb1
+
+    # (e) the deep-zoom composition (phase 19's scene) at 1M: pm2 32 / 0.6
+    # + 8 / 0.2 and pmx 2 / 0.05, one frame, JAX's persistent-dp bars
+    rng = np.random.default_rng(13)
+
+    def ball(k, radius, off):
+        d = rng.normal(size=(k, 3)).astype(np.float32)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        r = radius * rng.random(k).astype(np.float32) ** (1 / 3)
+        return d * r[:, None] + off
+
+    center = np.float32([14.0, 6.0, -4.0])
+    zpos = np.concatenate([ball(n1 // 4, 0.8, center),
+                           ball(n1 // 4, 4.0, center),
+                           ball(n1 - n1 // 2, 40.0, 0.0)])
+    zkw = dict(particle_count=n1, pm=PMConfig(softening=3.0),
+               pairwise=PairwiseParams(0.05, 3.0),
+               pm2=(pm2.PM2Config(window_min=None, window_size=32.0,
+                                  softening=0.6),
+                    pm2.PM2Config(window_min=None, window_size=8.0,
+                                  softening=0.2)),
+               pmx=pmx.PMXConfig(window_size=2.0, softening=0.05,
+                                 capacity=262144), pm_persist=True)
+    zstart = ParticleState.from_arrays(zpos, np.zeros_like(zpos),
+                                       np.full_like(zpos, 0.7), device=dev)
+    zp = SimParams(delta_time=0.016, gravity=0.0)
+    one, two, got = drive("deep zoom", zkw, zp, 1, start=zstart,
+                          expect={"pm_deposit": 3, "pm_gather": 3,
+                                  "pairwise": 2, "step": 1})
+    m1, m2 = one.pmx_member_count(), two.pmx_member_count()
+    sa, sb = one.state, two.state
+    dpos, dvel = gap(sa.pos, sb.pos), gap(sa.vel, sb.vel)
+    vbar = max(0.02 * float(sa.vel.abs().max()), 2e-3)
+    if m1 != m2 or dpos > 1e-2 or dvel > vbar:
+        fail(f"phase 20 deep zoom: members {m2} / {m1}, |dp| {dpos:.3g} "
+             f"(bar 1e-2), |dv| {dvel:.3g} (bar {vbar:.3g})")
+    gaps["deep zoom"] = (dpos, dvel)
+    t = timed("deep zoom 1M", one, two, SimParams(delta_time=0.0))
+    print(f"phase 20 (e) deep zoom {n1} x 1 (pm2 32 / 0.6, 8 / 0.2, pmx 2 /"
+          f" 0.05): members (members, corrected) {m2} on the mesh, {m1} "
+          f"without; max |dp| {dpos:.3g} (bar 1e-2), |dv| {dvel:.3g} (bar "
+          f"{vbar:.3g}), launches {got}; a step (dt = 0) {t[1]:.4f} ms on "
+          f"the mesh, {t[0]:.4f} without")
+    del one, two, sa, sb
+
+    # the collectives alone at world size 1: an all-reduce of the 8 MB
+    # PM grid (G = 128) and of the 24 MB tile planes of a 1920x1080 frame,
+    # device time beside a device copy of the same bytes, and the host's
+    # time to enqueue one
+    coll = ml.Collectives(mesh)
+    for label, shape in (("grid G=128", (128, 128, 128)),
+                         ("tiles 1920x1080", (2025, 3, 8, 128))):
+        buf = torch.ones(shape, device=dev)
+        dst = torch.empty_like(buf)
+        t = median_ms([lambda: coll.sum_(buf), lambda: dst.copy_(buf)],
+                      reps=5, inner=10, lead_ms=3.0)
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        for _ in range(50):
+            coll.sum_(buf)
+        host_us = (time.perf_counter() - h0) / 50 * 1e6
+        # behind 20 ms of queued device work: a call that waited for the
+        # device would take that long
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(20 * 2e6))
+        h0 = time.perf_counter()
+        coll.sum_(buf)
+        behind_ms = (time.perf_counter() - h0) * 1e3
+        torch.cuda.synchronize()
+        mb = buf.numel() * 4 / 1e6
+        ms[f"all_reduce {label}"] = t + [host_us, behind_ms]
+        print(f"phase 20 all_reduce {label} ({mb:.1f} MB, nccl "
+              f"{torch.cuda.nccl.version()}): "
+              f"{t[0]:.5f} ms on the device ({mb / t[0]:.1f} GB/s) | a "
+              f"device copy of the same bytes {t[1]:.5f} ms | "
+              f"{host_us:.1f} us to enqueue on the host, {behind_ms:.3f} ms "
+              f"behind a 20 ms spin")
+    distributed.shutdown()
+    os.remove(store)
+
+    phase20_cli()
+    print(f"phase 20 done in {time.perf_counter() - t_start:.1f} s: "
+          f"launches {total}")
+    return {"launches": total, "ms": ms, "gaps": gaps}
+
+
+def phase20_cli() -> None:
+    """Phase 20's CLI drive, over every visible GPU (also callable alone):
+    the attractor at 1M x 100 (a dragged orbit, a frame every 50 steps, a
+    checkpoint at the end) without a mesh, then with --mesh auto under
+    torchrun (one rank a visible GPU) and without it (one GPU: a world of
+    one in its process; more: one spawned rank a GPU). The mesh runs'
+    checkpoints equal the single run's bit for bit (the attractor sums
+    nothing across particles), their frames are within one u8 level (the
+    tile sums add the ranks' planes in another order). Then the
+    persistent PM with a central mass under torchrun."""
+    import numpy as np
+    import torch
+
+    n_gpu = torch.cuda.device_count()
+    cli = [sys.executable, "-m", "particle_sim_tpu_torch.app.cli",
+           "--device", "cuda"]
+    torchrun = [sys.executable, "-m", "torch.distributed.run",
+                "--standalone", "--nproc_per_node", str(n_gpu), *cli[1:]]
+    attractor = ["--count", "1000000", "--steps", "100", "--drag",
+                 "--orbit-mouse", "--color-mode", "1", "--render-every",
+                 "50", "--checkpoint-every", "100", "--stats-every", "50"]
+    runs = (("single", cli + attractor),
+            ("torchrun", torchrun + ["--mesh", "auto", *attractor]),
+            ("no torchrun", cli + ["--mesh", "auto", *attractor]),
+            ("torchrun persistent", torchrun + [
+                "--mesh", "auto", "--count", "1000000", "--steps", "100",
+                "--pm", "--pm-persist", "--central-mass", "1000",
+                "--stats-every", "50"]))
+    outs = {}
+    for how, cmd in runs:
+        d = os.path.join(ROOT, "build", "phase20_cli", how.replace(" ", "_"))
+        os.makedirs(d, exist_ok=True)
+        ck = os.path.join(d, "checkpoint.npz")
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd + ["--render-dir", d, "--checkpoint", ck],
+                             cwd=ROOT, capture_output=True, text=True,
+                             timeout=300)
+        wall = time.perf_counter() - t0
+        lines = res.stdout.strip().splitlines()
+        done = json.loads(lines[-1]) if lines else {}
+        line = f"mesh: dp over {n_gpu} devices"
+        if (res.returncode != 0 or not done.get("done")
+                or (how != "single") != (line in res.stderr)):
+            fail(f"phase 20 cli ({how}): rc {res.returncode}\n"
+                 f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+        note = "" if how == "single" else f"'{line}', "
+        if "persistent" not in how:
+            with np.load(ck) as z:
+                pos = z["positions"]
+            frames = [read_png(os.path.join(d, f"frame_{k:06d}.png"))
+                      for k in (50, 100)]
+            outs[how] = (pos, frames)
+            p1, f1 = outs["single"]
+            du8 = max(int(np.abs(a.astype(int) - b.astype(int)).max())
+                      for a, b in zip(frames, f1))
+            if not np.array_equal(pos, p1) or du8 > 1:
+                fail(f"phase 20 cli ({how}): the final state or a frame "
+                     f"differs from the single-device run (u8 {du8})")
+            if how != "single":
+                note += (f"the checkpoint == the single run's bit for bit, "
+                         f"frames within {du8} u8, ")
+        print(f"phase 20 cli ({how}): {note}{done['steps']} steps in "
+              f"{done['wall_s']} s ({done['particle_steps_per_sec']:.4g} "
+              f"particle-steps/s), {wall:.1f} s with start-up")
+
+
+def phase21(dev) -> dict:
+    """Phase 21: the packaging tool (app/release.py) with --web --native
+    --warm --aot (exported for the card) into a directory under build/:
+    every MANIFEST sha256 matches its file, the warmed kernel library
+    loads and its step kernel matches the plain step, and an exported
+    step loads and matches step_ref on the card."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from particle_sim_tpu_torch.app import release
+    from particle_sim_tpu_torch.ops import step_ref
+    from particle_sim_tpu_torch.utils import cuda_build
+
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    out = tempfile.mkdtemp(prefix="phase21_", dir=os.path.join(ROOT, "build"))
+    counts = [65_536, 1_000_000]
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc_ = release.main(["--out", out, "--web", "--native", "--warm",
+                            "--aot", "--counts", *map(str, counts)])
+    if rc_ != 0:
+        fail(f"phase 21: release exited {rc_}")
+    manifest = json.load(open(os.path.join(out, "MANIFEST.json")))
+    arts = manifest["artifacts"]
+    for rel, digest in arts.items():
+        if release.sha256(os.path.join(out, rel)) != digest:
+            fail(f"phase 21: {rel} does not match its MANIFEST sha256")
+    libs = [rel for rel in arts if rel.startswith("torch-kernels/")]
+    if len(libs) != 1 or len(arts) != 8 + 1 + 1 + len(counts):
+        fail(f"phase 21: artifacts {sorted(arts)}")
+    lib = cuda_build.load(os.path.join(out, libs[0]))
+    pos, vel, pv = release.step_example(1_000_000, dev)
+    pk, vk = pos.clone(), vel.clone()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cuda_build.check(lib.psim_step(pk.data_ptr(), vk.data_ptr(),
+                                   pv.data_ptr(), pos.numel() // 3, 1,
+                                   stream), "warmed step")
+    want = step_ref.step(pos, vel, pv)
+    e_lib = max(check_close("phase 21 warmed step kernel", a, b, 1e-6, 1e-6)
+                for a, b in zip((pk, vk), want))
+    e_aot = []
+    for n in counts:
+        args = release.step_example(n, dev)
+        ep = torch.export.load(os.path.join(out, "aot",
+                                            f"step_torch_n{n}.pt2"))
+        got = ep.module()(*args)
+        ref = step_ref.step(*args)
+        e_aot.append(max(float((a - b).abs().max())
+                         for a, b in zip(got, ref)))
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            fail(f"phase 21: the exported step at {n} differs from step_ref "
+                 f"on the card by {e_aot[-1]:.3g}")
+    print(f"phase 21 release --web --native --warm --aot: {len(arts)} "
+          f"artifacts, every sha256 matches; the warmed library "
+          f"{os.path.basename(libs[0])} loads and its step kernel matches "
+          f"step_ref within {e_lib:.3g} at 1M; the exported step at "
+          f"{counts} == step_ref on the card ({time.perf_counter() - t0:.1f}"
+          f" s)")
+    shutil.rmtree(out)
+    return {"max_err": e_lib}
 
 
 def main() -> int:
@@ -3078,19 +3549,27 @@ def main() -> int:
     # -- phase 19: the persistent cell-sorted PM ------------------------------------
     p19 = phase19(dev, states)["launches"]
 
+    # -- phase 20: the mesh path at world size 1 under NCCL ----------------------
+    p20 = phase20(dev, states)["launches"]
+
+    # -- phase 21: the packaging tool --------------------------------------------
+    phase21(dev)
+
     src = "particle_sim_tpu_torch/csrc/"
     kernels = [
         {"name": "step", "route": "cuda", "source": src + "step.cu",
          "replaces": "particle_sim_tpu/ops/step_pallas.py:38",
          "launches": launches["step"] + pmn_launches["step"]
-         + pmx_launches["step"] + p19["step"], "max_abs_err": err["step"],
+         + pmx_launches["step"] + p19["step"] + p20["step"],
+         "max_abs_err": err["step"],
          "ms": timing[1_000_000][0], "plain_ms": timing[1_000_000][1],
          "bound_ms": bytes_ms(STEP_BYTES * 1_000_000), "bound_by": "bytes",
          "library_ms": None},
         {"name": "compact", "route": "cuda",
          "source": src + "raster_compact.cu",
          "replaces": "particle_sim_tpu/render/raster_compact.py:165",
-         "launches": launches["compact"], "max_abs_err": err["compact"],
+         "launches": launches["compact"] + p20["compact"],
+         "max_abs_err": err["compact"],
          "ms": cd_timing[1_000_000]["compact"][0],
          "plain_ms": cd_timing[1_000_000]["compact"][1],
          "bound_ms": cd_timing[1_000_000]["compact"][3],
@@ -3099,7 +3578,8 @@ def main() -> int:
         {"name": "deposit", "route": "cuda",
          "source": src + "raster_compact.cu",
          "replaces": "particle_sim_tpu/render/raster_compact.py:85",
-         "launches": launches["deposit"], "max_abs_err": err["deposit"],
+         "launches": launches["deposit"] + p20["deposit"],
+         "max_abs_err": err["deposit"],
          "ms": cd_timing[1_000_000]["deposit"][0],
          "plain_ms": cd_timing[1_000_000]["deposit"][1],
          "bound_ms": cd_timing[1_000_000]["deposit"][3],
@@ -3107,7 +3587,8 @@ def main() -> int:
          "library_ms": cd_timing[1_000_000]["deposit"][2]},
         {"name": "pairwise", "route": "cuda", "source": src + "pairwise.cu",
          "replaces": "particle_sim_tpu/ops/pairwise_pallas.py:54",
-         "launches": g_launches["pairwise"] + pmx_launches["pairwise"],
+         "launches": g_launches["pairwise"] + pmx_launches["pairwise"]
+         + p20["pairwise"],
          "max_abs_err": err["pairwise"],
          "ms": pw_ms, "plain_ms": pwp_ms, "bound_ms": pw_bound,
          "bound_by": "operations", "library_ms": None},
@@ -3126,7 +3607,8 @@ def main() -> int:
          "replaces": "particle_sim_tpu/ops/pm_pallas.py:247",
          "launches": sum(runs[k] for runs in (pm_launches, pmn_launches,
                                               pmx_launches, p19)
-                         for k in ("pm_deposit", "pm_deposit_mass")),
+                         for k in ("pm_deposit", "pm_deposit_mass"))
+         + p20["pm_deposit"],
          "max_abs_err": err["pm_deposit"],
          "ms": pm_timing["n=1000000"][0],
          "plain_ms": pm_timing["n=1000000"][1],
@@ -3135,7 +3617,7 @@ def main() -> int:
         {"name": "pm_gather", "route": "cuda", "source": src + "pm.cu",
          "replaces": "particle_sim_tpu/ops/pm_pallas.py:259",
          "launches": pm_launches["pm_gather"] + pmn_launches["pm_gather"]
-         + pmx_launches["pm_gather"] + p19["pm_gather"],
+         + pmx_launches["pm_gather"] + p19["pm_gather"] + p20["pm_gather"],
          "max_abs_err": err["pm_gather"],
          "ms": pm_timing["n=1000000"][4],
          "plain_ms": pm_timing["n=1000000"][5],
@@ -3193,7 +3675,7 @@ def main() -> int:
          "replaces": "particle_sim_tpu/ops/psort.py:232",
          "launches": g_launches["radix_hist"]
          + pm_runs["b"][0]["radix_hist"] + pmx_launches["radix_hist"]
-         + p19["radix_hist"],
+         + p19["radix_hist"] + p20["radix_hist"],
          "max_abs_err": err["sort"], "ms": sort_timing["16M"]["hist"],
          "plain_ms": sort_timing["16M"]["hist_plain"],
          "bound_ms": sort_timing["16M"]["hist_bound"], "bound_by": "bytes",
@@ -3203,7 +3685,7 @@ def main() -> int:
          "replaces": "particle_sim_tpu/ops/psort.py:289",
          "launches": g_launches["radix_pass"]
          + pm_runs["b"][0]["radix_pass"] + pmx_launches["radix_pass"]
-         + p19["radix_pass"],
+         + p19["radix_pass"] + p20["radix_pass"],
          "max_abs_err": err["sort"], "ms": sort_timing["16M"]["pass_"],
          "plain_ms": sort_timing["16M"]["pass_plain"],
          "bound_ms": sort_timing["16M"]["pass_bound"], "bound_by": "bytes",

@@ -6,10 +6,14 @@ Counterpart of ``particle_sim_tpu/app/cli.py``, with the same flags and
 the same stats and ``done`` JSON lines, plus ``--device {cuda,cpu}``.
 ``--pm2-size`` (one value a refinement level, outermost first) and
 ``--pmx-size`` imply ``--pm``, and so does ``--pm-persist`` (the
-persistent cell-sorted PM state, ops/pm_persist.py). The flag of the part
-not ported yet (the multi-device ``--mesh``) is accepted by the parser
-and raises ``NotImplementedError`` naming the ROADMAP.md item that ports
-it.
+persistent cell-sorted PM state, ops/pm_persist.py).
+
+``--mesh auto`` shards the particles over a torch.distributed group, one
+process a device (engine ``mesh``, parallel/): under ``torchrun`` it joins
+torchrun's group; without one, ``--device cuda`` starts one rank a
+visible GPU (torch.multiprocessing; in this process when there is one
+GPU) and ``--device cpu`` runs a world of one. Every rank steps, renders
+and checkpoints together; rank 0 alone writes the files and prints.
 
 Examples:
     python -m particle_sim_tpu_torch.app.cli --device cuda \
@@ -26,6 +30,9 @@ Examples:
         --pmx-softening 0.1
     python -m particle_sim_tpu_torch.app.cli --device cuda --count 1000000 \
         --steps 200 --pm-persist --central-mass 1000
+    torchrun --standalone --nproc_per_node 4 \
+        -m particle_sim_tpu_torch.app.cli --device cuda --mesh auto \
+        --count 16777216 --steps 100 --pm --pm-persist
 """
 
 from __future__ import annotations
@@ -54,8 +61,9 @@ def build_parser() -> argparse.ArgumentParser:
                    default="hollow")
     p.add_argument("--substeps", type=int, default=1)
     p.add_argument("--mesh", choices=["none", "auto"], default="none",
-                   help="auto: shard particles over all visible devices "
-                        "(not ported yet)")
+                   help="auto: shard the particles over the ranks of "
+                        "torchrun's group, else over every visible GPU "
+                        "(--device cuda) or a world of one (--device cpu)")
     # SimParams surface
     p.add_argument("--dt", type=float, default=0.016)
     p.add_argument("--gravity", type=float, default=0.0)
@@ -141,17 +149,57 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_not_ported(args) -> None:
-    from ..engine.engine import not_ported
-
-    if args.mesh != "none":
-        raise not_ported("mesh")
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    _refuse_not_ported(args)
+    if args.mesh == "auto" and not args.resume:
+        return _main_mesh(args, argv)
+    return _run(args)
 
+
+def _main_mesh(args, argv) -> int:
+    """--mesh auto: join or start the process group, run every rank."""
+    import torch
+    import torch.distributed as dist
+
+    from ..parallel import distributed
+
+    if not (dist.is_initialized() or distributed.launched_by_env()):
+        if args.device == "cuda" and torch.cuda.device_count() > 1:
+            import tempfile
+
+            import torch.multiprocessing as mp
+
+            n = torch.cuda.device_count()
+            argv = sys.argv[1:] if argv is None else list(argv)
+            with tempfile.TemporaryDirectory(prefix="psim_mesh_") as tmp:
+                mp.spawn(_spawned_rank, nprocs=n, join=True, args=(
+                    argv, n, "file://" + os.path.join(tmp, "store")))
+            return 0
+        owned = True
+        distributed.initialize_single(args.device)
+    else:
+        owned = not dist.is_initialized()
+        distributed.initialize(device=args.device)
+    try:
+        return _run(args, mesh=distributed.global_mesh(args.device))
+    finally:
+        if owned:
+            distributed.shutdown()
+
+
+def _spawned_rank(rank: int, argv, world: int, init_method: str) -> None:
+    """One rank of ``--mesh auto --device cuda`` without torchrun."""
+    from ..parallel import distributed
+
+    args = build_parser().parse_args(argv)
+    distributed.initialize(init_method, world, rank, device="cuda")
+    try:
+        _run(args, mesh=distributed.global_mesh("cuda"))
+    finally:
+        distributed.shutdown()
+
+
+def _run(args, mesh=None) -> int:
     import torch
 
     from ..core.params import (
@@ -171,7 +219,7 @@ def main(argv=None) -> int:
         print(f"resumed from {args.resume} at step {start_step} "
               f"({engine.particle_count} particles)", file=sys.stderr)
         ignored = [name for name, given in (
-            ("--count", args.count),
+            ("--mesh", args.mesh != "none"), ("--count", args.count),
             ("--pm", args.pm), ("--pm-persist", args.pm_persist),
             ("--pairwise", args.pairwise),
             ("--no-two-tier", args.no_two_tier),
@@ -234,7 +282,11 @@ def main(argv=None) -> int:
             # bare --pm keeps "auto": Engine.PERSIST_AUTO_MIN_N decides
             pm_persist=True if args.pm_persist else "auto",
             two_tier=not args.no_two_tier,
+            mesh=mesh,
         )
+    writer = engine.rank == 0     # on a mesh rank 0 writes and prints
+    if engine.mesh is not None and writer:
+        print(f"mesh: dp over {engine.mesh.size()} devices", file=sys.stderr)
 
     if args.central_mass > 0.0:
         # applies to fresh AND resumed runs (overrides checkpoint masses)
@@ -243,7 +295,7 @@ def main(argv=None) -> int:
         engine.set_masses(m)
 
     camera = Camera(aspect=args.width / args.height)
-    if args.render_every:
+    if args.render_every and writer:
         os.makedirs(args.render_dir, exist_ok=True)
 
     base = SimParams(
@@ -270,30 +322,35 @@ def main(argv=None) -> int:
                                       width=args.width, height=args.height,
                                       renderer=args.renderer)
             path = os.path.join(args.render_dir, f"frame_{i + 1:06d}.png")
-            write_png(path, img)
-            print(f"wrote {path}", file=sys.stderr)
+            if writer:
+                write_png(path, img)
+                print(f"wrote {path}", file=sys.stderr)
 
         if args.checkpoint_every and (i + 1) % args.checkpoint_every == 0:
             ckpt.save(args.checkpoint, engine, step_index=i + 1)
-            print(f"checkpointed -> {args.checkpoint}", file=sys.stderr)
+            if writer:
+                print(f"checkpointed -> {args.checkpoint}", file=sys.stderr)
 
         if args.stats_every and (i + 1) % args.stats_every == 0:
             line = {"step": i + 1, **engine.stats.snapshot()}
             if args.diagnostics:
                 d = engine.diagnostics(potential=(args.pairwise or args.pm))
                 if ((args.pairwise or args.pm) and d.potential is None
-                        and i + 1 <= args.stats_every):
+                        and i + 1 <= args.stats_every and writer):
                     print("note: potential unavailable (N too large for "
                           "the direct sum and no PM config: use --pm)",
                           file=sys.stderr)
                 line.update(d.as_dict())
-            print(json.dumps(line))
+            if writer:
+                print(json.dumps(line))
 
     # final sync so the last step's cost is visible
     if engine.device.type == "cuda":
         torch.cuda.synchronize(engine.device)
     wall = time.perf_counter() - t_start
     total = args.steps * engine.substeps * engine.particle_count
+    if not writer:
+        return 0
     print(json.dumps({
         "done": True, "steps": args.steps, "wall_s": round(wall, 3),
         "particle_steps_per_sec": round(total / wall, 1),

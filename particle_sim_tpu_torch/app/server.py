@@ -1,9 +1,9 @@
 """Streaming server: the engine feeding a thin interactive browser client.
 
 Counterpart of ``particle_sim_tpu/app/server.py``, with the same wire
-protocol byte for byte, so the JAX package's browser viewer
-(``particle_sim_tpu/app/viewer/``, served from its path as data) works
-against either server.
+protocol byte for byte, so the browser viewer works against either
+server: the port serves its own copy (``app/viewer/``, the same files as
+the JAX package's, byte for byte).
 
 Stdlib only: a tiny HTTP server that serves the viewer page and upgrades
 ``/ws`` to a WebSocket (RFC 6455). One sim thread steps the engine; one
@@ -87,11 +87,9 @@ HEADER_FMT = "<IIIIIffIfI"   # see the wire-protocol docstring above
 HEADER_BYTES = struct.calcsize(HEADER_FMT)  # 40
 FLAG_PAUSED = 1 << 0
 _WS_GUID = "258EAFA5-E914-47DA-95CA-C5AB0DC85B11"
-#: The browser client both servers share: the JAX package's viewer files,
-#: read from their path as data (nothing there is imported).
-VIEWER_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__)))), "particle_sim_tpu", "app", "viewer")
+#: The browser client (the port's copy of the viewer both servers share).
+VIEWER_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "viewer")
 #: Wire name of each method (the protocol's vocabulary), and back.
 WIRE_METHOD = {Method.TORCH: "jnp", Method.CUDA: "pallas"}
 METHOD_BY_NAME = {name: m for m, name in WIRE_METHOD.items()}
@@ -341,9 +339,14 @@ class StreamServer:
             levels = pm2_ops.as_levels(stack)
             if levels:
                 pm2_ops._validate_levels(new_pm, levels)
+            if eng.mesh is not None and stack is not None and not persist:
+                raise ValueError("multi-chip pm2 requires pm_persist")
             if window is not None:
                 (pm_persist.validate if persist
                  else pmx_ops._validate)(new_pm, levels, window)
+                if eng.mesh is not None and not isinstance(stack, tuple):
+                    raise ValueError("multi-chip pmx needs a MULTI-level "
+                                     "pm2 stack")
         except (TypeError, ValueError) as e:
             logger.warning("solver event rejected: %s (keeping the current "
                            "solver)", e)

@@ -43,13 +43,21 @@ Lifecycle, as there:
     get mass 1.
   * **debug_checks**: ``utils/debug.validate_state`` after every step (a
     read of four numbers, so a wait for the device each step).
+  * **mesh**: a 1-D ``dp`` DeviceMesh (parallel/mesh.py) row-shards the
+    state over the ranks of a torch.distributed group, one process a
+    device, each running this same program on its own rows (SPMD): the
+    attractor steps each shard alone (parallel/dp.py), the direct sum
+    turns a ring of position shards (parallel/ring.py), the PM solver
+    all-reduces its grid (parallel/pm_dp.py; the persistent PM,
+    parallel/pm_persist_dp.py, is the one sharded path for pm2 and pmx)
+    and the compact frame all-reduces its tile planes
+    (parallel/render_dp.py). ``state`` and ``masses`` are gathered from
+    every rank when read (all ranks read together); the frame is the
+    same on every rank.
 
 The state lives on ``device`` for the engine's life; nothing moves to
 another device behind the caller's back, and asking for ``"cuda"``
 without CUDA raises. The CUDA method steps the planes in place.
-
-Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP.md
-item that ports it: the multi-device ``mesh``.
 """
 
 from __future__ import annotations
@@ -65,7 +73,9 @@ from ..core import generate as gen
 from ..core.params import (
     Method, PairwiseParams, PMConfig, SimParams, SphereGeneration,
 )
-from ..core.state import LANE, ParticleState, capacity_rows, grow_state
+from ..core.state import (
+    LANE, SUBLANE, ParticleState, capacity_rows, grow_state,
+)
 from ..ops import (
     pairwise, pairwise_cuda, pm, pm2 as pm2_ops, pm_cuda, pm_persist as pper,
     pmx as pmx_ops, step_cuda, step_ref,
@@ -87,17 +97,6 @@ PERSIST_AUTO_MIN_N: Optional[int] = 4_194_304
 
 logger = logging.getLogger("particle_sim_tpu_torch.engine")
 
-#: Where in ROADMAP.md each feature that is not ported yet is queued.
-NOT_PORTED = {
-    "mesh": "ROADMAP.md queue 1 item 15 (parallel/)",
-}
-
-
-def not_ported(feature: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{feature} is not ported to particle_sim_tpu_torch yet: "
-        f"{NOT_PORTED[feature]}")
-
 
 def available_methods(device="cuda") -> list:
     """Methods that can run on ``device``: TORCH always, CUDA when the
@@ -118,6 +117,25 @@ def _resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def _collectives(mesh, device: torch.device):
+    """The ``dp`` collectives of ``mesh`` (parallel/mesh.py), after
+    checking that it is a 1-D ``dp`` DeviceMesh of ``device``'s type."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from ..parallel.mesh import DP_AXIS, Collectives
+
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a torch.distributed DeviceMesh "
+                        f"(parallel.mesh.make_mesh), got {type(mesh)}")
+    if mesh.ndim != 1 or mesh.mesh_dim_names != (DP_AXIS,):
+        raise ValueError(f"mesh must be 1-D with the axis {DP_AXIS!r}, got "
+                         f"{mesh.mesh_dim_names}")
+    if mesh.device_type != device.type:
+        raise ValueError(f"a {mesh.device_type} mesh cannot shard the state "
+                         f"of a {device.type} engine")
+    return Collectives(mesh)
 
 
 class Engine:
@@ -171,9 +189,19 @@ class Engine:
 
         ``interpret``: the JAX package's Pallas interpret mode. The CUDA
         kernels have none: their plain versions run on CPU tensors, so
-        True is accepted only with ``device="cpu"``."""
-        if mesh is not None:
-            raise not_ported("mesh")
+        True is accepted only with ``device="cpu"``.
+
+        ``mesh``: a 1-D ``dp`` DeviceMesh (parallel.mesh.make_mesh) over
+        an initialized torch.distributed group whose device type is
+        ``device``'s: the state is row-sharded over its ranks. The JAX
+        rules hold: pm2 on a mesh runs the persistent PM ("auto" is
+        promoted to True; an auto box, an unsupported grid or False
+        raises), pmx needs a pm2 tuple and a capacity that is a multiple
+        of 512 * n_dev. On a mesh the persistent PM runs the kernels'
+        wrappers whatever the method (their plain versions on CPU
+        tensors), as the JAX engine runs its Pallas kernels there."""
+        coll = None if mesh is None else _collectives(mesh,
+                                                      torch.device(device))
         if pm_persist not in ("auto", True, False):
             raise ValueError(f"pm_persist must be 'auto', True or False, "
                              f"got {pm_persist!r}")
@@ -192,6 +220,10 @@ class Engine:
         if substeps < 1:
             raise ValueError(f"substeps must be >= 1, got {substeps}")
         self.device = _resolve_device(device)
+        self.mesh = mesh
+        self._coll = coll
+        self._n_dev = 1 if mesh is None else coll.size
+        self._mesh_fns: dict = {}      # parallel/ step functions, by config
         avail = available_methods(self.device)
         if method is None:
             method = avail[-1]
@@ -212,6 +244,15 @@ class Engine:
             raise ValueError("pm2 requires a coarse PMConfig (pm=...)")
         if pmx is not None and pm is None:
             raise ValueError("pmx requires the PM solver (pm=...)")
+        if (mesh is not None and pm_persist == "auto"
+                and pm2_ops.as_levels(tuple(pm2) if isinstance(pm2, list)
+                                      else pm2)):
+            # pm2 is sharded only on the persistent path
+            if pm.auto_box or pm.grid not in pper.SUPPORTED_GRIDS:
+                raise ValueError(
+                    "multi-chip pm2 rides the persistent path, which needs a "
+                    f"static box and a grid in {pper.SUPPORTED_GRIDS}")
+            pm_persist = True
         if (pm_persist == "auto" and (pmx is not None or (
                 isinstance(pm2, (tuple, list)) and len(pm2) > 1))):
             pm_persist = False    # auto keeps the per-frame pmn / pmx
@@ -239,11 +280,48 @@ class Engine:
             self.set_masses(masses)
 
     # -- construction helpers -------------------------------------------------
+    @property
+    def _row_multiple(self) -> int:
+        return SUBLANE * self._n_dev
+
     def _generate_state(self, count: int,
                         capacity: Optional[int] = None) -> ParticleState:
+        """A fresh state at ``count``; on a mesh the global state on the
+        host (every rank makes the same), which the ``state`` setter
+        shards."""
         pos, vel, col = gen.generate(count, self.generation_mode)
-        return ParticleState.from_arrays(pos, vel, col, device=self.device,
-                                         capacity=capacity)
+        return ParticleState.from_arrays(
+            pos, vel, col,
+            device=self.device if self._coll is None else "cpu",
+            capacity=capacity, row_multiple=self._row_multiple)
+
+    def _shard(self, value: ParticleState) -> ParticleState:
+        """This rank's rows of a global identity-order state, on the
+        engine's device."""
+        from ..parallel.mesh import shard_state_planes
+
+        if value.rows % self._n_dev:
+            raise ValueError(f"{value.rows} rows do not split over "
+                             f"{self._n_dev} devices")
+        pos, vel, col = (p.to(self.device) for p in shard_state_planes(
+            self.mesh, value.pos, value.vel, value.init_color))
+        return ParticleState(pos=pos, vel=vel, init_color=col,
+                             n_active=value.n_active.to(self.device))
+
+    def _gather(self, local: ParticleState) -> ParticleState:
+        """The global identity-order state from every rank's rows (an
+        all_gather a plane)."""
+        g = self._coll.all_gather
+        return ParticleState(pos=g(local.pos, 1), vel=g(local.vel, 1),
+                             init_color=g(local.init_color, 1),
+                             n_active=local.n_active)
+
+    def _mesh_fn(self, key: tuple, make):
+        """A parallel/ step function, made once a configuration."""
+        fn = self._mesh_fns.get(key)
+        if fn is None:
+            fn = self._mesh_fns[key] = make()
+        return fn
 
     def _param_vec(self, params: Union[SimParams, np.ndarray]) -> torch.Tensor:
         pv = np.asarray(params.pack() if isinstance(params, SimParams)
@@ -256,14 +334,20 @@ class Engine:
     def state(self) -> ParticleState:
         """The identity-order state planes. After persistent steps they
         are rebuilt from the sorted mirror on this read (paid per consumed
-        frame, never per simulated one)."""
+        frame, never per simulated one). On a mesh: the global state,
+        gathered from every rank on this read (every rank reads)."""
         self.ensure_identity_order()
-        return self._state
+        if self._coll is None:
+            return self._state
+        return self._gather(self._state)
 
     @state.setter
     def state(self, value: ParticleState) -> None:
         # assigned planes supersede the sorted mirror; the count is read
-        # here once, so that steps never read it back
+        # here once, so that steps never read it back. On a mesh the value
+        # is the global state: this rank keeps its rows
+        if self._coll is not None:
+            value = self._shard(value)
         self._state = value
         self._count = int(value.n_active)
         self._drop_persist()
@@ -274,13 +358,23 @@ class Engine:
 
     @property
     def capacity(self) -> int:
-        return self._state.capacity
+        return self._state.capacity * self._n_dev
+
+    @property
+    def rank(self) -> int:
+        """This process's rank in the mesh (0 without one): the one that
+        writes files and prints."""
+        return 0 if self._coll is None else self._coll.rank
 
     # -- masses -----------------------------------------------------------------
     @property
     def masses(self) -> Optional[torch.Tensor]:
-        """f32[capacity] source masses on the device, or None (unit)."""
-        return self._masses
+        """f32[capacity] source masses on the device, or None (unit); on a
+        mesh gathered from every rank on this read."""
+        m = self._masses_for_capacity()
+        if m is None or self._coll is None:
+            return m
+        return self._coll.all_gather(m)
 
     def set_masses(self, masses) -> None:
         """Set per-particle source masses (length = particle_count)."""
@@ -292,13 +386,24 @@ class Engine:
                 f"masses length {m.shape[0]} != count {self.particle_count}")
         buf = np.ones((self.capacity,), np.float32)
         buf[: m.shape[0]] = m
-        self._masses = torch.from_numpy(buf).to(self.device)
+        self._place_masses(buf)
+
+    def _place_masses(self, buf: np.ndarray) -> None:
+        """Keep the global f32[capacity] ``buf`` (this rank's rows of it on
+        a mesh) on the device."""
+        t = torch.from_numpy(buf)
+        if self._coll is not None:
+            from ..parallel.mesh import shard_rows
+
+            t = shard_rows(self.mesh, t, 0)
+        self._masses = t.to(self.device)
 
     def _masses_for_capacity(self) -> Optional[torch.Tensor]:
-        """Masses padded (with 1) or cut to the CURRENT capacity."""
+        """Masses padded (with 1) or cut to the CURRENT capacity (this
+        rank's rows on a mesh)."""
         if self._masses is None:
             return None
-        cap, cur = self.capacity, self._masses.shape[0]
+        cap, cur = self._state.capacity, self._masses.shape[0]
         if cur > cap:
             self._masses = self._masses[:cap].contiguous()
         elif cur < cap:
@@ -331,7 +436,9 @@ class Engine:
         self.ensure_identity_order()
         self._persist = None
         st = self._state
-        if self.pm is not None:
+        if self._coll is not None:
+            self._step_mesh(pv)
+        elif self.pm is not None:
             self._step_pm(pv)
         elif self.pairwise is not None:
             pp = self._param_vec(self.pairwise.pack())   # (G, softening)
@@ -391,6 +498,51 @@ class Engine:
                                     init_color=st.init_color,
                                     n_active=st.n_active)
 
+    def _step_mesh(self, pv: torch.Tensor) -> None:
+        """``substeps`` steps of this rank's shard: the PM grid all-reduce
+        (parallel/pm_dp.py), the ring of the direct sum
+        (parallel/ring.py) or the attractor alone (parallel/dp.py); the
+        kernels on Method.CUDA (in place), the plain versions on
+        Method.TORCH."""
+        from ..parallel import dp, pm_dp, ring
+
+        st = self._state
+        fast = self.method == Method.CUDA
+        masses = self._masses_for_capacity()
+        extra = () if masses is None else (masses,)
+        pos, vel = st.pos, st.vel
+        if self.pm is not None:
+            if self.pm2 is not None or self.pmx is not None:
+                raise ValueError(
+                    "on a mesh pm2 and pmx run on the persistent PM only "
+                    "(pm_persist=True with a static box and a grid in "
+                    f"{pper.SUPPORTED_GRIDS})")
+            fn = self._mesh_fn(
+                ("pm", self.pm, fast, bool(extra)),
+                lambda: pm_dp.make_pm_step(self.mesh, self.pm,
+                                           use_kernels=fast,
+                                           with_masses=bool(extra)))
+            pp = self._pair_vec()
+            for _ in range(self.substeps):
+                pos, vel = fn(pos, vel, pv, pp, st.n_active, *extra)
+        elif self.pairwise is not None:
+            fn = self._mesh_fn(
+                ("ring", fast, bool(extra)),
+                lambda: ring.make_ring_pairwise_step(
+                    self.mesh, use_kernels=fast, with_masses=bool(extra)))
+            pp = self._param_vec(self.pairwise.pack())
+            for _ in range(self.substeps):
+                pos, vel = fn(pos, vel, pv, pp, st.n_active, *extra)
+        else:
+            fn = self._mesh_fn(
+                ("dp", fast, self.substeps),
+                lambda: dp.make_sharded_step(self.mesh, use_kernels=fast,
+                                             substeps=self.substeps))
+            pos, vel = fn(pos, vel, pv)
+        self._state = ParticleState(pos=pos, vel=vel,
+                                    init_color=st.init_color,
+                                    n_active=st.n_active)
+
     def _pair_vec(self) -> torch.Tensor:
         """(G, softening) on the device; the PM softening comes from the
         config, G from ``pairwise`` (1 when unset)."""
@@ -423,39 +575,57 @@ class Engine:
         their class order). A repair fires when the RepairTrigger
         reads a disorder verdict from an earlier frame; a verdict is
         queued after every pper.CHECK_EVERY-th frame while none is in
-        flight. Nothing here waits for the device."""
+        flight. Nothing here waits for the device. On a mesh each rank
+        keeps the mirror of its rows (parallel/pm_persist_dp.py) and
+        repairs it alone."""
         cfg, st = self.pm, self._state
         n_active = st.n_active
         levels = pm2_ops.as_levels(self.pm2)
-        fast = self.method == Method.CUDA
+        fast = self.method == Method.CUDA or self._coll is not None
+        if self._coll is not None:
+            from ..parallel import pm_persist_dp
+
+            init, step = self._mesh_fn(
+                ("persist", cfg, self.pm2, self.pmx),
+                lambda: (pm_persist_dp.make_persist_init(
+                    self.mesh, cfg, cfg2=self.pm2),
+                    pm_persist_dp.make_persist_pm_step(
+                        self.mesh, cfg, cfg2=self.pm2, cfgx=self.pmx)))
+        else:
+            def step(st_, pv_, pp_, na_, repair):
+                return pper.step_sorted(st_, pv_, pp_, na_, cfg,
+                                        cfg2=self.pm2, cfgx=self.pmx,
+                                        repair=repair, use_fast=fast)
         if self._persist is None:
             kw = dict(vel_flat=st.vel.reshape(3, -1),
                       masses=self._masses_for_capacity(),
-                      col24=raster.pack_col24(st.init_color.reshape(3, -1)),
-                      use_kernels=fast)
-            if isinstance(self.pm2, tuple):
+                      col24=raster.pack_col24(st.init_color.reshape(3, -1)))
+            if self._coll is not None:
+                self._persist = init(st.pos.reshape(3, -1), n_active=n_active,
+                                     **kw)
+            elif isinstance(self.pm2, tuple):
                 self._persist = pper.init_sorted_multi(
-                    st.pos.reshape(3, -1), n_active, cfg, self.pm2, **kw)
+                    st.pos.reshape(3, -1), n_active, cfg, self.pm2,
+                    use_kernels=fast, **kw)
             else:
                 self._persist = pper.init_sorted(
                     st.pos.reshape(3, -1), n_active, cfg, cfg2=self.pm2,
-                    **kw)
+                    use_kernels=fast, **kw)
             self._trigger = pper.RepairTrigger(self.device)
             repair = False
         else:
             repair = self._trigger.due()
         pp = self._pair_vec()
         for _ in range(self.substeps):
-            out = pper.step_sorted(self._persist, pv, pp, n_active, cfg,
-                                   cfg2=self.pm2, cfgx=self.pmx,
-                                   repair=repair, use_fast=fast)
+            out = step(self._persist, pv, pp, n_active, repair)
             repair = False
-            if self.pmx is not None:
-                self._persist, n_m = out
-                self._pmx_members = (n_m, torch.clamp_max(
-                    n_m, self.pmx.capacity))
-            else:
+            if self.pmx is None:
                 self._persist = out
+                continue
+            self._persist, n_m = out
+            # on a mesh the (members, corrected) pair over all ranks
+            self._pmx_members = ((n_m, torch.clamp_max(n_m, self.pmx.capacity))
+                                 if self._coll is None else tuple(n_m))
         self._identity_dirty = True
         if self._frame_index % pper.CHECK_EVERY == 0:
             st = self._persist
@@ -467,9 +637,13 @@ class Engine:
         (pm_persist.unsort); a no-op when they are current."""
         if not self._identity_dirty:
             return
-        st = self._state
-        pos, vel = pper.unsort(self._persist,
-                               (self._persist.pos, self._persist.vel))
+        st, p = self._state, self._persist
+        if self._coll is not None:
+            from ..parallel.pm_persist_dp import identity_order
+
+            pos, vel = identity_order(self.mesh, p, (p.pos, p.vel))
+        else:
+            pos, vel = pper.unsort(p, (p.pos, p.vel))
         self._state = ParticleState(pos=pos.view(st.pos.shape),
                                     vel=vel.view(st.vel.shape),
                                     init_color=st.init_color,
@@ -532,36 +706,65 @@ class Engine:
 
     def resize(self, new_count: int,
                generation_mode: Optional[SphereGeneration] = None) -> None:
-        """Grow appends preserving state; shrink keeps capacity."""
+        """Grow appends preserving state; shrink keeps capacity. On a mesh
+        a grow or a regeneration rebuilds the sharded state through the
+        host (the rows of every rank move with the capacity)."""
         new_count = max(int(new_count), 1)
         self.ensure_identity_order()   # grow and shrink read the planes
         self._drop_persist()           # capacity or count change: re-init
+        old_count = self.particle_count
+        # on a mesh the masses are re-placed with the rows (below)
+        m_host = (self.masses.cpu().numpy()
+                  if self._coll is not None and self._masses is not None
+                  else None)
         if (generation_mode is not None
                 and generation_mode != self.generation_mode):
             # a generation-mode change regenerates everything
             self.generation_mode = generation_mode
-            cap = max(self.capacity, capacity_rows(new_count) * LANE)
+            cap = max(self.capacity,
+                      capacity_rows(new_count, self._row_multiple) * LANE)
             self.state = self._generate_state(new_count, capacity=cap)
+        elif new_count == old_count:
             return
-        old_count = self.particle_count
-        if new_count == old_count:
-            return
-        st = self.state
-        if new_count <= self.capacity and new_count <= old_count:
+        elif new_count <= self.capacity and new_count <= old_count:
             # shrink: keep the buffers, adjust the count
-            self.state = ParticleState(
-                pos=st.pos, vel=st.vel, init_color=st.init_color,
-                n_active=torch.tensor(new_count, dtype=torch.int32,
-                                      device=self.device))
+            n = torch.tensor(new_count, dtype=torch.int32,
+                             device=self.device)
+            self._set_count(n)
             return
-        # grow: only the newly generated tail crosses to the device. Grown
-        # particles get mass 1, even where a past shrink left stale masses
-        # in the kept-capacity buffer.
-        if self._masses is not None:
-            self._masses_for_capacity()[old_count:new_count] = 1.0
-        pos_a, vel_a, col_a = gen.generate(new_count - old_count,
-                                           self.generation_mode)
-        self.state = grow_state(st, pos_a, vel_a, col_a, new_count)
+        else:
+            # grow: only the newly generated tail crosses to the device
+            # (on one device). Grown particles get mass 1, even where a
+            # past shrink left stale masses in the kept-capacity buffer.
+            pos_a, vel_a, col_a = gen.generate(new_count - old_count,
+                                               self.generation_mode)
+            st = self.state
+            if self._coll is None:
+                if self._masses is not None:
+                    self._masses_for_capacity()[old_count:new_count] = 1.0
+                self.state = grow_state(st, pos_a, vel_a, col_a, new_count)
+                return
+            if m_host is not None:
+                m_host[old_count:new_count] = 1.0
+            self.state = ParticleState.from_arrays(
+                np.concatenate([st.positions(), pos_a]),
+                np.concatenate([st.velocities(), vel_a]),
+                np.concatenate([st.init_colors_rgba()[:, :3], col_a]),
+                device="cpu", row_multiple=self._row_multiple)
+        if m_host is not None:
+            buf = np.ones((self.capacity,), np.float32)
+            k = min(buf.shape[0], m_host.shape[0])
+            buf[:k] = m_host[:k]
+            self._place_masses(buf)
+
+    def _set_count(self, n_active: torch.Tensor) -> None:
+        """A new live count on the same planes (a shrink)."""
+        st = self._state
+        self._state = ParticleState(pos=st.pos, vel=st.vel,
+                                    init_color=st.init_color,
+                                    n_active=n_active)
+        self._count = int(n_active)
+        self._drop_persist()
 
     def set_method(self, method: Method) -> None:
         """Switch stepper: fresh state, count and pause flag kept."""
@@ -595,6 +798,10 @@ class Engine:
         levels = pm2_ops.as_levels(pm2)
         if levels:
             pm2_ops._validate_levels(self.pm, levels)
+            if self._coll is not None and self.pm_persist is not True:
+                raise ValueError("multi-chip pm2 requires pm_persist "
+                                 "(parallel/pm_persist_dp.py is the sharded "
+                                 "refinement path)")
         if self.pmx is not None:
             self._validate_pmx(levels, self.pmx)
         if pm2 == self.pm2:
@@ -621,7 +828,17 @@ class Engine:
 
     def _validate_pmx(self, levels, pmx) -> None:
         """pmx's rules, and with pm_persist=True the persistent order's
-        (pm_persist.validate)."""
+        (pm_persist.validate); on a mesh also the sharded window's
+        (parallel/pm_persist_dp.check_pmx)."""
+        if self._coll is not None:
+            from ..parallel.pm_persist_dp import check_pmx
+
+            if not (len(levels) > 1 and self.pm_persist is True):
+                raise ValueError(
+                    "multi-chip pmx rides the persistent MULTI-level class "
+                    "order: pass a tuple pm2 (which resolves pm_persist=True "
+                    "on a mesh)")
+            check_pmx(pmx, tuple(levels), self._n_dev)
         if self.pm_persist is True:
             pper.validate(self.pm, levels, pmx)
         else:
@@ -646,10 +863,11 @@ class Engine:
         g = (self.pairwise.gravitational_constant if self.pairwise else 0.0)
         eps = (self.pm.softening if self.pm
                else self.pairwise.softening if self.pairwise else 2.0)
+        st = self.state
         return diag.measure(
-            self.state.pos, self.state.vel, self.state.n_active,
+            st.pos, st.vel, st.n_active,
             g_const=g, softening=eps, pm_cfg=self.pm, potential=potential,
-            masses=self._masses_for_capacity())
+            masses=self.masses)
 
     # -- output ---------------------------------------------------------------
     def colors_rgba(self, params: Union[SimParams, np.ndarray]) -> np.ndarray:
@@ -716,10 +934,14 @@ class Engine:
         """
         if renderer not in ("auto", "scatter", "compact", "sorted"):
             raise ValueError(f"unknown renderer {renderer!r}")
-        pos, vel, col = self._display_planes()
         pv = self._param_vec(params)
         vp = torch.from_numpy(camera.view_proj()).to(self.device,
                                                      non_blocking=True)
+        if self._coll is not None and renderer != "scatter":
+            fb = self._render_frame_dp(pv, vp, width, height)
+            if fb is not None:
+                return raster.to_rgba8(fb)
+        pos, vel, col = self._display_planes()
         eligible = (self.device.type == "cuda"
                     and width % raster_compact.TILE_W == 0
                     and height % raster_compact.TILE_H == 0
@@ -733,12 +955,37 @@ class Engine:
             fb = raster.render(*args, width=width, height=height)
         return raster.to_rgba8(fb)
 
+    def _render_frame_dp(self, pv, vp, width: int, height: int):
+        """The frame of a mesh engine (parallel/render_dp.py): each rank
+        draws its rows, one all-reduce of the tile planes. From the sorted
+        mirror after persistent steps (no identity rebuild). -> the f32
+        frame, or None when the resolution or a rank's capacity cannot
+        tile (the caller then draws the gathered state)."""
+        from ..parallel.render_dp import make_render_dp
+
+        if (width % raster_compact.TILE_W or height % raster_compact.TILE_H
+                or self._state.capacity % raster_compact.CHUNK):
+            return None
+        flat = self._identity_dirty
+        fn = self._mesh_fn(("render", width, height, flat),
+                           lambda: make_render_dp(self.mesh, width=width,
+                                                  height=height, flat=flat))
+        st = self._state
+        if flat:
+            p = self._persist
+            return fn(p.pos, p.vel, raster.unpack_col24(p.col24), pv, vp,
+                      st.n_active)
+        return fn(st.pos, st.vel, st.init_color, pv, vp, st.n_active)
+
     def _display_planes(self) -> tuple:
         """(pos, vel, init_color) planes for the renderers and the stream:
         the sorted mirror's after persistent steps (a frame does not
         depend on the order of its points; the colours of mode 0 come
         from the mirror's col24, u8 a channel), else the identity
-        planes."""
+        planes. On a mesh the gathered identity-order state."""
+        if self._coll is not None:
+            st = self.state
+            return st.pos, st.vel, st.init_color
         st = self._state
         if self._identity_dirty:
             p = self._persist

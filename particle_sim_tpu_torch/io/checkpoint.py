@@ -7,7 +7,9 @@ array, and a JSON ``meta`` with the same keys, ``pairwise`` and ``pm``
 included, and ``pm2``: one dict or a list of dicts, outermost level
 first, ``pmx`` and ``pm_persist``), so a file saved by either package
 loads in the other. The state is saved in identity order (the engine's
-``state`` rebuilds it from the persistent PM's sorted mirror).
+``state`` rebuilds it from the persistent PM's sorted mirror). A mesh
+engine's state and masses are gathered from every rank (all ranks call
+:func:`save`), and rank 0 writes the file.
 """
 
 from __future__ import annotations
@@ -57,10 +59,11 @@ def save(path: str, engine: Engine, step_index: int = 0) -> None:
         init_colors=state.init_color.reshape(3, -1)[:, :n].cpu().numpy().T,
         meta=json.dumps(meta),
     )
-    if engine.masses is not None:
-        # repadded to the current capacity: the raw buffer can be shorter
-        # than the count right after a grow
-        arrays["masses"] = engine._masses_for_capacity()[:n].cpu().numpy()
+    masses = engine.masses     # repadded to the current capacity
+    if masses is not None:
+        arrays["masses"] = masses[:n].cpu().numpy()
+    if engine.rank != 0:
+        return
     # atomic: an interruption mid-save must not truncate the previous
     # good checkpoint
     tmp = f"{path}.tmp"

@@ -98,14 +98,18 @@ def live_mask(n: int, n_active, device) -> torch.Tensor:
 
 
 def auto_box(pos_flat: torch.Tensor, n_active, grid: int,
-             pad: float = 0.05):
+             pad: float = 0.05, coll=None):
     """(box_min f32[3, 1], cell_size 0-d f32) — a cubic box tracking the
     live cloud, computed on the device (nothing is read back). Padding
-    particles are excluded from the extent."""
+    particles are excluded from the extent. ``coll``
+    (parallel.mesh.Collectives): the extent of every rank's shard (an
+    all-reduce MIN and MAX of the local ones)."""
     live = live_mask(pos_flat.shape[1], n_active, pos_flat.device)
     big = 3.0e38
     lo = torch.where(live[None], pos_flat, big).amin(1)
     hi = torch.where(live[None], pos_flat, -big).amax(1)
+    if coll is not None:
+        lo, hi = coll.min_(lo), coll.max_(hi)
     extent = (hi - lo).amax()
     size = torch.clamp_min(extent * (1.0 + 2.0 * pad), 1e-3)
     center = 0.5 * (lo + hi)
@@ -429,7 +433,7 @@ def solve_accel_pair(rho: torch.Tensor, rho2: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def momentum_clean(acc: torch.Tensor, n_active,
-                   masses=None, live=None) -> torch.Tensor:
+                   masses=None, live=None, coll=None) -> torch.Tensor:
     """Subtract the live mass-weighted mean acceleration (zero padding).
 
     The exact PM self-force sums (mass-weighted) to zero by the
@@ -437,13 +441,19 @@ def momentum_clean(acc: torch.Tensor, n_active,
     Removing the weighted mean restores conservation: net momentum change
     = sum_i m_i (a_i - mean) = 0 when mean = sum m_i a_i / sum m_i.
     ``live`` (bool[N]) overrides ``arange < n_active``: for slot orders
-    other than the identity (ops/pm_persist.py)."""
+    other than the identity (ops/pm_persist.py). ``coll``
+    (parallel.mesh.Collectives): the mean over every rank's shard (one
+    all-reduce of the three weighted sums and the weight)."""
     if live is None:
         live = live_mask(acc.shape[1], n_active, acc.device)
     live = live.to(torch.float32)
     w = live if masses is None else live * masses
-    count = torch.clamp_min(w.sum(), 1e-12)
-    mean = (acc * w[None]).sum(dim=1, keepdim=True) / count
+    s = (acc * w[None]).sum(dim=1, keepdim=True)
+    c = w.sum()
+    if coll is not None:
+        sc = coll.sum_(torch.cat([s.reshape(3), c.reshape(1)]))
+        s, c = sc[:3].reshape(3, 1), sc[3]
+    mean = s / torch.clamp_min(c, 1e-12)
     return (acc - mean) * live[None]
 
 

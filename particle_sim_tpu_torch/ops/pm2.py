@@ -87,10 +87,12 @@ def _in_window(pos_flat: torch.Tensor, wmin: torch.Tensor, size: float,
 
 
 def window_min(pos_flat: torch.Tensor, n_active, cfg2: PM2Config,
-               masses=None, live=None) -> torch.Tensor:
+               masses=None, live=None, coll=None) -> torch.Tensor:
     """f32[3] window origin on pos_flat's device: the static config value,
     or (tracked) the live mass centroid minus half the window. ``live``
-    (bool[N]) overrides ``arange < n_active``."""
+    (bool[N]) overrides ``arange < n_active``. ``coll``
+    (parallel.mesh.Collectives): the centroid of every rank's shard (one
+    all-reduce of four numbers), so every rank agrees on the window."""
     dev = pos_flat.device
     if cfg2.window_min is not None:
         return pm_cuda.device_const(tuple(float(v) for v in cfg2.window_min),
@@ -101,7 +103,11 @@ def window_min(pos_flat: torch.Tensor, n_active, cfg2: PM2Config,
     if masses is not None:
         w = w * masses
     s = (pos_flat * w[None]).sum(dim=1)
-    c = s / torch.clamp_min(w.sum(), 1e-12)
+    tot = w.sum()
+    if coll is not None:
+        st = coll.sum_(torch.cat([s, tot.reshape(1)]))
+        s, tot = st[:3], st[3]
+    c = s / torch.clamp_min(tot, 1e-12)
     return c - 0.5 * _f32(cfg2.window_size)
 
 
@@ -158,7 +164,8 @@ def pm2_accel_ref(pos_flat: torch.Tensor, n_active, g_const,
 def fine_accel_fast(pos_flat: torch.Tensor, live: torch.Tensor, n_active,
                     cfg: "P.PMConfig", cfg2: PM2Config, *, masses=None,
                     kernels=None, wmin=None,
-                    eps_outer: Optional[float] = None) -> torch.Tensor:
+                    eps_outer: Optional[float] = None,
+                    coll=None) -> torch.Tensor:
     """f32[3, N] fine-level (difference-kernel) acceleration, already
     masked to the window-internal receivers, through the deposit and
     gather kernels, which take the particles in slot order (the JAX
@@ -166,9 +173,11 @@ def fine_accel_fast(pos_flat: torch.Tensor, live: torch.Tensor, n_active,
     bool[N] liveness; the window mask ``inner`` = in-window & live
     goes to both kernels as their ``live``: outside particles deposit
     nothing and gather exactly 0. ``n_active`` (a device tensor keeps the
-    step free of uploads) is passed through to the wrappers."""
+    step free of uploads) is passed through to the wrappers. ``coll``
+    (parallel.mesh.Collectives): the fine grid is summed over the ranks
+    (and a tracked origin is global)."""
     if wmin is None:
-        wmin = window_min(pos_flat, None, cfg2, masses, live=live)
+        wmin = window_min(pos_flat, None, cfg2, masses, live=live, coll=coll)
     g = cfg.grid
     h2 = cfg2.window_size / g
     eo = cfg.softening if eps_outer is None else eps_outer
@@ -176,6 +185,8 @@ def fine_accel_fast(pos_flat: torch.Tensor, live: torch.Tensor, n_active,
     inner = _in_window(pos_flat, wmin, cfg2.window_size, cfg2.margin) & live
     rho2 = pm_cuda.deposit(pos_flat, n_active, wmin, cell, g, periodic=False,
                            masses=masses, live=inner)
+    if coll is not None:
+        coll.sum_(rho2)
     grids2 = pm.solve_accel_diff(rho2, g, h2, cfg2.softening, eo,
                                  cfg2.gradient, kernels=kernels)
     return pm_cuda.gather(grids2, pos_flat, n_active, wmin, cell,
@@ -232,7 +243,7 @@ def clamp_nested(w: torch.Tensor, parent_w: torch.Tensor, parent,
         parent_w + _f32(parent.window_size - parent.margin - size))
 
 
-def _nested_wmins(pos_flat, live, cfg, levels, masses):
+def _nested_wmins(pos_flat, live, cfg, levels, masses, coll=None):
     """Per-level window origins, each nested inside the level above.
 
     Tracked origins follow the mass centroid of the PARENT level's members
@@ -240,12 +251,13 @@ def _nested_wmins(pos_flat, live, cfg, levels, masses):
     telescoping composition needs a pair corrected at level k to be
     corrected at level k-1). A static child under a static parent is
     validated here, in float64; under a tracked parent it is clamped like
-    a tracked one (an identity wherever it already nests)."""
+    a tracked one (an identity wherever it already nests). ``coll``: the
+    centroids over every rank's shard (window_min)."""
     wmins = []
     lv_live = live
     prev = None
     for k, c2 in enumerate(levels):
-        w = window_min(pos_flat, None, c2, masses, live=lv_live)
+        w = window_min(pos_flat, None, c2, masses, live=lv_live, coll=coll)
         if prev is not None:
             pw, pc = prev
             if c2.window_min is not None and pc.window_min is not None:
@@ -295,28 +307,32 @@ def pmn_accel_ref(pos_flat: torch.Tensor, n_active, g_const,
 
 def pmn_accel(pos_flat: torch.Tensor, n_active, g_const,
               cfg: "P.PMConfig", levels, *, masses=None,
-              kernels=None, live=None) -> torch.Tensor:
+              kernels=None, live=None, coll=None) -> torch.Tensor:
     """f32[3, N] multi-level PM acceleration on the deposit and gather
     kernels at any grid size (their plain versions on CPU tensors): the
     coarse pm_cuda.pm_accel, then one deposit + difference solve + gather
     a level (fine_accel_fast), then momentum_clean. Needs a static coarse
-    box. ``live`` (bool[N]) overrides ``arange < n_active``."""
+    box. ``live`` (bool[N]) overrides ``arange < n_active``. ``coll``
+    (parallel.mesh.Collectives): ``pos_flat`` is this rank's shard; every
+    grid is summed over the ranks, the origins and the momentum clean are
+    global."""
     if cfg.auto_box:
         raise ValueError("multi-level PM needs a static coarse box")
     levels = _validate_levels(cfg, levels)
     if live is None:
         live = pm.live_mask(pos_flat.shape[1], n_active, pos_flat.device)
     acc = pm_cuda.pm_accel(pos_flat, n_active, 1.0, cfg, masses=masses,
-                           live=live)
-    wmins = _nested_wmins(pos_flat, live, cfg, levels, masses)
+                           live=live, coll=coll)
+    wmins = _nested_wmins(pos_flat, live, cfg, levels, masses, coll=coll)
     eps_outer = cfg.softening
     for k, (c2, w) in enumerate(zip(levels, wmins)):
         ker = None if kernels is None else kernels[k]
         acc = acc + fine_accel_fast(pos_flat, live, n_active, cfg, c2,
                                     masses=masses, kernels=ker, wmin=w,
-                                    eps_outer=eps_outer)
+                                    eps_outer=eps_outer, coll=coll)
         eps_outer = float(c2.softening)
-    return g_const * pm.momentum_clean(acc, n_active, masses, live=live)
+    return g_const * pm.momentum_clean(acc, n_active, masses, live=live,
+                                       coll=coll)
 
 
 def step_pmn(pos: torch.Tensor, vel: torch.Tensor, param_vec: torch.Tensor,

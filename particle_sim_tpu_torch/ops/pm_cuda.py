@@ -235,7 +235,8 @@ def gather(grids: torch.Tensor, pos: torch.Tensor, n_active, box_min, cell,
 
 # -- the pipeline --------------------------------------------------------------------
 def pm_accel(pos_flat: torch.Tensor, n_active, g_const, cfg: "P.PMConfig",
-             *, masses=None, live=None) -> torch.Tensor:
+             *, masses=None, live=None, coll=None,
+             plain: bool = False) -> torch.Tensor:
     """f32[3, N] PM acceleration through the deposit and gather kernels
     (the plain versions on CPU tensors), at any grid size. ``cfg.auto_box``
     solves in cell units inside a box
@@ -243,29 +244,41 @@ def pm_accel(pos_flat: torch.Tensor, n_active, g_const, cfg: "P.PMConfig",
     pm.pm_accel_ref does. ``masses`` f32[N] weights the deposit (the
     sources); the gather gives an acceleration field. ``live`` (bool[N],
     static box only) overrides ``arange < n_active``, as in
-    :func:`deposit`."""
+    :func:`deposit`.
+
+    ``coll`` (parallel.mesh.Collectives): ``pos_flat`` is this rank's
+    shard (``n_active`` its local live count); the mass grid is summed
+    over the ranks (the one large collective), the solve runs on every
+    rank, the gather stays local, and the auto box and the momentum
+    clean are global. ``plain``: the kernels' plain versions on any
+    device."""
+    dep, gat = (deposit_plain, gather_plain) if plain else (deposit, gather)
     if cfg.auto_box:
         if live is not None:
             raise ValueError("a live mask needs a static box")
         # coords clamp into the traced box in either boundary mode, as in
         # pm.pm_accel_ref: the upper corner never needs the wrap
-        box_min, cell = pm.auto_box(pos_flat, n_active, cfg.grid)
-        rho = deposit(pos_flat, n_active, box_min, cell, cfg.grid,
-                      periodic=False, masses=masses)
+        box_min, cell = pm.auto_box(pos_flat, n_active, cfg.grid, coll=coll)
+        rho = dep(pos_flat, n_active, box_min, cell, cfg.grid,
+                  periodic=False, masses=masses)
+        if coll is not None:
+            coll.sum_(rho)
         grids = pm.solve_accel(rho, cfg, cfg.softening, cell_size=1.0)
-        acc = gather(grids, pos_flat, n_active, box_min, cell,
-                     periodic=False)
-        acc = pm.momentum_clean(acc, n_active, masses)
+        acc = gat(grids, pos_flat, n_active, box_min, cell, periodic=False)
+        acc = pm.momentum_clean(acc, n_active, masses, coll=coll)
         return (g_const / (cell * cell)) * acc
     periodic = cfg.boundary == "periodic"
     box_min, cell = static_box(tuple(cfg.box_min), float(cfg.cell_size),
                                pos_flat.device)
-    rho = deposit(pos_flat, n_active, box_min, cell, cfg.grid,
-                  periodic=periodic, masses=masses, live=live)
+    rho = dep(pos_flat, n_active, box_min, cell, cfg.grid,
+              periodic=periodic, masses=masses, live=live)
+    if coll is not None:
+        coll.sum_(rho)
     grids = pm.solve_accel(rho, cfg, cfg.softening)
-    acc = gather(grids, pos_flat, n_active, box_min, cell, periodic=periodic,
-                 live=live)
-    return g_const * pm.momentum_clean(acc, n_active, masses, live=live)
+    acc = gat(grids, pos_flat, n_active, box_min, cell, periodic=periodic,
+              live=live)
+    return g_const * pm.momentum_clean(acc, n_active, masses, live=live,
+                                       coll=coll)
 
 
 def kick_and_step(pos: torch.Tensor, vel: torch.Tensor, acc: torch.Tensor,

@@ -205,11 +205,11 @@ def _resort(st: SortedPMState, n_active, cfg: "P.PMConfig",
     return st2._replace(fine_b=fine_b.reshape(st.fine_b.shape))
 
 
-def _fresh(pos_flat, cfg, fine_shape, vel_flat, masses, col24):
+def _fresh(pos_flat, cfg, fine_shape, vel_flat, masses, col24, id_base):
     n = pos_flat.shape[1]
     _check_config(cfg, n)
     dev = pos_flat.device
-    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    ids = torch.arange(id_base, id_base + n, dtype=torch.int32, device=dev)
     vel_flat = torch.zeros_like(pos_flat) if vel_flat is None else vel_flat
     fine_b = torch.full(fine_shape, n, dtype=torch.int32, device=dev)
     return SortedPMState(pos_flat, vel_flat, ids, masses, 0, fine_b, col24)
@@ -217,26 +217,30 @@ def _fresh(pos_flat, cfg, fine_shape, vel_flat, masses, col24):
 
 def init_sorted(pos_flat: torch.Tensor, n_active, cfg: "P.PMConfig",
                 vel_flat=None, masses=None, col24=None, *, cfg2=None,
-                use_kernels: bool = True) -> SortedPMState:
+                use_kernels: bool = True, id_base: int = 0) -> SortedPMState:
     """A fresh SortedPMState: (pos, vel, identity[, masses][, col24])
     sorted by coarse cell, or with one refinement level ``cfg2`` into its
     class order (``fine_b`` its class boundary; N without ``cfg2``).
-    Slots at and past ``n_active`` are dead: they sort to the tail.
-    Raises for an ``auto_box`` config, a capacity not a multiple of 512
-    and a grid outside SUPPORTED_GRIDS."""
-    st = _fresh(pos_flat, cfg, (), vel_flat, masses, col24)
+    Slots whose identity is at or past ``n_active`` are dead: they sort
+    to the tail. ``id_base``: the identity of the first particle (a
+    rank's shard of the mesh holds ids id_base + arange(N)). Raises for
+    an ``auto_box`` config, a capacity not a multiple of 512 and a grid
+    outside SUPPORTED_GRIDS."""
+    st = _fresh(pos_flat, cfg, (), vel_flat, masses, col24, id_base)
     return _resort(st, n_active, cfg, pm2.as_levels(cfg2), use_kernels)
 
 
 def init_sorted_multi(pos_flat: torch.Tensor, n_active, cfg: "P.PMConfig",
                       levels, vel_flat=None, masses=None, col24=None, *,
-                      use_kernels: bool = True) -> SortedPMState:
+                      use_kernels: bool = True,
+                      id_base: int = 0) -> SortedPMState:
     """init_sorted for a tuple of refinement levels (outermost first):
     the k+1-class order, ``fine_b`` int32[k] its class boundaries. (The
     JAX package takes the level count, sorts by coarse cell and repairs
     into the class order on the first frame.)"""
     levels = pm2._validate_levels(cfg, levels)
-    st = _fresh(pos_flat, cfg, (len(levels),), vel_flat, masses, col24)
+    st = _fresh(pos_flat, cfg, (len(levels),), vel_flat, masses, col24,
+                id_base)
     return _resort(st, n_active, cfg, levels, use_kernels)
 
 
@@ -350,10 +354,17 @@ def accel_sorted_ref(st: SortedPMState, g_const, cfg: "P.PMConfig", *,
     return acc if cfgx is None else (acc, n_m)
 
 
-def _accel(st, g_const, cfg, levels, cfgx, n_active, repair, use_fast):
+def _accel(st, g_const, cfg, levels, cfgx, n_active, repair, use_fast,
+           coll=None):
     n = st.pos.shape[1]
     _check_config(cfg, n)
+    if coll is not None and not use_fast:
+        raise ValueError("the sharded persistent PM runs the kernels' "
+                         "wrappers (use_fast=True)")
     n_active = n if n_active is None else n_active
+    # the verdict and the repair are this rank's alone (keys from its own
+    # window origins): they call no collective, so the ranks' collectives
+    # stay in step whichever of them repair
     if repair is None:
         repair = bool(needs_repair(st, n_active, cfg, levels))
     if repair:
@@ -365,18 +376,19 @@ def _accel(st, g_const, cfg, levels, cfgx, n_active, repair, use_fast):
     live = st.ids < n_active
     if cfgx is not None:
         acc, n_m = pmx.pmx_accel(st.pos, n_active, g_const, cfg, levels,
-                                 cfgx, masses=st.masses, live=live)
+                                 cfgx, masses=st.masses, live=live,
+                                 coll=coll)
         return st, acc, n_m
     if levels:
         return st, pm2.pmn_accel(st.pos, n_active, g_const, cfg, levels,
-                                 masses=st.masses, live=live)
+                                 masses=st.masses, live=live, coll=coll)
     return st, pm_cuda.pm_accel(st.pos, n_active, g_const, cfg,
-                                masses=st.masses, live=live)
+                                masses=st.masses, live=live, coll=coll)
 
 
 def accel_sorted(st: SortedPMState, g_const, cfg: "P.PMConfig", *,
                  n_active=None, cfg2=None, repair: Optional[bool] = None,
-                 use_fast: bool = True
+                 use_fast: bool = True, coll=None
                  ) -> Tuple[SortedPMState, torch.Tensor]:
     """(state', acc f32[3, N]): the PM acceleration in the slot order of
     state' (``st`` re-sorted first when a repair fires, else ``st``).
@@ -386,48 +398,57 @@ def accel_sorted(st: SortedPMState, g_const, cfg: "P.PMConfig", *,
     None decides from the disorder, reading one device scalar.
     ``use_fast``: the kernels' wrappers (their plain versions on CPU
     tensors) and the radix sort; else the plain path
-    (:func:`accel_sorted_ref`, radix_sort_ref)."""
+    (:func:`accel_sorted_ref`, radix_sort_ref). ``coll``
+    (parallel.mesh.Collectives, with ``use_fast``): ``st`` is this rank's
+    shard (global ``ids``, global ``n_active``); the grids, origins and
+    the momentum clean are global, the repair this rank's own."""
     levels = pm2.as_levels(cfg2)
-    return _accel(st, g_const, cfg, levels, None, n_active, repair, use_fast)
+    return _accel(st, g_const, cfg, levels, None, n_active, repair, use_fast,
+                  coll)
 
 
 def accel_sorted_multi(st: SortedPMState, g_const, cfg: "P.PMConfig",
                        levels, *, n_active=None, cfgx=None,
-                       repair: Optional[bool] = None, use_fast: bool = True):
+                       repair: Optional[bool] = None, use_fast: bool = True,
+                       coll=None):
     """(state', acc) with a tuple of refinement levels (outermost first)
     on the k+1-class order; ``st.fine_b`` must be int32[k]
     (:func:`init_sorted_multi`). ``cfgx`` (a pmx.PMXConfig) adds the
     window-exact correction, ops/pmx.py unchanged on the sorted planes,
-    and a third output: its member count (a device int32). Other
-    arguments as in :func:`accel_sorted`."""
+    and a third output: its member count (a device int32; with ``coll``
+    int32[2], members and corrected, pmx.exact_accel). Other arguments as
+    in :func:`accel_sorted`."""
     levels = pm2._validate_levels(cfg, levels)
     k = len(levels)
     if st.fine_b is None or st.fine_b.shape != (k,):
         raise ValueError(f"multi-level persistent mode needs fine_b "
                          f"int32[{k}] (init via init_sorted_multi)")
     validate(cfg, levels, cfgx)
-    return _accel(st, g_const, cfg, levels, cfgx, n_active, repair, use_fast)
+    return _accel(st, g_const, cfg, levels, cfgx, n_active, repair, use_fast,
+                  coll)
 
 
 def step_sorted(st: SortedPMState, param_vec: torch.Tensor,
                 pair_vec: torch.Tensor, n_active, cfg: "P.PMConfig", *,
                 cfg2=None, cfgx=None, repair: Optional[bool] = None,
-                use_fast: bool = True):
+                use_fast: bool = True, coll=None):
     """One frame on the persistent state: the PM acceleration (repairing
     first when ``repair`` says so; one level with a single ``cfg2``, the
     multi-level order with a tuple, optionally ended by ``cfgx``), then
     the kick and the attractor step in slot order: in place through
     pm_cuda.kick_and_step with ``use_fast``, else the plain
     physics.kick_and_step_planes. -> state', or (state', pmx member
-    count) with ``cfgx``."""
+    count) with ``cfgx``. ``coll``: one rank's shard of the mesh
+    (:func:`accel_sorted`)."""
     if isinstance(cfg2, tuple):
         out = accel_sorted_multi(st, pair_vec[0], cfg, cfg2,
                                  n_active=n_active, cfgx=cfgx, repair=repair,
-                                 use_fast=use_fast)
+                                 use_fast=use_fast, coll=coll)
     else:
         validate(cfg, pm2.as_levels(cfg2), cfgx)
         out = accel_sorted(st, pair_vec[0], cfg, n_active=n_active,
-                           cfg2=cfg2, repair=repair, use_fast=use_fast)
+                           cfg2=cfg2, repair=repair, use_fast=use_fast,
+                           coll=coll)
     st, acc = out[0], out[1]
     planes = (3, -1, LANE)
     pos, vel = st.pos.view(planes), st.vel.view(planes)

@@ -112,16 +112,25 @@ def members_first(member: torch.Tensor, *,
 
 def exact_accel(pos_flat: torch.Tensor, live: torch.Tensor,
                 cfgx: PMXConfig, eps_prev: float, *, masses=None,
-                wmin=None, use_kernels: bool = True
+                wmin=None, use_kernels: bool = True, coll=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(corr f32[3, N], n_members int32 0-d, on the device) — the
     compact-buffer path (module docstring). Members past the capacity get
-    no correction."""
+    no correction.
+
+    ``coll`` (parallel.mesh.Collectives; ``pos_flat`` is this rank's
+    shard): each rank puts its first capacity/n_dev members in its
+    buffer, and the buffers of all ranks are gathered (one all_gather of
+    positions and masses) as the sources of its receivers, so every
+    cross-rank pair is summed both ways with the same values. The count
+    is then int32[2]: the members and those corrected, over all ranks."""
     n = pos_flat.shape[1]
     dev = pos_flat.device
-    B = min(cfgx.capacity, n)
+    n_sh = 1 if coll is None else coll.size
+    B = min(cfgx.capacity, n * n_sh) // n_sh       # this rank's budget
     if wmin is None:
-        wmin = pm2.window_min(pos_flat, None, cfgx, masses, live=live)
+        wmin = pm2.window_min(pos_flat, None, cfgx, masses, live=live,
+                              coll=coll)
     member = _member_mask(pos_flat, wmin, cfgx, live)
     n_m = member.sum(dtype=torch.int32)
     idx_b = members_first(member, use_kernels=use_kernels)[:B].long()
@@ -131,20 +140,26 @@ def exact_accel(pos_flat: torch.Tensor, live: torch.Tensor,
     m_buf = in_budget.to(torch.float32)
     if masses is not None:
         m_buf = m_buf * masses.index_select(0, idx_b)
+    src, m_src = buf, m_buf
+    if coll is not None:
+        src = coll.all_gather(buf, dim=1)                # f32[3, B n_dev]
+        m_src = coll.all_gather(m_buf)
     accel = (pairwise_cuda.pairwise_accel if use_kernels
              else pairwise.pairwise_accel)
     # device constants: a Python number would be uploaded (and waited
     # for) on every pass
-    n_b = pm_cuda.device_const(B, dev, torch.int32)
+    n_b = pm_cuda.device_const(src.shape[1], dev, torch.int32)
     one, eps_x, eps_p = pm_cuda.device_const(
         (1.0, cfgx.softening, eps_prev), dev)
     rec = buf.T.contiguous()
-    a_x = accel(rec, buf, n_b, one, eps_x, masses=m_buf)
-    a_p = accel(rec, buf, n_b, one, eps_p, masses=m_buf)
+    a_x = accel(rec, src, n_b, one, eps_x, masses=m_src)
+    a_p = accel(rec, src, n_b, one, eps_p, masses=m_src)
     corr_buf = (a_x - a_p).T * in_budget[None]
     corr = torch.zeros((3, n), dtype=torch.float32, device=dev)
     corr.index_copy_(1, idx_b, corr_buf)
-    return corr, n_m
+    if coll is None:
+        return corr, n_m
+    return corr, coll.sum_(torch.stack([n_m, torch.clamp_max(n_m, B)]))
 
 
 def _eps_prev(cfg: "P.PMConfig", levels) -> float:
@@ -169,46 +184,57 @@ def _validate(cfg: "P.PMConfig", levels, cfgx: PMXConfig) -> None:
 
 def pmx_accel(pos_flat: torch.Tensor, n_active, g_const, cfg: "P.PMConfig",
               levels, cfgx: PMXConfig, *, masses=None, kernels=None,
-              use_fast: bool = True, live=None
+              use_fast: bool = True, live=None, coll=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(acc f32[3, N], n_members) — the full stack: coarse PM + the pm2
     refinement levels (possibly none) + the window-exact correction.
     ``levels`` is () or a tuple of PM2Config (outermost first).
     ``use_fast``: every layer on the kernels (their plain versions on CPU
     tensors); else the plain path throughout. ``live`` (bool[N], with
-    ``use_fast`` only) overrides ``arange < n_active``."""
+    ``use_fast`` only) overrides ``arange < n_active``. ``coll``
+    (parallel.mesh.Collectives, with ``use_fast``): ``pos_flat`` is this
+    rank's shard, every layer is global (pm2.pmn_accel, exact_accel), and
+    the count is exact_accel's int32[2]."""
     levels = tuple(levels) if levels else ()
     _validate(cfg, levels, cfgx)
+    if coll is not None and not use_fast:
+        raise ValueError("the sharded pmx runs the kernels' wrappers "
+                         "(use_fast=True)")
     if live is None:
         live = pm.live_mask(pos_flat.shape[1], n_active, pos_flat.device)
     if levels:
         if use_fast:
             acc = pm2.pmn_accel(pos_flat, n_active, 1.0, cfg, levels,
-                                masses=masses, kernels=kernels, live=live)
+                                masses=masses, kernels=kernels, live=live,
+                                coll=coll)
         else:
             acc = pm2.pmn_accel_ref(pos_flat, n_active, 1.0, cfg, levels,
                                     masses=masses, kernels=kernels)
-        wmins = pm2._nested_wmins(pos_flat, live, cfg, levels, masses)
+        wmins = pm2._nested_wmins(pos_flat, live, cfg, levels, masses,
+                                  coll=coll)
         # the exact window tracks the innermost mesh level's members
         lv_live = (pm2._in_window(pos_flat, wmins[-1],
                                   levels[-1].window_size,
                                   levels[-1].margin) & live)
-        wmin = pm2.window_min(pos_flat, None, cfgx, masses, live=lv_live)
+        wmin = pm2.window_min(pos_flat, None, cfgx, masses, live=lv_live,
+                              coll=coll)
         wmin = pm2.clamp_nested(wmin, wmins[-1], levels[-1],
                                 cfgx.window_size)
     else:
         if use_fast:
             acc = pm_cuda.pm_accel(pos_flat, n_active, 1.0, cfg,
-                                   masses=masses, live=live)
+                                   masses=masses, live=live, coll=coll)
         else:
             acc = pm.pm_accel_ref(pos_flat, n_active, 1.0, cfg.softening,
                                   cfg, masses=masses)
-        wmin = pm2.window_min(pos_flat, None, cfgx, masses, live=live)
+        wmin = pm2.window_min(pos_flat, None, cfgx, masses, live=live,
+                              coll=coll)
     corr, n_m = exact_accel(pos_flat, live, cfgx, _eps_prev(cfg, levels),
-                            masses=masses, wmin=wmin, use_kernels=use_fast)
+                            masses=masses, wmin=wmin, use_kernels=use_fast,
+                            coll=coll)
     acc = acc + corr
-    return g_const * pm.momentum_clean(acc, n_active, masses,
-                                       live=live), n_m
+    return g_const * pm.momentum_clean(acc, n_active, masses, live=live,
+                                       coll=coll), n_m
 
 
 def step_pmx(pos: torch.Tensor, vel: torch.Tensor, param_vec: torch.Tensor,

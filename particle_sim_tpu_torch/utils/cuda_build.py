@@ -85,28 +85,31 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
+def library_path(build_dir=None) -> Path:
+    """The library of the current sources in ``build_dir`` (default
+    BUILD_DIR)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libpsim_{h.hexdigest()[:16]}.so"
+    return Path(build_dir or BUILD_DIR) / f"libpsim_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Tuple[Path, float]:
-    """Compile the kernels unless a library of the current sources exists.
-    -> (library path, seconds spent compiling; 0.0 when it was built)."""
-    out = library_path()
+def build(build_dir=None) -> Tuple[Path, float]:
+    """Compile the kernels into ``build_dir`` (default BUILD_DIR) unless a
+    library of the current sources is there. -> (library path, seconds
+    spent compiling; 0.0 when it was built)."""
+    out = library_path(build_dir)
     if out.exists():
         return out, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     stem = f".{out.stem}.{os.getpid()}"
     tmp = out.with_name(stem + ".so")
     nvcc = _nvcc()
     t0 = time.perf_counter()
     jobs = []
     for src in sorted(CSRC.glob("*.cu")):
-        obj = BUILD_DIR / f"{stem}.{src.stem}.o"
+        obj = out.parent / f"{stem}.{src.stem}.o"
         jobs.append((src, obj, subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -141,6 +144,12 @@ def build() -> Tuple[Path, float]:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     path, _ = build()
+    return load(path)
+
+
+def load(path) -> ctypes.CDLL:
+    """A built kernel library (:func:`build`) loaded, with the argument
+    types of every exported function set."""
     lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

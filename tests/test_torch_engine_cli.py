@@ -332,7 +332,7 @@ def test_frame_arrays_match_jax(max_points):
     assert dp.device == te.device and dc.dtype == torch.uint8
 
 
-# -- what is not ported, and devices ---------------------------------------------
+# -- the mesh, and devices ----------------------------------------------------------
 @pytest.mark.parametrize("kw", [
     dict(pm=PMConfig(grid=32), pm_persist=True, mesh=object()),
     dict(pm=PMConfig(grid=32), pm2=PM2Config(None, 24.0, 0.5),
@@ -340,10 +340,10 @@ def test_frame_arrays_match_jax(max_points):
     dict(pm=PMConfig(grid=32), pmx=PMXConfig(6.0, 0.1), mesh=object()),
     dict(pm_persist=True, mesh=object()), dict(mesh=object())])
 def test_engine_not_ported_raises(kw):
-    """mesh raises, with pm_persist, pm2 and pmx too (those three are
-    ported: tests/test_torch_pm_persist.py, tests/test_torch_pm2.py,
-    tests/test_torch_pmx.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """The mesh is ported (tests/test_torch_engine_mesh.py): an object
+    that is not a torch.distributed DeviceMesh raises, whatever solver
+    comes with it."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Engine(particle_count=10, device="cpu", **kw)
 
 
@@ -428,8 +428,7 @@ def test_checkpoint_roundtrip_preserves_trajectory(tmp_path):
 
 def test_checkpoint_with_solver_not_ported(tmp_path):
     """A per-frame particle-mesh checkpoint loads, with a pm2 stack and
-    with the persistent PM state too (the mesh is the one part not
-    ported; no checkpoint holds one)."""
+    with the persistent PM state too (no checkpoint holds a mesh)."""
     from particle_sim_tpu.core.params import PMConfig as JPM
 
     path = str(tmp_path / "pm.npz")
@@ -556,13 +555,19 @@ def test_cli_pairwise_central_mass_sorted(tmp_path, capsys):
     ["--pm2-size", "24", "--pm-persist", "--mesh", "auto"],
     ["--pmx-size", "6", "--mesh", "auto"],
     ["--mesh", "auto"], ["--pm", "--mesh", "auto"]])
-def test_cli_not_ported_flags_raise(flags):
-    """--mesh raises, with --pm-persist / --pm2-size / --pmx-size too
-    (those run: tests/test_torch_engine_persist.py,
-    tests/test_torch_pm2.py, tests/test_torch_pmx.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main(["--device", "cpu", "--count", "1024", "--steps", "1",
-                  *flags])
+def test_cli_not_ported_flags_raise(flags, capsys):
+    """--mesh auto is ported: on the CPU without a group it runs a world
+    of one with every solver flag, except the exact window without a
+    multi-level stack, which a mesh refuses as the JAX engine does."""
+    argv = ["--device", "cpu", "--count", "1024", "--steps", "1",
+            "--pm-grid", "32", *flags]
+    if "--pmx-size" in flags:
+        with pytest.raises(ValueError, match="multi-chip pmx"):
+            cli.main(argv)
+    else:
+        assert cli.main(argv) == 0
+        assert "mesh: dp over 1 devices" in capsys.readouterr().err
+    assert not torch.distributed.is_initialized()
 
 
 def test_cli_cuda_never_falls_back():

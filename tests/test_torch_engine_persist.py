@@ -1,6 +1,6 @@
 """Engine(pm_persist=...) in the port against the JAX package's, on the CPU:
-the port's side of tests/test_engine_persist.py (its three mesh tests wait
-for the port of parallel/, ROADMAP.md queue 1 item 15). Outputs stay in
+the port's side of tests/test_engine_persist.py (its three mesh tests are
+in tests/test_torch_engine_mesh.py). Outputs stay in
 identity order, lifecycle changes drop the sorted mirror, the frame and
 the stream read the sorted planes without an un-sort, checkpoints cross
 between the packages, and the flags reach the CLI and the server. On the
