@@ -13,8 +13,10 @@ Phases (each prints a line; any failure raises and exits non-zero):
   1. build the CUDA kernels of particle_sim_tpu_torch/csrc/ with nvcc,
      and beside them (in parallel) the earlier designs of the two frame
      deposits, variant 0 of particle_sim_tpu_torch/tools/raster_variants.cu,
-     and of the tensor-core force, variant 0 of
-     particle_sim_tpu_torch/tools/pairwise_mxu_variants.cu
+     of the tensor-core force, variant 0 of
+     particle_sim_tpu_torch/tools/pairwise_mxu_variants.cu, and of the
+     direct force, variant 0 of
+     particle_sim_tpu_torch/tools/pairwise_variants.cu
   2. step kernel vs plain PyTorch at 1M and 16,777,216 particles, three
      parameter sets, 1 and 5 substeps (rtol = atol = 1e-6 for one step,
      1e-5 for five)
@@ -41,7 +43,14 @@ Phases (each prints a line; any failure raises and exits non-zero):
      the full square, 60,000 active with poisoned padding, a central mass
      of 1000, and Ni = 65,536 x Nj = 32,768 at j_base = 32,768; bar
      max|k - p| <= 1e-4 max|p| per component (f32 sums in another order);
-     one direct-sum step (kernel, plain kick, step kernel) vs the plain step
+     at the same bar: the difference pass (pmx's correction, eps 0.5 and
+     2.0) on the square and with the central mass; the live counts (n_i
+     50,000, n_j 40,000 on the device, NaN in the receivers, sources and
+     masses past them: the rows past n_i exactly 0), single and
+     difference; the ragged shapes 40,001 x 30,011 (both) and 1,000 x 777
+     with counts 999 / 700; two launches bit for bit (the square, the
+     difference with counts); one direct-sum step (kernel, plain kick,
+     step kernel) vs the plain step
   7. sorted-deposit kernel vs plain at 1M @ 1280x720 and 16M @ 1920x1080
      (|k - p| <= 1e-5 + 1e-4 |p| on raw tile sums); the whole frame within
      one u8 level of the plain pipeline; the golden frame through the
@@ -64,12 +73,15 @@ Phases (each prints a line; any failure raises and exits non-zero):
      then the compaction and deposit kernels vs plain (phase 3's bars) on
      the server's state, parameters and camera at its shape, 65,536 @
      1280x720 (its PM deposit and gather follow in phase 11)
- 10. times: pairwise at 65,536 and the sorted deposit at 1M and 16M (the
-     latter beside its earlier design, one block per tile, in the same
+ 10. times: pairwise at 65,536 (beside its earlier design, variant 0 of
+     tools/pairwise_variants.cu, in turns) and the sorted deposit at 1M
+     and 16M (beside its earlier design, one block per tile, in the same
      turns) beside their plain versions, library call and bound (for the
-     pairwise sum
-     the largest of its FP32 issue, flop and rsqrt bounds, beside the
-     FP32 instructions a pair in the kernel's SASS); the sorted, compact
+     pairwise sum the flops at the FP32 peak, beside the FP32 issue and
+     rsqrt bounds, the kernel's registers, blocks an SM, receivers a
+     thread, source slices and its hot loop's SASS mix a pair, the
+     difference pass's and variant 0's, and the SM clock and power while
+     it runs back to back); the sorted, compact
      and scatter frames (these include the host: the compact frame reads
      one count back per frame) and each frame's layers, among them the
      sorted frame's sort layer (rs.sort_points, through psort.sort's radix
@@ -161,9 +173,13 @@ Phases (each prints a line; any failure raises and exits non-zero):
  17. pmx (ops/pmx.py) at 1M: bench.py's pmx scene (uniform in [-45,
      45]^3, coarse eps 2, tracked window 32 at eps 0.5, capacity 65,536):
      the compaction's members equal the mask's in slot order; the
-     correction (the radix sort of (flag, idx), two pairwise passes,
-     index_copy_) against the plain path within 2e-4 max|a_x| (two
-     passes at phase 6's bar), the member counts exactly equal; the whole
+     correction (the radix sort of (flag, idx), one difference pass of
+     the pairwise kernel with the in-budget count as its live counts,
+     index_copy_) against the plain path (two plain passes) within 2e-4
+     max|a_x|, the member counts exactly equal; the difference pass timed
+     in turns with two passes of the earlier design over the whole
+     capacity, beside the plain version and the bound at the members'
+     pairs; the whole
      pmx_accel within 1e-4 max|a| + that; capacity 16,384: exactly the
      first 16,384 members by slot order corrected, everyone else 0; times
      of the layers, the compaction by the radix sort beside a prefix-sum
@@ -171,8 +187,9 @@ Phases (each prints a line; any failure raises and exits non-zero):
  18. the README's pmx command through the CLI: --count 1000000 --steps
      300 --pm --pm2-size 24 --pm2-softening 0.8 --pmx-size 6
      --pmx-softening 0.1: stats and done lines, launches 2 deposits, 2
-     gathers, 2 pairwise passes, one radix sort (a histogram and a pass
-     launch a digit) and one step a frame, a finite final state,
+     gathers, one difference pass of the pairwise kernel (none of the
+     single pass), one radix sort (a histogram and a pass launch a
+     digit) and one step a frame, a finite final state,
      momentum 0 and the centre of mass in place, the checkpoint's pm2 and
      pmx; psort.LIBRARY_CALLS unchanged through phases 17-18
  19. the persistent cell-sorted PM (ops/pm_persist.py): (1) accel_sorted
@@ -232,7 +249,8 @@ Phases (each prints a line; any failure raises and exits non-zero):
 
 The line before the last is a JSON object with one entry per kernel (the
 launches of step are phases 4, 16 (the engine), 18, 19 and 20 together;
-of pairwise phases 8, 18 and 20; of pm_deposit and pm_gather phase 12's
+of pairwise phases 8 and 20 (the ring); of pairwise_diff phases 18 and
+20 (the deep zoom); of pm_deposit and pm_gather phase 12's
 runs (a) and (b), 16, 18, 19 and 20 together; of compact and deposit
 phases 4 and 20; those of sorted_deposit phases 8 and 12 (b); of
 radix_hist and radix_pass phases 8, 12 (b), 18, 19 and 20; those of
@@ -264,6 +282,12 @@ STEP_BYTES = 48                # 6 floats read + 6 written per particle-step
 # 3 fma into the sum -> 18 flops (an fma is 2) in 12 FP32 instructions
 PAIR_FLOPS = 18
 PAIR_FP32_INSTRS = 12
+# pmx's difference pass a pair (pairwise_kernel<true>): 3 sub, r2 as 3
+# fma, rb = r2 + (eps_b^2 - eps_a^2), two rsqrt, the cubes' difference as
+# 3 mul and an fma, w = gv * that, 3 fma into the sum -> 22 flops in 15
+# FP32 instructions
+DIFF_PAIR_FLOPS = 22
+DIFF_PAIR_FP32_INSTRS = 15
 # an SM issues 128 FP32 instructions a clock (the flop peak counts each fma
 # as 2) and 16 MUFU rsqrt
 FP32_INSTRS_PER_S = FP32_FLOPS_PER_S / 2
@@ -391,6 +415,42 @@ def gpu_name_and_limit() -> str:
     return nvidia_smi("name,power.limit")
 
 
+def clocks_under_load(fn, seconds: float = 2.0) -> str:
+    """The SM clock and power draw that nvidia-smi reads (every 0.2 s)
+    while ``fn`` runs back to back on the card for ``seconds``: 'SM clock
+    MHz min / median / max, power W min / median / max (n samples)'."""
+    import threading
+
+    import torch
+
+    samples, stop = [], threading.Event()
+
+    def poll():
+        while not stop.wait(0.2):
+            clk, pw = nvidia_smi("clocks.sm,power.draw").split(",")
+            samples.append((float(clk.split()[0]), float(pw.split()[0])))
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    th = threading.Thread(target=poll)
+    th.start()
+    t_end = time.perf_counter() + seconds
+    while time.perf_counter() < t_end:
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+    stop.set()
+    th.join()
+    if not samples:
+        return "no nvidia-smi sample"
+    clks, pws = sorted(c for c, _ in samples), sorted(p for _, p in samples)
+    mid = len(samples) // 2
+    return (f"SM clock MHz {clks[0]:.0f} / {clks[mid]:.0f} / {clks[-1]:.0f}, "
+            f"power W {pws[0]:.1f} / {pws[mid]:.1f} / {pws[-1]:.1f} "
+            f"({len(samples)} samples)")
+
+
 def bytes_ms(nbytes: float) -> float:
     """The least time, in ms, to move nbytes at the card's memory rate."""
     return nbytes / HBM_BYTES_PER_S * 1e3
@@ -504,9 +564,10 @@ def sass_mix_of(body: str) -> dict:
     return {"whole": counts(insts), "loop": counts(loop), "loop_rsq": rsq}
 
 
-def mix_per_pair(mix: dict) -> str:
-    """A hot loop's mix a pair, as text: 'HMMA 0.50, MUFU 1.00, ...'."""
-    n = max(mix["loop_rsq"], 1)
+def mix_per_pair(mix: dict, rsq_per_pair: int = 1) -> str:
+    """A hot loop's mix a pair, as text: 'HMMA 0.50, MUFU 1.00, ...'
+    (``rsq_per_pair`` MUFU.RSQ a pair)."""
+    n = max(mix["loop_rsq"], 1) / rsq_per_pair
     return ", ".join(f"{k} {v / n:.2f}" for k, v in mix["loop"].items()
                      if v) + f" (hot loop: {sum(mix['loop'].values())} " \
         f"instructions, {mix['loop_rsq']} MUFU.RSQ)"
@@ -797,6 +858,7 @@ def phase19(dev, states) -> dict:
                 "1000", "--stats-every", "100", "--checkpoint-every",
                 str(steps_d), "--checkpoint", final]
         step_cuda.LAUNCHES = pairwise_cuda.LAUNCHES = 0
+        pairwise_cuda.DIFF_LAUNCHES = 0
         pm_cuda.DEPOSIT_LAUNCHES = pm_cuda.DEPOSIT_MASS_LAUNCHES = 0
         pm_cuda.GATHER_LAUNCHES = 0
         psort.RADIX_HIST_LAUNCHES = psort.RADIX_PASS_LAUNCHES = 0
@@ -809,6 +871,7 @@ def phase19(dev, states) -> dict:
                "pm_deposit_mass": pm_cuda.DEPOSIT_MASS_LAUNCHES,
                "pm_gather": pm_cuda.GATHER_LAUNCHES,
                "pairwise": pairwise_cuda.LAUNCHES,
+               "pairwise_diff": pairwise_cuda.DIFF_LAUNCHES,
                "radix_hist": psort.RADIX_HIST_LAUNCHES,
                "radix_pass": psort.RADIX_PASS_LAUNCHES,
                "step": step_cuda.LAUNCHES}
@@ -823,7 +886,7 @@ def phase19(dev, states) -> dict:
     # one sort makes the mirror; every repair is one sort more
     repairs = got["radix_hist"] - 1
     want = {"pm_deposit": 0, "pm_deposit_mass": steps_d,
-            "pm_gather": steps_d, "pairwise": 0,
+            "pm_gather": steps_d, "pairwise": 0, "pairwise_diff": 0,
             "radix_hist": repairs + 1,
             "radix_pass": psort.radix_digits() * (repairs + 1),
             "step": steps_d}
@@ -1051,6 +1114,7 @@ def phase19(dev, states) -> dict:
 
     zp = SimParams(delta_time=0.016, gravity=0.0)
     step_cuda.LAUNCHES = pairwise_cuda.LAUNCHES = 0
+    pairwise_cuda.DIFF_LAUNCHES = 0
     pm_cuda.DEPOSIT_LAUNCHES = pm_cuda.GATHER_LAUNCHES = 0
     # per step, for the persistent engine and each witness against the
     # per-frame one: max |dp| in identity order, the window origins' max
@@ -1073,7 +1137,9 @@ def phase19(dev, states) -> dict:
         members.append([e.pmx_member_count()[0] for e in engines])
     z_launch = {"pm_deposit": pm_cuda.DEPOSIT_LAUNCHES,
                 "pm_gather": pm_cuda.GATHER_LAUNCHES,
-                "pairwise": pairwise_cuda.LAUNCHES, "step": step_cuda.LAUNCHES}
+                "pairwise": pairwise_cuda.LAUNCHES,
+                "pairwise_diff": pairwise_cuda.DIFF_LAUNCHES,
+                "step": step_cuda.LAUNCHES}
     # one step from rest moves a particle by a G dt^2: the accelerations'
     # bar, plus a few f32 roundings of the positions (|p| < 64)
     bar_p = zp.delta_time ** 2 * 0.05 * bar_z + 64 * 2.0 ** -20
@@ -1090,7 +1156,8 @@ def phase19(dev, states) -> dict:
           f"four engines {z_launch}, repairs {e_p.resorts}")
     frames_z = steps_z * len(engines)
     if z_launch != {"pm_deposit": 3 * frames_z, "pm_gather": 3 * frames_z,
-                    "pairwise": 2 * frames_z, "step": frames_z}:
+                    "pairwise": 0, "pairwise_diff": frames_z,
+                    "step": frames_z}:
         fail(f"deep zoom engines: launches {z_launch}")
     if not (dz[0] <= bar_p and dw[0] <= bar_p) or not e_p.persist_resolved():
         fail(f"deep zoom: persistent / witness vs per-frame positions differ "
@@ -1186,6 +1253,7 @@ def launch_counts() -> dict:
     from particle_sim_tpu_torch.render import raster_sorted as rs
 
     return {"step": step_cuda.LAUNCHES, "pairwise": pairwise_cuda.LAUNCHES,
+            "pairwise_diff": pairwise_cuda.DIFF_LAUNCHES,
             "pm_deposit": pm_cuda.DEPOSIT_LAUNCHES
             + pm_cuda.DEPOSIT_MASS_LAUNCHES,
             "pm_gather": pm_cuda.GATHER_LAUNCHES,
@@ -1203,6 +1271,7 @@ def zero_launches() -> None:
     from particle_sim_tpu_torch.render import raster_sorted as rs
 
     step_cuda.LAUNCHES = pairwise_cuda.LAUNCHES = 0
+    pairwise_cuda.DIFF_LAUNCHES = 0
     pm_cuda.DEPOSIT_LAUNCHES = pm_cuda.DEPOSIT_MASS_LAUNCHES = 0
     pm_cuda.GATHER_LAUNCHES = 0
     psort.RADIX_HIST_LAUNCHES = psort.RADIX_PASS_LAUNCHES = 0
@@ -1432,7 +1501,8 @@ def phase20(dev, states) -> dict:
     zp = SimParams(delta_time=0.016, gravity=0.0)
     one, two, got = drive("deep zoom", zkw, zp, 1, start=zstart,
                           expect={"pm_deposit": 3, "pm_gather": 3,
-                                  "pairwise": 2, "step": 1})
+                                  "pairwise": 0, "pairwise_diff": 1,
+                                  "step": 1})
     m1, m2 = one.pmx_member_count(), two.pmx_member_count()
     sa, sb = one.state, two.state
     dpos, dvel = gap(sa.pos, sb.pos), gap(sa.vel, sb.vel)
@@ -1648,6 +1718,7 @@ def main() -> int:
     from particle_sim_tpu_torch.render import raster_sorted as rs
     from particle_sim_tpu_torch.render.camera import Camera
     from particle_sim_tpu_torch.tools import pairwise_mxu_variants as mxv
+    from particle_sim_tpu_torch.tools import pairwise_variants as pwv
     from particle_sim_tpu_torch.tools import raster_variants
     from particle_sim_tpu_torch.utils import cuda_build
 
@@ -1664,13 +1735,17 @@ def main() -> int:
     # deposit probe), built beside the package's kernels: phases 5 and 10
     # time them in turns with the package's
     # and the earlier design of the tensor-core force (variant 0 of its
-    # probe): phase 14 times it in turns with the package's
+    # probe): phase 14 times it in turns with the package's; and of the
+    # direct force (variant 0 of tools/pairwise_variants.cu): phases 10 and
+    # 17 time it in turns with the package's
     rv_jobs = raster_variants.start_builds(raster_variants.CONFIGS[:1])
     mx_jobs = mxv.start_builds(mxv.CONFIGS[:1])
+    pw_jobs = pwv.start_builds(pwv.CONFIGS[:1])
     path, secs = cuda_build.build()
     cuda_build.library()
     (rv_lib,) = raster_variants.finish_builds(rv_jobs, show_registers=False)
     ((mx_v0_lib, _),) = mxv.finish_builds(mx_jobs)
+    ((pw_v0_lib, pw_v0_path),) = pwv.finish_builds(pw_jobs)
     log = path.with_suffix(".log")
     regs = [ln.strip() for ln in log.read_text().splitlines()
             if "registers" in ln or ln.startswith("==")] if log.exists() else []
@@ -1680,6 +1755,7 @@ def main() -> int:
         print(f"  ptxas: {ln}")
 
     err = {"step": 0.0, "compact": 0.0, "deposit": 0.0, "pairwise": 0.0,
+           "pairwise_diff": 0.0,
            "sorted_deposit": 0.0, "pm_deposit": 0.0, "pm_gather": 0.0,
            "pairwise_mxu": 0.0, "hilbert_keys": 0.0, "inlier_box": 0.0,
            "sort": 0.0}
@@ -2016,6 +2092,69 @@ def main() -> int:
         rel = float(((got - want).abs().amax(0) / scale).max())
         print(f"  pairwise {label}: max |k - p| {e:.3g} "
               f"({rel:.3g} of max|p| {float(scale.max()):.4g})")
+    # the difference pass (pmx's correction, eps 0.5 and 2.0), the live
+    # counts (NaN past them in receivers, sources and masses: the rows past
+    # n_i exactly 0), the ragged shapes (Ni not a multiple of the 512
+    # receivers a block, Nj not of the 256 sources a tile); each against
+    # its plain version at the same bar
+    n_ci, n_cj = 50_000, 40_000
+    nan_i = x.T.clone()
+    nan_i[n_ci:] = float("nan")
+    nan_j = x.clone()
+    nan_j[:, n_cj:] = float("nan")
+    nan_m = torch.ones(N_GRAVITY, dtype=torch.float32, device=dev)
+    nan_m[n_cj:] = float("nan")
+    cnt = dict(n_i=pm_cuda.device_const(n_ci, dev, torch.int32),
+               n_j=pm_cuda.device_const(n_cj, dev, torch.int32))
+    fin = x.T.contiguous()
+    live_cases = [
+        ("difference 0.5 / 2.0, square", True, x.T, x, {}),
+        ("difference, central mass 1000", True, x.T, x,
+         {"masses": masses}),
+        (f"counts n_i {n_ci} n_j {n_cj}, NaN past them", False, nan_i, nan_j,
+         dict(cnt, masses=nan_m)),
+        (f"difference, counts n_i {n_ci} n_j {n_cj}, NaN past them", True,
+         nan_i, nan_j, dict(cnt, masses=nan_m)),
+        ("ragged 40001 x 30011", False, fin[:40_001], x[:, 7:30_018], {}),
+        ("difference, ragged 40001 x 30011", True, fin[:40_001],
+         x[:, 7:30_018], {}),
+        ("ragged 1000 x 777, counts 999 / 700", False, fin[:1000],
+         x[:, :777], {"n_i": 999, "n_j": 700}),
+    ]
+    for label, is_diff, xi_, xj_, kw in live_cases:
+        if is_diff:
+            got = pairwise_cuda.pairwise_accel_diff(xi_, xj_, N_GRAVITY, 1.0,
+                                                    0.5, 2.0, **kw)
+            want = pairwise.pairwise_accel_diff(xi_, xj_, N_GRAVITY, 1.0, 0.5,
+                                                2.0, **kw)
+        else:
+            got = pairwise_cuda.pairwise_accel(xi_, xj_, N_GRAVITY, 1.0, 0.5,
+                                               **kw)
+            want = pairwise.pairwise_accel(xi_, xj_, N_GRAVITY, 1.0, 0.5,
+                                           **kw)
+        torch.cuda.synchronize()
+        scale = want.abs().amax(0)
+        e = check_close(f"pairwise {label}", got, want, 0.0,
+                        1e-4 * scale[None, :])
+        key = "pairwise_diff" if is_diff else "pairwise"
+        err[key] = max(err[key], e)
+        n_live = int(kw.get("n_i", xi_.shape[0]))
+        if not bool((got[n_live:] == 0).all()):
+            fail(f"pairwise {label}: a receiver past n_i is not 0")
+        n_s = pairwise_cuda.source_slices(xi_.shape[0], xj_.shape[1],
+                                          pairwise_cuda.sm_count(0))
+        print(f"  pairwise {label}: max |k - p| {e:.3g} "
+              f"({float(((got - want).abs().amax(0) / scale).max()):.3g} of "
+              f"max|p| {float(scale.max()):.4g}), S {n_s}")
+    # the same inputs give the same bits on every launch (no atomics)
+    for label, fn in (
+            ("square", lambda: pairwise_cuda.pairwise_accel(
+                x.T, x, N_GRAVITY, 1.0, 0.5)),
+            ("difference with counts", lambda: pairwise_cuda.
+             pairwise_accel_diff(nan_i, nan_j, N_GRAVITY, 1.0, 0.5, 2.0,
+                                 masses=nan_m, **cnt))):
+        if not torch.equal(fn(), fn()):
+            fail(f"pairwise {label}: two launches differ")
     # one direct-sum step: kernel + plain kick + step kernel vs plain step
     gst = ParticleState.from_arrays(
         gpos, np.random.default_rng(1).normal(size=gpos.shape).astype(
@@ -2034,8 +2173,12 @@ def main() -> int:
     dv = 1e-4 * acc_scale * 0.016          # the accel bar times dt
     ev = check_close("step_pairwise vel", vk, vp_, 1e-5, dv)
     ep = check_close("step_pairwise pos", pk, pp_, 1e-5, dv * 0.016 + 1e-5)
-    print(f"phase 6 pairwise kernel == plain at {N_GRAVITY}: 4 cases, max "
-          f"|err| {err['pairwise']:.3g} (bar 1e-4 max|p| per component); "
+    print(f"phase 6 pairwise kernel == plain at {N_GRAVITY}: "
+          f"{4 + len(live_cases)} cases (the difference pass, live counts "
+          f"with NaN past them, ragged shapes), max |err| "
+          f"{err['pairwise']:.3g}, difference {err['pairwise_diff']:.3g} "
+          f"(bar 1e-4 max|p| per component); two launches bit for bit "
+          f"(square, difference with counts); "
           f"step_pairwise max |err| vel {ev:.3g} pos {ep:.3g} "
           f"({time.perf_counter() - t0:.1f} s)")
 
@@ -2191,7 +2334,7 @@ def main() -> int:
             server.HEADER_FMT, f[:hdr])[7] >= 7, "reflected_seq 7 (pm)")
         # a refinement level and an exact window, as the viewer's panel
         # sends them (g, softening and pmx_softening at their defaults)
-        before = (pm_cuda.DEPOSIT_LAUNCHES, pairwise_cuda.LAUNCHES,
+        before = (pm_cuda.DEPOSIT_LAUNCHES, pairwise_cuda.DIFF_LAUNCHES,
                   psort.RADIX_HIST_LAUNCHES)
         ws.send({"type": "solver", "name": "pm", "pm2_sizes": [32],
                  "pm2_softenings": [0.75], "pmx_size": 8,
@@ -2199,7 +2342,8 @@ def main() -> int:
         ws.binary_until(lambda f: struct.unpack(
             server.HEADER_FMT, f[:hdr])[7] >= 8, "reflected_seq 8 (pm2/pmx)")
         stack_launches = {"pm_deposit": pm_cuda.DEPOSIT_LAUNCHES - before[0],
-                          "pairwise": pairwise_cuda.LAUNCHES - before[1],
+                          "pairwise_diff": pairwise_cuda.DIFF_LAUNCHES
+                          - before[1],
                           "radix_hist": psort.RADIX_HIST_LAUNCHES
                           - before[2]}
         ws.close()
@@ -2250,7 +2394,7 @@ def main() -> int:
         fail(f"server: the pm2/pmx event did not take ({eng.pm2}, "
              f"{eng.pmx})")
     if not (stack_launches["pm_deposit"] >= 2
-            and stack_launches["pairwise"] >= 2
+            and stack_launches["pairwise_diff"] >= 1
             and stack_launches["radix_hist"] >= 1):
         fail(f"server: a step after the pm2/pmx event missed a kernel: "
              f"{stack_launches}")
@@ -2276,33 +2420,72 @@ def main() -> int:
     # -- phase 10: times of the gravity and sorted-frame kernels --------------------------
     clk_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     pairs = float(N_GRAVITY) * N_GRAVITY
-    # three operation bounds at the data sheet's FP32 peak; the bound is
-    # the largest (the FP32 issue: only half the instructions are fmas)
+    # the bound (operations over the FP32 peak, an fma as 2) beside the FP32 issue rate (only half the
+    # instructions are fmas: it binds first) and the rsqrt rate
     pw_flops = flops_ms(PAIR_FLOPS * pairs)
     pw_issue = PAIR_FP32_INSTRS * pairs / FP32_INSTRS_PER_S * 1e3
     pw_rsqrt = pairs / RSQRT_PER_S * 1e3
-    pw_bound = max(pw_flops, pw_issue, pw_rsqrt)
+    pw_bound = pw_flops
     pw_clock = PAIR_FP32_INSTRS * pairs / (132 * 128 * clk_mhz * 1e6) * 1e3
-    pw_sass = sass_counts(path, "pairwise_kernel")
-    sass_fp32, sass_rsq = pw_sass["fp32"], pw_sass["rsq"]
-    (pw_ms,) = median_ms(
-        [lambda: pairwise_cuda.pairwise_accel(x.T, x, N_GRAVITY, 1.0, 0.5)],
+    pw_mix = sass_mix(path, "pairwise_kernelILb0")
+    v0_mix = sass_mix(pw_v0_path, "2v015pairwise_kernel")
+    # the probe's config 0 builds csrc/pairwise.cu with the package's
+    # settings: its occupancy export reads the kernel's resources
+    pw_occ = pwv.occupancy(pw_v0_lib, "pkg")
+    pwd_occ = pwv.occupancy(pw_v0_lib, "diff")
+    if (pw_occ["receivers_per_block"], pw_occ["tile"]) != (
+            pairwise_cuda.RECEIVERS_PER_BLOCK, pairwise_cuda.SOURCE_TILE):
+        fail(f"pairwise: the wrapper's block shape "
+             f"({pairwise_cuda.RECEIVERS_PER_BLOCK}, "
+             f"{pairwise_cuda.SOURCE_TILE}) is not the kernel's {pw_occ}")
+    v0_occ = pwv.occupancy(pw_v0_lib, "v0")
+    pw_sms = pairwise_cuda.sm_count(0)
+    pw_s = pairwise_cuda.source_slices(N_GRAVITY, N_GRAVITY, pw_sms)
+    v0_in = pwv.Inputs(x.T, x, N_GRAVITY, (0.5,))
+    # the kernels line's time is the wrapper called with Python numbers,
+    # as in every earlier run; beside it, in turns, the wrapper with the
+    # count, G and eps on the device, as the engine passes them (a Python
+    # number is uploaded by a blocking copy on every call, and the host
+    # then paces the card), and variant 0 on the same device arguments
+    pw_args = (pm_cuda.device_const(N_GRAVITY, dev, torch.int32),
+               *pm_cuda.device_const((1.0, 0.5), dev))
+    pw_ms, pwd_ms, pw0_ms = median_ms(
+        [lambda: pairwise_cuda.pairwise_accel(x.T, x, N_GRAVITY, 1.0, 0.5),
+         lambda: pairwise_cuda.pairwise_accel(x.T, x, *pw_args),
+         lambda: pwv.v0_call(pw_v0_lib, v0_in)],
         reps=7, inner=5, lead_ms=5 * 4.0)
     (pwp_ms,) = median_ms(
         [lambda: pairwise.pairwise_accel(x.T, x, N_GRAVITY, 1.0, 0.5)],
         reps=3, inner=1)
-    print(f"phase 10 pairwise {N_GRAVITY}^2: kernel {pw_ms:.4f} ms "
-          f"({pairs / pw_ms * 1e3:.4g} pairs/s, {pw_bound / pw_ms:.1%} of the "
-          f"bound) | plain {pwp_ms:.3f} ms | bound {pw_bound:.4f} ms "
-          f"(largest of: {PAIR_FP32_INSTRS} FP32 instructions/pair at 128/SM/"
-          f"clock {pw_issue:.4f} ms; {PAIR_FLOPS} flops/pair at 67 TFLOP/s "
-          f"{pw_flops:.4f} ms; rsqrt at 16/SM/clock {pw_rsqrt:.4f} ms; the "
-          f"FP32 issue bound at the reported max SM clock {clk_mhz:.0f} MHz "
-          f"{pw_clock:.4f} ms; the kernel's SASS: {sass_fp32} FP32 "
-          f"instructions over {sass_rsq} MUFU.RSQ = "
-          f"{sass_fp32 / max(sass_rsq, 1):.2f} a pair) | library: none | grid "
-          f"{-(-N_GRAVITY // 256)} blocks x 8 warps = "
-          f"{-(-N_GRAVITY // 256) * 8 / 132:.1f} warps per SM of 64")
+    pw_clk = clocks_under_load(
+        lambda: pairwise_cuda.pairwise_accel(x.T, x, *pw_args))
+    print(f"phase 10 pairwise {N_GRAVITY}^2: the wrapper with Python "
+          f"numbers {pw_ms:.4f} ms ({pairs / pw_ms * 1e3:.4g} pairs/s, "
+          f"{pw_bound / pw_ms:.1%} of the bound) | in turns: the wrapper "
+          f"with device arguments {pwd_ms:.4f} ms ({pw_bound / pwd_ms:.1%} "
+          f"of the bound, {pw_issue / pwd_ms:.1%} of the FP32 issue rate) | "
+          f"the earlier design (variant 0 of tools/pairwise_variants.cu) on "
+          f"the same device arguments {pw0_ms:.4f} ms "
+          f"({pw_bound / pw0_ms:.1%}; {pw0_ms / pwd_ms:.3f}x) | "
+          f"plain {pwp_ms:.3f} ms"
+          f" | bound {pw_bound:.4f} ms ({PAIR_FLOPS} flops/pair at 67 "
+          f"TFLOP/s; beside it: {PAIR_FP32_INSTRS} FP32 instructions/pair at "
+          f"128/SM/clock {pw_issue:.4f} ms, binds first; rsqrt at 16/SM/clock"
+          f" {pw_rsqrt:.4f} ms; the issue rate at the reported max SM clock "
+          f"{clk_mhz:.0f} MHz {pw_clock:.4f} ms) | library: none | "
+          f"back to back: {pw_clk}")
+    print(f"phase 10 pairwise kernel: R {pw_occ['receivers_per_thread']} "
+          f"receivers a thread, {pw_occ['threads']} threads, "
+          f"{pw_occ['registers']} registers, {pw_occ['blocks_per_sm']} "
+          f"blocks an SM, {pw_occ['local_bytes']} B local, S {pw_s} source "
+          f"slices at {N_GRAVITY} ({pw_sms} SMs), a pair: "
+          f"{mix_per_pair(pw_mix)} | the difference pass: "
+          f"{pwd_occ['registers']} registers, "
+          f"{pwd_occ['blocks_per_sm']} blocks an SM, a pair: "
+          f"{mix_per_pair(sass_mix(path, 'pairwise_kernelILb1'), 2)} | "
+          f"variant 0: {v0_occ['registers']} registers, "
+          f"{v0_occ['blocks_per_sm']} blocks of {v0_occ['threads']} an SM, "
+          f"{-(-N_GRAVITY // 256)} blocks, a pair: {mix_per_pair(v0_mix)}")
     sd_timing = {}
     for n, (sp, w, h) in sorted_inputs.items():
         pix, live = frame_pixels(sp.key, sp.n_tiles, w)
@@ -3388,6 +3571,7 @@ def main() -> int:
     m_buf = (torch.arange(b_x, device=dev) < min(n_mem, b_x)).float()
     n_b, one, eps_x, eps_c = (pm_cuda.device_const(b_x, dev, torch.int32),
                               *pm_cuda.device_const((1.0, 0.5, 2.0), dev))
+    n_in = pm_cuda.device_const(min(n_mem, b_x), dev, torch.int32)
     a_x = pairwise_cuda.pairwise_accel(rec, buf, n_b, one, eps_x,
                                        masses=m_buf)
     a_p = pairwise_cuda.pairwise_accel(rec, buf, n_b, one, eps_c,
@@ -3398,6 +3582,7 @@ def main() -> int:
     # correction a_x - a_p is a small difference of two large sums
     sx = float(a_x.abs().max())
     e_corr = check_close("pmx correction 1M", corr_k, corr_p, 0.0, 2e-4 * sx)
+    err["pairwise_diff"] = max(err["pairwise_diff"], e_corr)
     ax_k, nx_k = pmx.pmx_accel(x_pos, x_n, 1.0, cfg_xm, (), cfgx)
     ax_p, nx_p = pmx.pmx_accel(x_pos, x_n, 1.0, cfg_xm, (), cfgx,
                                use_fast=False)
@@ -3440,6 +3625,35 @@ def main() -> int:
                        idx_k[:n_mem]):
         fail("pmx: the prefix-sum compaction differs from the sort's")
     corr_buf = (a_x - a_p).T.contiguous()
+    # the difference pass against two passes of the earlier design over
+    # the whole capacity (what pmx ran before), and the plain difference
+    d_in = pwv.Inputs(rec, buf, b_x, (0.5, 2.0), masses=m_buf)
+
+    def diff_pass():
+        return pairwise_cuda.pairwise_accel_diff(
+            rec, buf, n_b, one, eps_x, eps_c, masses=m_buf, n_i=n_in,
+            n_j=n_in)
+
+    dk_ms, d0_ms = median_ms(
+        [diff_pass, lambda: (pwv.v0_call(pw_v0_lib, d_in),
+                             pwv.v0_call(pw_v0_lib, d_in, eps_k=1))],
+        reps=7, inner=5, lead_ms=5 * 5.0)
+    (dp_ms,) = median_ms([lambda: pairwise.pairwise_accel_diff(
+        rec, buf, n_b, one, eps_x, eps_c, masses=m_buf, n_i=n_in,
+        n_j=n_in)], reps=3, inner=1)
+    mem_pairs = float(min(n_mem, b_x)) ** 2
+    d_s = pairwise_cuda.source_slices(b_x, b_x, pairwise_cuda.sm_count(0))
+    d_flops = flops_ms(DIFF_PAIR_FLOPS * mem_pairs)
+    d_issue = DIFF_PAIR_FP32_INSTRS * mem_pairs / FP32_INSTRS_PER_S * 1e3
+    d_rsqrt = 2 * mem_pairs / RSQRT_PER_S * 1e3
+    print(f"  pmx correction 1M, {min(n_mem, b_x)} in-budget members of "
+          f"{b_x}: the difference pass {dk_ms:.4f} ms | two passes of the "
+          f"earlier design over the capacity, in turns, {d0_ms:.4f} ms | "
+          f"plain {dp_ms:.3f} ms | bound at the members' pairs "
+          f"{d_flops:.4f} ms ({DIFF_PAIR_FLOPS} flops/pair at 67 TFLOP/s; "
+          f"beside it: {DIFF_PAIR_FP32_INSTRS} FP32 instructions/pair "
+          f"{d_issue:.4f} ms; 2 rsqrt/pair at 16/SM/clock {d_rsqrt:.4f} ms, "
+          f"binds first); S {d_s}")
     xp = x_pos.clone().reshape(3, -1, 128)
     xv = torch.zeros_like(xp)
     pp_x = torch.from_numpy(PairwiseParams(1.0, 2.0).pack()).to(dev)
@@ -3455,8 +3669,7 @@ def main() -> int:
             lambda: torch.sort((~member).to(torch.int32), stable=True)),
            ("buffer gather (index_select)",
             lambda: x_pos.index_select(1, idx_b)),
-           ("one pairwise pass", lambda: pairwise_cuda.pairwise_accel(
-                rec, buf, n_b, one, eps_x, masses=m_buf)),
+           ("the difference pass", diff_pass),
            ("scatter (index_copy_)", lambda: torch.zeros(
                 (3, n_x), device=dev).index_copy_(1, idx_b, corr_buf)),
            ("exact_accel", lambda: pmx.exact_accel(
@@ -3492,6 +3705,7 @@ def main() -> int:
                 "--stats-every", "100", "--checkpoint-every", str(steps_r),
                 "--checkpoint", final]
         step_cuda.LAUNCHES = pairwise_cuda.LAUNCHES = 0
+        pairwise_cuda.DIFF_LAUNCHES = 0
         pm_cuda.DEPOSIT_LAUNCHES = pm_cuda.DEPOSIT_MASS_LAUNCHES = 0
         pm_cuda.GATHER_LAUNCHES = 0
         psort.RADIX_HIST_LAUNCHES = psort.RADIX_PASS_LAUNCHES = 0
@@ -3504,6 +3718,7 @@ def main() -> int:
                         "pm_deposit_mass": pm_cuda.DEPOSIT_MASS_LAUNCHES,
                         "pm_gather": pm_cuda.GATHER_LAUNCHES,
                         "pairwise": pairwise_cuda.LAUNCHES,
+                        "pairwise_diff": pairwise_cuda.DIFF_LAUNCHES,
                         "radix_hist": psort.RADIX_HIST_LAUNCHES,
                         "radix_pass": psort.RADIX_PASS_LAUNCHES,
                         "step": step_cuda.LAUNCHES}
@@ -3520,8 +3735,8 @@ def main() -> int:
             or [ln.get("step") for ln in lines[:-1]] != [100, 200, 300]:
         fail(f"pmx cli: stats / done lines {lines}")
     want = {"pm_deposit": 2 * steps_r, "pm_deposit_mass": 0,
-            "pm_gather": 2 * steps_r, "pairwise": 2 * steps_r,
-            "radix_hist": steps_r,
+            "pm_gather": 2 * steps_r, "pairwise": 0,
+            "pairwise_diff": steps_r, "radix_hist": steps_r,
             "radix_pass": psort.radix_digits() * steps_r, "step": steps_r}
     if pmx_launches != want:
         fail(f"the pmx cli path missed a kernel: launches {pmx_launches}, "
@@ -3587,10 +3802,19 @@ def main() -> int:
          "library_ms": cd_timing[1_000_000]["deposit"][2]},
         {"name": "pairwise", "route": "cuda", "source": src + "pairwise.cu",
          "replaces": "particle_sim_tpu/ops/pairwise_pallas.py:54",
-         "launches": g_launches["pairwise"] + pmx_launches["pairwise"]
-         + p20["pairwise"],
+         "launches": g_launches["pairwise"] + p20["pairwise"],
          "max_abs_err": err["pairwise"],
          "ms": pw_ms, "plain_ms": pwp_ms, "bound_ms": pw_bound,
+         "bound_by": "operations", "library_ms": None},
+        # the same template's difference instantiation: pmx's correction,
+        # timed on phase 17's buffer (live counts on the device); bound at
+        # the members' pairs
+        {"name": "pairwise_diff", "route": "cuda",
+         "source": src + "pairwise.cu",
+         "replaces": "particle_sim_tpu/ops/pairwise_pallas.py:54",
+         "launches": pmx_launches["pairwise_diff"] + p20["pairwise_diff"],
+         "max_abs_err": err["pairwise_diff"],
+         "ms": dk_ms, "plain_ms": dp_ms, "bound_ms": d_flops,
          "bound_by": "operations", "library_ms": None},
         {"name": "sorted_deposit", "route": "cuda",
          "source": src + "raster_sorted.cu",

@@ -18,6 +18,14 @@ This is the reference the CUDA kernel (ops/pairwise_cuda.py) is held to.
 The receivers are taken in chunks, so memory stays O(chunk x Nj) where
 the jnp oracle builds the whole N x N tensor (~51 GB at 65,536).
 
+The live counts ``n_i`` and ``n_j`` (None: all of them) are the kernel's:
+receivers at or past ``n_i`` get exactly 0, and sources at or past
+``n_j`` add nothing, whatever they hold (NaN included).
+:func:`pairwise_accel_diff` is pmx's correction in one call: the sum at
+softening ``eps_a`` minus the sum at ``eps_b``, here as the two passes
+subtracted (the kernel's difference instantiation forms both weights of
+a pair at once).
+
 :func:`pairwise_accel_mxu_ref` is the plain version of the matrix-product
 formulation (``pairwise_pallas.pairwise_accel_mxu``, the counterpart of
 csrc/pairwise_mxu.cu): the same sum with r^2 expanded as
@@ -85,13 +93,36 @@ def pairwise_accel(
     *,
     j_base: int = 0,       # global index of x_3xn's first column
     masses=None,           # f32[Nj] source masses (None = unit)
+    n_i=None,              # live receivers (None = Ni)
+    n_j=None,              # live sources (None = Nj)
 ) -> torch.Tensor:
     """f32[Ni, 3] accelerations from all sources (the plain version)."""
     dev = x_nx3.device
     gv = source_weights(x_3xn.shape[1], n_active, g_const, j_base=j_base,
                         masses=masses, device=dev)
+    if n_j is not None:
+        j_live = (torch.arange(x_3xn.shape[1], device=dev)
+                  < torch.as_tensor(n_j, device=dev))
+        gv = torch.where(j_live, gv, 0.0)
+        x_3xn = torch.where(j_live[None, :], x_3xn, 0.0)
     eps = torch.as_tensor(softening, dtype=torch.float32, device=dev)
-    return accel_from_weights(x_nx3, x_3xn, gv, eps * eps)
+    out = accel_from_weights(x_nx3, x_3xn, gv, eps * eps)
+    if n_i is not None:
+        i_live = (torch.arange(x_nx3.shape[0], device=dev)
+                  < torch.as_tensor(n_i, device=dev))
+        out = torch.where(i_live[:, None], out, 0.0)
+    return out
+
+
+def pairwise_accel_diff(x_nx3: torch.Tensor, x_3xn: torch.Tensor, n_active,
+                        g_const, eps_a, eps_b, *, masses=None, n_i=None,
+                        n_j=None) -> torch.Tensor:
+    """f32[Ni, 3]: :func:`pairwise_accel` at softening ``eps_a`` minus the
+    same at ``eps_b`` (the plain version of the kernel's difference
+    pass)."""
+    kw = dict(masses=masses, n_i=n_i, n_j=n_j)
+    return (pairwise_accel(x_nx3, x_3xn, n_active, g_const, eps_a, **kw)
+            - pairwise_accel(x_nx3, x_3xn, n_active, g_const, eps_b, **kw))
 
 
 #: ``|xj|^2`` of a masked source in the matrix-product form: r^2 ~ 1e30, so

@@ -13,6 +13,15 @@ sort (``psort.sort``), with no fallback to ``torch.argsort``, and the
 block centres' inlier box from the box kernel (the same file,
 :func:`inlier_box_kernel`; plain :func:`inlier_box`).
 
+:func:`pairwise_accel` takes the kernel's live counts ``n_i`` / ``n_j``
+(None, an int, or an int32 tensor on the device: receivers past ``n_i``
+get 0, sources past ``n_j`` are never read) beside the JAX arguments.
+:func:`pairwise_accel_diff` is pmx's correction in one pass of the same
+kernel (its difference instantiation; plain: the two passes subtracted).
+The wrapper splits the sources into :func:`source_slices` slices, from
+the host shapes and the SM count (:func:`sm_count`, read once), so the
+same shapes always sum in the same order.
+
 :func:`step_pairwise` is the direct-sum step: the kernel's accelerations,
 then a plain ``vel += acc*dt``, then the attractor step kernel
 (ops/step_cuda.py) — the order of ``physics.kick_and_step_planes``. Like
@@ -21,16 +30,20 @@ the step kernel it updates ``pos`` and ``vel`` IN PLACE.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Tuple
 
 import torch
 
 from ..core.params import P_DT
 from ..utils import cuda_build
-from . import pairwise, psort, step_cuda
+from . import pairwise, pm_cuda, psort, step_cuda
 
 #: Kernel launches made by :func:`pairwise_accel` in this process.
 LAUNCHES = 0
+#: Kernel launches made by :func:`pairwise_accel_diff` in this process.
+DIFF_LAUNCHES = 0
 #: Kernel launches made by :func:`pairwise_accel_mxu` in this process.
 MXU_LAUNCHES = 0
 #: Kernel launches made by :func:`hilbert_keys_kernel` in this process.
@@ -59,39 +72,155 @@ def _check(x_nx3, x_3xn, masses) -> None:
                          f"{tuple(masses.shape)}")
 
 
-def pairwise_accel(x_nx3: torch.Tensor, x_3xn: torch.Tensor, n_active,
-                   g_const, softening, *, j_base: int = 0,
-                   masses=None) -> torch.Tensor:
-    """f32[Ni, 3] accelerations of the receivers ``x_nx3`` (f32[Ni, 3])
-    from the sources ``x_3xn`` (f32[3, Nj], global index j_base + j).
-    ``n_active``, ``g_const`` and ``softening`` may be Python numbers or
-    tensors on the device (then nothing is read back to the host)."""
-    global LAUNCHES
-    _check(x_nx3, x_3xn, masses)
+def _check_count(name: str, n, dev: torch.device) -> None:
+    """A live count is None, a Python int, or an int32 tensor of one
+    element on the receivers' device."""
+    if n is None or (isinstance(n, int) and not isinstance(n, bool)):
+        return
+    if not isinstance(n, torch.Tensor):
+        raise TypeError(f"{name} must be an int or an int32 tensor, got "
+                        f"{type(n).__name__}")
+    if n.dtype != torch.int32:
+        raise TypeError(f"{name} must be int32, got {n.dtype}")
+    if n.device != dev:
+        raise ValueError(f"{name} on {n.device}, the receivers on {dev}")
+    if n.numel() != 1:
+        raise ValueError(f"{name} must hold one count, got {n.numel()}")
+
+
+def _device_count(n, size: int, dev: torch.device):
+    """A live count as the kernel takes it: None (the shape) or an int32
+    tensor on ``dev``; a host int below ``size`` through
+    pm_cuda.device_const."""
+    if n is None or isinstance(n, torch.Tensor):
+        return n
+    return None if n >= size else pm_cuda.device_const(max(n, 0), dev,
+                                                       torch.int32)
+
+
+#: receivers a block and sources a tile of csrc/pairwise.cu (its PW_THREADS
+#: * PW_R and PW_TJ)
+RECEIVERS_PER_BLOCK = 512
+SOURCE_TILE = 256
+#: blocks an SM that the source split aims at (over several waves: the
+#: finer split balances the SMs when the live counts leave few receiver
+#: blocks; tools/pairwise_variants.py times 4-32)
+BLOCKS_PER_SM = 16
+#: at most this many source slices (the scratch is f32[S, Ni, 3])
+MAX_SLICES = 32
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The SM count of card ``index``, read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _split(n_i: int, n_j: int, sms: int, blocks_per_sm: int,
+           receivers_per_block: int, tile: int) -> int:
+    blocks = -(-n_i // receivers_per_block)
+    want = blocks_per_sm * sms
+    if blocks == 0 or blocks >= want:
+        return 1
+    return max(1, min(-(-want // blocks), MAX_SLICES, -(-n_j // tile)))
+
+
+def source_slices(n_i: int, n_j: int, sms: int) -> int:
+    """S, the source slices of a launch on a card of ``sms`` SMs: 1 when
+    the receivers' blocks alone give BLOCKS_PER_SM an SM; else enough to,
+    at most MAX_SLICES and the tiles of Nj. From the host shapes only, so
+    the same shapes always sum in the same order."""
+    return _split(n_i, n_j, sms, BLOCKS_PER_SM, RECEIVERS_PER_BLOCK,
+                  SOURCE_TILE)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(x_nx3, x_3xn, gv, eps_sq, n_i, n_j, diff: bool) -> torch.Tensor:
+    """One call of csrc/pairwise.cu (and its slice sum when S > 1)."""
     dev = x_nx3.device
-    if dev.type == "cpu":
-        return pairwise.pairwise_accel(x_nx3, x_3xn, n_active, g_const,
-                                       softening, j_base=j_base,
-                                       masses=masses)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    n_i, n_j = x_nx3.shape[0], x_3xn.shape[1]
-    if max(n_i, n_j) * 3 >= 2 ** 31:
-        raise ValueError(f"{n_i} x {n_j} pairs: too many for int32 indexing")
+    ni, nj = x_nx3.shape[0], x_3xn.shape[1]
+    if max(ni, nj) * 3 >= 2 ** 31:
+        raise ValueError(f"{ni} x {nj} pairs: too many for int32 indexing")
     xi, xj = x_nx3.contiguous(), x_3xn.contiguous()
-    gv = pairwise.source_weights(n_j, n_active, g_const, j_base=j_base,
-                                 masses=masses, device=dev).contiguous()
-    eps = torch.as_tensor(softening, dtype=torch.float32, device=dev)
-    eps_sq = (eps * eps).reshape(1)
-    out = torch.empty((n_i, 3), dtype=torch.float32, device=dev)
+    n_i, n_j = _device_count(n_i, ni, dev), _device_count(n_j, nj, dev)
+    slices = source_slices(ni, nj, sm_count(dev.index))
+    out = torch.empty((ni, 3), dtype=torch.float32, device=dev)
+    part = (torch.empty((slices, ni, 3), dtype=torch.float32, device=dev)
+            if slices > 1 else None)
     lib = cuda_build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.psim_pairwise(xi.data_ptr(), xj.data_ptr(), gv.data_ptr(),
-                                eps_sq.data_ptr(), out.data_ptr(), n_i, n_j,
-                                stream)
+                                eps_sq.data_ptr(), _ptr(n_i), _ptr(n_j),
+                                out.data_ptr(), _ptr(part), ni, nj, slices,
+                                int(diff), stream)
+    cuda_build.check(err, "pairwise_diff" if diff else "pairwise")
+    return out
+
+
+def _eps_sq(*softenings, dev) -> torch.Tensor:
+    eps = torch.stack([torch.as_tensor(e, dtype=torch.float32, device=dev)
+                       .reshape(()) for e in softenings])
+    return (eps * eps).contiguous()
+
+
+def pairwise_accel(x_nx3: torch.Tensor, x_3xn: torch.Tensor, n_active,
+                   g_const, softening, *, j_base: int = 0,
+                   masses=None, n_i=None, n_j=None) -> torch.Tensor:
+    """f32[Ni, 3] accelerations of the receivers ``x_nx3`` (f32[Ni, 3])
+    from the sources ``x_3xn`` (f32[3, Nj], global index j_base + j).
+    ``n_active``, ``g_const`` and ``softening`` may be Python numbers or
+    tensors on the device (then nothing is read back to the host).
+    ``n_i`` / ``n_j``: live receivers / sources (None: all; an int, or an
+    int32 tensor of one element on the device, read there): receivers at
+    or past ``n_i`` get 0, sources at or past ``n_j`` add nothing."""
+    global LAUNCHES
+    _check(x_nx3, x_3xn, masses)
+    dev = x_nx3.device
+    _check_count("n_i", n_i, dev)
+    _check_count("n_j", n_j, dev)
+    if dev.type == "cpu":
+        return pairwise.pairwise_accel(x_nx3, x_3xn, n_active, g_const,
+                                       softening, j_base=j_base,
+                                       masses=masses, n_i=n_i, n_j=n_j)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    gv = pairwise.source_weights(x_3xn.shape[1], n_active, g_const,
+                                 j_base=j_base, masses=masses,
+                                 device=dev).contiguous()
+    out = _launch(x_nx3, x_3xn, gv, _eps_sq(softening, dev=dev), n_i, n_j,
+                  False)
     LAUNCHES += 1
-    cuda_build.check(err, "pairwise")
+    return out
+
+
+def pairwise_accel_diff(x_nx3: torch.Tensor, x_3xn: torch.Tensor, n_active,
+                        g_const, eps_a, eps_b, *, masses=None, n_i=None,
+                        n_j=None) -> torch.Tensor:
+    """f32[Ni, 3]: the sum of :func:`pairwise_accel` at softening
+    ``eps_a`` minus the same at ``eps_b``, in one pass of the kernel's
+    difference instantiation (r^2 once, both weights a pair, one sum).
+    The arguments are pairwise_accel's; CPU tensors take the plain
+    version (the two plain passes subtracted)."""
+    global DIFF_LAUNCHES
+    _check(x_nx3, x_3xn, masses)
+    dev = x_nx3.device
+    _check_count("n_i", n_i, dev)
+    _check_count("n_j", n_j, dev)
+    if dev.type == "cpu":
+        return pairwise.pairwise_accel_diff(x_nx3, x_3xn, n_active, g_const,
+                                            eps_a, eps_b, masses=masses,
+                                            n_i=n_i, n_j=n_j)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    gv = pairwise.source_weights(x_3xn.shape[1], n_active, g_const,
+                                 masses=masses, device=dev).contiguous()
+    out = _launch(x_nx3, x_3xn, gv, _eps_sq(eps_a, eps_b, dev=dev), n_i,
+                  n_j, True)
+    DIFF_LAUNCHES += 1
     return out
 
 
@@ -302,7 +431,10 @@ def step_pairwise(pos: torch.Tensor, vel: torch.Tensor,
                   n_active: torch.Tensor, masses=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One direct-sum step on (3, R, LANE) planes, in place.
-    -> (pos, vel), the same tensors."""
+    -> (pos, vel), the same tensors. On the card ``n_active`` is also the
+    kernel's live source count, so the sweep stops at the last tile that
+    holds a live source; every receiver is summed (dead slots feel the
+    live field, as in the plain step)."""
     if pos.device.type == "cpu":
         p, v = pairwise.step_pairwise(pos, vel, param_vec, pair_vec,
                                       n_active, masses=masses)
@@ -311,6 +443,6 @@ def step_pairwise(pos: torch.Tensor, vel: torch.Tensor,
         return pos, vel
     flat = pos.reshape(3, -1)
     acc = pairwise_accel(flat.T, flat, n_active, pair_vec[0], pair_vec[1],
-                         masses=masses)
+                         masses=masses, n_j=n_active)
     vel.add_(acc.T.reshape(vel.shape) * param_vec[P_DT])
     return step_cuda.step(pos, vel, param_vec)

@@ -21,16 +21,23 @@ correction is antisymmetric over members (momentum-exact).
      keep the mesh force, and the returned member count lets callers warn.
   2. ``index_select`` of the first ``capacity`` slots' positions (and
      masses) into a compact buffer.
-  3. Two passes of the pairwise kernel (csrc/pairwise.cu) over the buffer
-     with the in-budget masses, at ``eps_exact`` and at ``eps_prev``.
+  3. One difference pass of the pairwise kernel (csrc/pairwise.cu,
+     ``pairwise_cuda.pairwise_accel_diff``) over the buffer with the
+     in-budget masses: g(eps_exact) - g(eps_prev) a pair, r^2 once. The
+     in-budget member count ``min(n_members, B)`` goes to the kernel as
+     both live counts, on the device: receivers past it get 0 and the
+     sweep ends at the last tile holding a member (on a mesh the sources
+     are the gathered buffers, members not contiguous, so the sweep
+     covers their whole width).
   4. One ``index_copy_`` of the buffer's corrections into a zeroed
      f32[3, N] at the sorted indices (the JAX un-sort by a second sort is
      a TPU workaround; a scatter of a permutation is exact).
 
 The member count stays on the device. With ``use_kernels=False`` the same
 steps run on the plain versions (``psort.radix_sort_ref``,
-``pairwise.pairwise_accel``); on CPU tensors the wrappers take them
-anyway. ``exact_accel_ref`` is the O(N^2) oracle of small tests.
+``pairwise.pairwise_accel_diff``, the two plain passes subtracted); on
+CPU tensors the wrappers take them anyway. ``exact_accel_ref`` is the
+O(N^2) oracle of small tests.
 """
 
 from __future__ import annotations
@@ -134,8 +141,8 @@ def exact_accel(pos_flat: torch.Tensor, live: torch.Tensor,
     member = _member_mask(pos_flat, wmin, cfgx, live)
     n_m = member.sum(dtype=torch.int32)
     idx_b = members_first(member, use_kernels=use_kernels)[:B].long()
-    in_budget = (torch.arange(B, dtype=torch.int32, device=dev)
-                 < torch.clamp_max(n_m, B))
+    n_in = torch.clamp_max(n_m, B)                      # in budget
+    in_budget = torch.arange(B, dtype=torch.int32, device=dev) < n_in
     buf = pos_flat.index_select(1, idx_b)               # f32[3, B]
     m_buf = in_budget.to(torch.float32)
     if masses is not None:
@@ -144,17 +151,16 @@ def exact_accel(pos_flat: torch.Tensor, live: torch.Tensor,
     if coll is not None:
         src = coll.all_gather(buf, dim=1)                # f32[3, B n_dev]
         m_src = coll.all_gather(m_buf)
-    accel = (pairwise_cuda.pairwise_accel if use_kernels
-             else pairwise.pairwise_accel)
+    diff = (pairwise_cuda.pairwise_accel_diff if use_kernels
+            else pairwise.pairwise_accel_diff)
     # device constants: a Python number would be uploaded (and waited
-    # for) on every pass
+    # for) on every call
     n_b = pm_cuda.device_const(src.shape[1], dev, torch.int32)
     one, eps_x, eps_p = pm_cuda.device_const(
         (1.0, cfgx.softening, eps_prev), dev)
-    rec = buf.T.contiguous()
-    a_x = accel(rec, src, n_b, one, eps_x, masses=m_src)
-    a_p = accel(rec, src, n_b, one, eps_p, masses=m_src)
-    corr_buf = (a_x - a_p).T * in_budget[None]
+    corr_buf = diff(buf.T.contiguous(), src, n_b, one, eps_x, eps_p,
+                    masses=m_src, n_i=n_in,
+                    n_j=n_in if coll is None else None).T
     corr = torch.zeros((3, n), dtype=torch.float32, device=dev)
     corr.index_copy_(1, idx_b, corr_buf)
     if coll is None:

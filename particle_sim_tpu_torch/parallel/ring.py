@@ -7,12 +7,16 @@ source masses, when there are masses) goes round the ring: after k hops
 a rank holds the shard first owned by rank (rank + k) mod n_dev, whose
 global column offset ``j_base`` masks the global padding in the kernel
 (csrc/pairwise.cu through ops/pairwise_cuda.py, or the plain
-ops/pairwise.py). The buffer moves in JAX's direction, sent to rank - 1
-and received from rank + 1, and the next hop's receive is posted before
-the kernel runs on the current buffer, so the transfer overlaps the
-O(N^2 / n_dev) work. There are n_dev - 1 hops: the JAX loop's last
-``ppermute`` is never read. The accumulated force then integrates
-through the same kick and step as the single-device direct path.
+ops/pairwise.py). The kernel also takes the hop's live source count on
+the device, the buffer's sources below the global ``n_active``, so it
+stops at the last tile that holds one (every receiver is still summed:
+dead slots feel the live field, as in the JAX package). The buffer
+moves in JAX's direction, sent to rank - 1 and received from rank + 1,
+and the next hop's receive is posted before the kernel runs on the
+current buffer, so the transfer overlaps the O(N^2 / n_dev) work.
+There are n_dev - 1 hops: the JAX loop's last ``ppermute`` is never
+read. The accumulated force then integrates through the same kick and
+step as the single-device direct path.
 
 Per step each rank sends its 12-byte-a-particle shard (16 with masses)
 n_dev - 1 times: O(N) bytes against O(N^2 / n_dev) work.
@@ -24,6 +28,15 @@ import torch
 
 from ..ops import pairwise, pairwise_cuda, physics, pm_cuda
 from .mesh import Collectives
+
+
+def live_in_shard(n_active, base: int, size: int):
+    """How many of the ``size`` slots from global index ``base`` lie below
+    ``n_active``: ``clamp(n_active - base, 0, size)``, an int32 tensor on
+    the device when ``n_active`` is one (nothing read back)."""
+    if isinstance(n_active, torch.Tensor):
+        return (n_active.to(torch.int32) - base).clamp(0, size)
+    return min(max(int(n_active) - base, 0), size)
 
 
 def make_ring_pairwise_step(mesh, *, use_kernels: bool = True,
@@ -59,7 +72,8 @@ def make_ring_pairwise_step(mesh, *, use_kernels: bool = True,
             works = (coll.ring_shift(buf, nxt) if k < n_dev - 1 else [])
             j_base = ((rank + k) % n_dev) * local_n
             a = accel(xi, buf[:3], n_active, pair_vec[0], pair_vec[1],
-                      j_base=j_base, masses=buf[3] if with_masses else None)
+                      j_base=j_base, masses=buf[3] if with_masses else None,
+                      n_j=live_in_shard(n_active, j_base, local_n))
             acc = a if acc is None else acc + a
             for w in works:
                 w.wait()

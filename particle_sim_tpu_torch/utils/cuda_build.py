@@ -42,7 +42,9 @@ SIGNATURES = {
     "psim_step": (_P, _P, _P, _I64, _I, _P),
     "psim_compact": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     "psim_deposit": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "psim_pairwise": (_P, _P, _P, _P, _P, _I, _I, _P),
+    # xi, xj, gv, eps_sq, n_i, n_j (NULL: ni, nj), out, partial, ni, nj,
+    # slices, diff, stream
+    "psim_pairwise": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "psim_sorted_deposit": (_P, _P, _P, _P, _I, _I, _P),
     "psim_pm_deposit": (_P, _I, _P, _P, _P, _P, _P, _I, _F, _I, _P, _P),
     "psim_pm_gather": (_P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _F, _I,

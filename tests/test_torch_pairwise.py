@@ -2,6 +2,9 @@
 tensors) against the JAX package's jnp oracle and its Pallas kernel in
 interpret mode, and against an independent float64 direct sum."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -234,6 +237,166 @@ def test_step_pairwise_cuda_on_cpu_is_plain_in_place():
     assert rp is pos and rv is vel
     assert torch.equal(pos, ep) and torch.equal(vel, ev)
     assert pairwise_cuda.LAUNCHES == launches   # CPU: no kernel launch
+
+
+# -- pmx's difference pass and the live counts ----------------------------------
+EPS_B = 2.0
+
+
+@pytest.mark.parametrize("n,with_masses", [(1024, False), (2048, True)])
+def test_diff_matches_pallas_interpret_twice(n, with_masses):
+    """pairwise_accel_diff (plain, and the wrapper on CPU tensors) against
+    JAX's Pallas kernel in interpret mode at the two softenings,
+    subtracted; the plain-vs-Pallas bar (TOL)."""
+    jflat, tflat, na = both_flat(n)
+    m = (0.5 + np.random.default_rng(n).random(n)).astype(np.float32)
+    jm = jnp.asarray(m) if with_masses else None
+    tm = torch.from_numpy(m) if with_masses else None
+    kw = dict(tile_i=512, tile_j=1024, interpret=True, masses=jm)
+    expect = (np.asarray(pairwise_pallas.pairwise_accel(
+        jflat.T, jflat, na, GC, EPS, **kw)) - np.asarray(
+        pairwise_pallas.pairwise_accel(jflat.T, jflat, na, GC, EPS_B, **kw)))
+    plain = pairwise.pairwise_accel_diff(tflat.T, tflat, na, GC, EPS, EPS_B,
+                                         masses=tm)
+    np.testing.assert_allclose(plain.numpy(), expect, **TOL)
+    launches = pairwise_cuda.DIFF_LAUNCHES
+    wrapped = pairwise_cuda.pairwise_accel_diff(tflat.T, tflat, na, GC, EPS,
+                                                EPS_B, masses=tm)
+    assert pairwise_cuda.DIFF_LAUNCHES == launches   # CPU: no kernel launch
+    assert torch.equal(wrapped, plain)
+    assert torch.equal(plain, pairwise.pairwise_accel(
+        tflat.T, tflat, na, GC, EPS, masses=tm) - pairwise.pairwise_accel(
+        tflat.T, tflat, na, GC, EPS_B, masses=tm))
+
+
+def poisoned_inputs(n=1500, n_i=1100, n_j=900):
+    """(receivers f32[n, 3], sources f32[3, n], masses) of the filled
+    sphere and the same with NaN in the receivers past n_i and in the
+    sources and masses past n_j."""
+    _, tflat, _ = both_flat(n)
+    x = tflat[:, :n].contiguous()
+    m = torch.from_numpy((0.5 + np.random.default_rng(3).random(n)).astype(
+        np.float32))
+    rec, src, ms = x.T.contiguous(), x.clone(), m.clone()
+    rec[n_i:] = float("nan")
+    src[:, n_j:] = float("nan")
+    ms[n_j:] = float("nan")
+    return (x.T.contiguous(), x, m), (rec, src, ms)
+
+
+@pytest.mark.parametrize("diff", [False, True])
+@pytest.mark.parametrize("as_tensor", [False, True])
+def test_live_counts_cut_receivers_and_sources(diff, as_tensor):
+    """Receivers at or past n_i get exactly 0; sources at or past n_j
+    change nothing, NaN there included (bit for bit against a finite
+    tail), and the live part equals the sum over the live prefix."""
+    n, n_i, n_j = 1500, 1100, 900
+    (rec, src, m), (rec_p, src_p, m_p) = poisoned_inputs(n, n_i, n_j)
+    cnt = ((torch.tensor(n_i, dtype=torch.int32),
+            torch.tensor([n_j], dtype=torch.int32)) if as_tensor
+           else (n_i, n_j))
+
+    def run(fn, r, s, mm, **kw):
+        if diff:
+            return fn(r, s, n, GC, EPS, EPS_B, masses=mm, **kw)
+        return fn(r, s, n, GC, EPS, masses=mm, **kw)
+
+    fns = ((pairwise_cuda.pairwise_accel_diff, pairwise.pairwise_accel_diff)
+           if diff else (pairwise_cuda.pairwise_accel, pairwise.pairwise_accel))
+    for fn in fns:
+        got = run(fn, rec_p, src_p, m_p, n_i=cnt[0], n_j=cnt[1])
+        assert got.shape == (n, 3) and bool(torch.isfinite(got).all())
+        assert bool((got[n_i:] == 0).all())
+        assert torch.equal(got, run(fn, rec, src, m, n_i=cnt[0],
+                                    n_j=cnt[1]))
+        prefix = run(fn, rec[:n_i], src[:, :n_j].contiguous(), m[:n_j])
+        np.testing.assert_allclose(got[:n_i].numpy(), prefix.numpy(),
+                                   rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("diff", [False, True])
+def test_live_count_defaults_are_bit_for_bit(diff):
+    """No counts, None, and counts equal to the shapes (ints or int32
+    tensors) give the same bits as the call without them; a count past
+    the shape is clamped to it."""
+    jflat, tflat, na = both_flat(1500)
+    x = tflat
+    n_i, n_j = x.shape[1], x.shape[1]
+    fn = pairwise_cuda.pairwise_accel_diff if diff else (
+        pairwise_cuda.pairwise_accel)
+    args = (x.T, x, na, GC, EPS) + ((EPS_B,) if diff else ())
+    base = fn(*args)
+    for kw in (dict(n_i=None, n_j=None), dict(n_i=n_i, n_j=n_j),
+               dict(n_i=torch.tensor(n_i, dtype=torch.int32),
+                    n_j=torch.tensor(n_j, dtype=torch.int32))):
+        assert torch.equal(fn(*args, **kw), base)
+    if not diff:
+        # today's result: the JAX kernel's bar, unchanged
+        expect = np.asarray(pairwise_pallas.pairwise_accel(
+            jflat.T, jflat, na, GC, EPS, tile_i=512, tile_j=1024,
+            interpret=True))
+        np.testing.assert_allclose(base.numpy(), expect, **TOL)
+
+
+@pytest.mark.parametrize("diff", [False, True])
+@pytest.mark.parametrize("which", ["n_i", "n_j"])
+@pytest.mark.parametrize("bad", ["int64", "float32", "meta", "two", "str"])
+def test_live_count_checks(diff, which, bad):
+    """A count of the wrong dtype, on another device than the receivers,
+    of more than one element or not a count at all raises."""
+    x = torch.zeros((64, 3))
+    s = torch.zeros((3, 64))
+    count = {"int64": torch.tensor(5), "float32": torch.tensor(5.0),
+             "meta": torch.tensor(5, dtype=torch.int32, device="meta"),
+             "two": torch.tensor([5, 6], dtype=torch.int32),
+             "str": "5"}[bad]
+    fn = pairwise_cuda.pairwise_accel_diff if diff else (
+        pairwise_cuda.pairwise_accel)
+    args = (x, s, 64, 1.0, 0.5) + ((2.0,) if diff else ())
+    with pytest.raises((TypeError, ValueError)):
+        fn(*args, **{which: count})
+
+
+@pytest.mark.parametrize("n_i,n_j,want", [
+    (65_536, 65_536, 17),     # 128 blocks of 512: split to ~16 an SM
+    (40_001, 30_011, 27),
+    (1_000, 777, 4),          # at most one slice a 256-source tile
+    (1_000, 100_000, 32),     # at most MAX_SLICES
+    (1 << 20, 1 << 20, 2),    # 2,048 blocks: just short of 16 an SM
+    (1 << 21, 4_096, 1),      # 4,096 blocks fill 132 SMs alone
+    (0, 1_000, 1)])
+def test_source_slices(n_i, n_j, want):
+    """The source split from the host shapes and the SM count (132, the
+    H100's): whole slices, the same every call."""
+    assert pairwise_cuda.source_slices(n_i, n_j, 132) == want
+    assert pairwise_cuda._split(n_i, n_j, 132, 4, 512, 256) <= want
+
+
+def test_block_shape_matches_kernel():
+    """The wrapper's receivers a block and sources a tile are the kernel's
+    defaults (csrc/pairwise.cu's PW_THREADS * PW_R and PW_TJ)."""
+    src = (Path(pairwise_cuda.__file__).parents[1] / "csrc"
+           / "pairwise.cu").read_text()
+    knob = {k: int(v) for k, v in re.findall(
+        r"^#define (PW_R|PW_THREADS|PW_TJ) (\d+)", src, re.M)}
+    assert len(knob) == 3
+    assert pairwise_cuda.RECEIVERS_PER_BLOCK == (knob["PW_THREADS"]
+                                                 * knob["PW_R"])
+    assert pairwise_cuda.SOURCE_TILE == knob["PW_TJ"]
+
+
+@pytest.mark.parametrize("n_active", [5000, 4096, 100, 0])
+def test_ring_hop_counts(n_active):
+    """The ring's live source count a hop, clamp(n_active - j_base, 0,
+    local_n), from a host int and from an int32 tensor alike."""
+    from particle_sim_tpu_torch.parallel import ring
+
+    for base in (0, 2048, 4096, 6144):
+        want = min(max(n_active - base, 0), 2048)
+        assert ring.live_in_shard(n_active, base, 2048) == want
+        got = ring.live_in_shard(torch.tensor(n_active, dtype=torch.int32),
+                                 base, 2048)
+        assert got.dtype == torch.int32 and int(got) == want
 
 
 @pytest.mark.parametrize("case", [

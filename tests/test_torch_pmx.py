@@ -32,7 +32,7 @@ from particle_sim_tpu_torch.core.params import (
 from particle_sim_tpu_torch.core.state import ParticleState
 from particle_sim_tpu_torch.engine import Engine
 from particle_sim_tpu_torch.io import checkpoint as ckpt
-from particle_sim_tpu_torch.ops import pm2, pmx, psort
+from particle_sim_tpu_torch.ops import pairwise, pairwise_cuda, pm2, pmx, psort
 
 torch.set_num_threads(1)
 
@@ -129,6 +129,45 @@ def test_exact_accel_matches_jax(with_masses):
         assert scale_err(a, ref) <= 2e-5
         assert scale_err(a, np.asarray(fast)) <= 2e-5
     assert torch.equal(got, plain)
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_exact_accel_is_one_difference_pass(monkeypatch, use_kernels):
+    """The correction takes one difference pass (the kernel's wrapper, or
+    its plain version), never the kernel's single pass, with the
+    in-budget member count min(n_members, capacity) as both live counts,
+    an int32 on the receivers' device; the result stays JAX's exact_accel
+    (interpret) at 2e-5 of the scale."""
+    mod = pairwise_cuda if use_kernels else pairwise
+    calls = []
+    real = mod.pairwise_accel_diff
+
+    def spy(*args, **kw):
+        calls.append(kw)
+        return real(*args, **kw)
+
+    def single(*args, **kw):
+        raise AssertionError("exact_accel ran a single pass")
+
+    monkeypatch.setattr(mod, "pairwise_accel_diff", spy)
+    monkeypatch.setattr(pairwise_cuda, "pairwise_accel", single)
+    pos, n = scene(4)
+    jl, tl = live_of(pos, n)
+    small = pmx.PMXConfig(window_size=8.0, softening=EPS_X, capacity=512)
+    tp = torch.from_numpy(pos)
+    wmin = pm2.window_min(tp, None, small, None, live=tl)
+    got, n_m = pmx.exact_accel(tp, tl, small, CFG.softening, wmin=wmin,
+                               use_kernels=use_kernels)
+    assert len(calls) == 1
+    for key in ("n_i", "n_j"):
+        c = calls[0][key]
+        assert c.dtype == torch.int32 and c.device == tp.device
+        assert int(c) == min(int(n_m), 512) == 512 < int(n_m)
+    monkeypatch.undo()
+    fast, _ = jpmx.exact_accel(jnp.asarray(pos), jl, jax_cfg(small),
+                               CFG.softening, wmin=jnp.asarray(wmin.numpy()),
+                               interpret=True)
+    assert scale_err(got.numpy(), np.asarray(fast)) <= 2e-5
 
 
 def test_members_first_is_the_stable_flag_sort():
