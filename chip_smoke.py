@@ -4,8 +4,8 @@ NVIDIA GPU: builds the hand-written kernels, holds each against its plain
 PyTorch version, drives the headless CLI at 1M particles (the attractor),
 at 65,536 (direct-sum gravity) and at 1M (particle-mesh gravity, and the
 multi-level mesh with the window-exact correction), drives the WebSocket
-server at 65,536, the mesh path at world size 1 and the packaging tool,
-and times the kernels.
+server at 65,536, the mesh path at world size 1, the packaging tool and
+the five worked examples, and times the kernels.
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
@@ -246,14 +246,31 @@ Phases (each prints a line; any failure raises and exits non-zero):
      the warmed kernel library loads and its step kernel matches the
      plain step (1e-6), the exported step (torch.export) loads and equals
      step_ref on the card
+ 22. the worked examples (particle_sim_tpu_torch/examples/) through their
+     main(argv) at the JAX scripts' documented sizes: attractor 1M x 600,
+     disk 1,000,001 x 600, collapse 1M x 600, cluster_core 200,000 x 400
+     and deep_zoom 500,000 x 300 without and with --exact, each with
+     --out into a temporary directory where it renders: every printed
+     line parses and holds only finite numbers, every frame is lit, the
+     path's kernels launched (step once a step), the renderer each frame
+     took, --exact logs its truncation warning once (members past the
+     capacity of 8,192); wall time and host-paced ms a step (a steady
+     window of 50 steps of the same scene); then each example's first
+     frame at 65,536 on the kernel path against the plain path
+     (Method.TORCH, which launches no kernel) from the same start: the
+     state after one step at phase 2's bars (attractor) or within dt and
+     dt^2 times the accelerations' bar of the phase that holds the same
+     solver (phases 11-12, 16, 19), and the frame through the compact
+     kernels against their plain versions at phase 3's bars
 
 The line before the last is a JSON object with one entry per kernel (the
-launches of step are phases 4, 16 (the engine), 18, 19 and 20 together;
-of pairwise phases 8 and 20 (the ring); of pairwise_diff phases 18 and
-20 (the deep zoom); of pm_deposit and pm_gather phase 12's
-runs (a) and (b), 16, 18, 19 and 20 together; of compact and deposit
-phases 4 and 20; those of sorted_deposit phases 8 and 12 (b); of
-radix_hist and radix_pass phases 8, 12 (b), 18, 19 and 20; those of
+launches of step are phases 4, 16 (the engine), 18, 19, 20 and 22
+together; of pairwise phases 8 and 20 (the ring); of pairwise_diff
+phases 18, 20 (the deep zoom) and 22; of pm_deposit and pm_gather phase
+12's runs (a) and (b), 16, 18, 19, 20 and 22 together; of compact and
+deposit phases 4, 20 and 22; those of sorted_deposit phases 8 and 12
+(b); of radix_hist and radix_pass phases 8, 12 (b), 18, 19, 20 and 22;
+those of
 pairwise_mxu, hilbert_keys, inlier_box, block_sort and merge_round the
 drives of phases 14 and 15); the last line is {"ok": true, "device":
 {...}}.
@@ -1688,6 +1705,258 @@ def phase21(dev) -> dict:
           f" s)")
     shutil.rmtree(out)
     return {"max_err": e_lib}
+
+
+def check_finite_line(line: str) -> None:
+    """Raise unless a printed line holds numbers and every one is finite:
+    a JSON object's values (nested lists too), else the numbers of the
+    text."""
+    import math
+    import re
+
+    if line.startswith("{"):
+        nums, todo = [], list(json.loads(line).values())
+        while todo:
+            v = todo.pop()
+            if isinstance(v, list):
+                todo.extend(v)
+            elif isinstance(v, (int, float)) and not isinstance(v, bool):
+                nums.append(float(v))
+    else:
+        nums = [float(t) for t in re.findall(
+            r"[-+]?(?:nan|inf|\d+\.?\d*(?:e[-+]?\d+)?)", line)]
+    if not nums or not all(math.isfinite(v) for v in nums):
+        fail(f"a printed line is not finite: {line!r}")
+
+
+def phase22(dev) -> dict:
+    """Phase 22: the port's worked examples (particle_sim_tpu_torch/
+    examples/) through their main(argv) on the card, at the JAX scripts'
+    documented sizes, then each example's first frame at 65,536 on the
+    kernel path against the plain path (Method.TORCH) on the card.
+    -> {"launches": the six runs' launch counts, summed}."""
+    import dataclasses
+    import logging
+
+    import torch
+
+    from particle_sim_tpu_torch.core.params import Method
+    from particle_sim_tpu_torch.examples import (
+        attractor, cluster_core, collapse, deep_zoom, disk,
+    )
+    from particle_sim_tpu_torch.ops import pm2, pm_cuda, pmx
+    from particle_sim_tpu_torch.render import raster
+    from particle_sim_tpu_torch.render import raster_compact as rc
+
+    t_start = time.perf_counter()
+    frame_k = ("compact", "deposit")
+    # (label, module, extra arguments, steps, steps a line, frames, the
+    # kernels the run must launch); every size is the JAX script's default
+    runs = [
+        ("attractor", attractor, [], 600, 100, 0, ("step",)),
+        ("disk", disk, ["--out"], 600, 60, 10,
+         ("step", "pm_deposit_mass", "pm_gather") + frame_k),
+        ("collapse", collapse, ["--out"], 600, 60, 10,
+         ("step", "pm_deposit", "pm_gather") + frame_k),
+        ("cluster_core", cluster_core, ["--out"], 400, 50, 8,
+         ("step", "pm_deposit", "pm_gather") + frame_k),
+        ("deep_zoom", deep_zoom, ["--out"], 300, 50, 6,
+         ("step", "pm_deposit", "pm_gather", "radix_hist", "radix_pass")
+         + frame_k),
+        ("deep_zoom --exact", deep_zoom, ["--exact", "--out"], 300, 50, 6,
+         ("step", "pm_deposit", "pm_gather", "pairwise_diff", "radix_hist",
+          "radix_pass") + frame_k),
+    ]
+
+    class Records(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.WARNING)
+            self.messages = []
+
+        def emit(self, record):
+            self.messages.append(record.getMessage())
+
+    def counts():
+        c = launch_counts()
+        c["pm_deposit_mass"] = pm_cuda.DEPOSIT_MASS_LAUNCHES
+        c["pm_deposit"] -= c["pm_deposit_mass"]
+        return c
+
+    total = {}
+    for label, mod, extra, steps, every, frames, must in runs:
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = ["--device", "cuda"] + [a for e in extra for a in (
+                (e, tmp) if e == "--out" else (e,))]
+            log = Records()
+            logging.getLogger("particle_sim_tpu_torch.engine").addHandler(log)
+            out = io.StringIO()
+            zero_launches()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(out):
+                    rc_code = mod.main(argv)
+                torch.cuda.synchronize()
+            finally:
+                logging.getLogger("particle_sim_tpu_torch.engine") \
+                    .removeHandler(log)
+            wall = time.perf_counter() - t0
+            got = counts()
+            pngs = sorted(f for f in os.listdir(tmp) if f.endswith(".png"))
+            lit = [int(read_png(os.path.join(tmp, f))[..., :3].max())
+                   for f in pngs]
+        lines = out.getvalue().splitlines()
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        if rc_code != 0:
+            fail(f"phase 22 {label}: main returned {rc_code}")
+        if len(lines) != steps // every:
+            fail(f"phase 22 {label}: {len(lines)} lines, expected "
+                 f"{steps // every}: {lines}")
+        for k, ln in enumerate(lines):
+            check_finite_line(ln)
+            s = (k + 1) * every
+            if not (ln.startswith(f"step {s}: ") or ln.startswith("{")
+                    and json.loads(ln)["step"] == s):
+                fail(f"phase 22 {label}: line {k} is not step {s}: {ln!r}")
+        if len(pngs) != frames or not all(lit):
+            fail(f"phase 22 {label}: frames {pngs}, brightest channel "
+                 f"{lit} (want {frames} frames, none black)")
+        missed = [k for k in must if got[k] == 0]
+        if missed or got["step"] != steps:
+            fail(f"phase 22 {label}: launches {got}: {missed or 'step'} "
+                 f"did not launch as expected")
+        renderer = ("none" if not frames else "compact"
+                    if got["compact"] == got["deposit"] == frames
+                    else "sorted" if got["sorted_deposit"] else "scatter")
+        warned = [m for m in log.messages if "pmx window overflow" in m]
+        if ("--exact" in extra) != bool(warned) or len(warned) > 1:
+            fail(f"phase 22 {label}: the truncation warning logged "
+                 f"{len(warned)} times (want {int('--exact' in extra)}): "
+                 f"{log.messages}")
+        for ln in lines:
+            print(f"  {label}: {ln}")
+        # host-paced: a steady window of the same scene, the host clock
+        # around steps that end in a synchronize
+        args = mod.build_parser().parse_args(
+            ["--device", "cuda"] + [e for e in extra if e != "--out"])
+        eng, params, _ = mod.build(args)
+        step_params = ((lambda i: attractor.orbit(params, i))
+                       if mod is attractor else (lambda i: params))
+        for i in range(3):
+            eng.step(step_params(i))
+        torch.cuda.synchronize()
+        k_steady = 50
+        t1 = time.perf_counter()
+        for i in range(3, 3 + k_steady):
+            eng.step(step_params(i))
+        torch.cuda.synchronize()
+        ms_step = (time.perf_counter() - t1) * 1e3 / k_steady
+        del eng
+        print(f"phase 22 {label} ({' '.join(argv).replace(tmp, 'DIR')}, "
+              f"{steps} steps): {wall:.3f} s of wall, {ms_step:.4f} ms a "
+              f"step host-paced (steady, {k_steady} steps), {len(lines)} "
+              f"finite lines, {len(pngs)} frames by the {renderer} "
+              f"renderer, launches { {k: v for k, v in got.items() if v} }"
+              + (f"; warned once: {warned[0]}" if warned else ""))
+
+    # the first frame at 65,536 on the kernel path against the plain path:
+    # both engines from the same scene, one step each (the plain engine
+    # launches no kernel), then the kernel engine's frame through the
+    # compact kernels against their plain versions (phase 3's bars)
+    n_k = 65_536
+    for label, mod, extra, *_ in runs:
+        argv = ["--device", "cuda", "--count", str(n_k)] + [
+            e for e in extra if e != "--out"]
+        args = mod.build_parser().parse_args(argv)
+        ek, params, camera = mod.build(args, Method.CUDA)
+        ep, _, _ = mod.build(args, Method.TORCH)
+        if not (torch.equal(ek.state.pos, ep.state.pos)
+                and torch.equal(ek.state.vel, ep.state.vel)):
+            fail(f"phase 22 {label}: the two engines start apart")
+        if ek.pmx is not None:
+            # past its capacity the persistent kernel path corrects the
+            # first members in the mirror's slot order, the plain path
+            # (accel_sorted_ref, identity order) others, by design: both
+            # engines get a capacity that holds all ~16,900 members
+            for e in (ek, ep):
+                e.set_pmx(dataclasses.replace(ek.pmx, capacity=32_768))
+        if mod is attractor:
+            params = attractor.orbit(params, 0)
+        p0 = ek.state.pos.clone()
+        v0 = ek.state.vel.clone()
+        zero_launches()
+        ep.step(params)
+        torch.cuda.synchronize()
+        plain_launches = {k: v for k, v in launch_counts().items() if v}
+        ek.step(params)
+        torch.cuda.synchronize()
+        k_launches = {k: v for k, v in launch_counts().items() if v}
+        if plain_launches or not k_launches:
+            fail(f"phase 22 {label} at {n_k}: the plain engine launched "
+                 f"{plain_launches}, the kernel engine {k_launches}")
+        sk, sp = ek.state, ep.state
+        if ek.pmx is not None and not (
+                ek.pmx_member_count() == ep.pmx_member_count()
+                and ek.pmx_member_count()[0] <= ek.pmx.capacity):
+            fail(f"phase 22 {label} at {n_k}: members (all, corrected) "
+                 f"{ek.pmx_member_count()} on the kernel path, "
+                 f"{ep.pmx_member_count()} on the plain path")
+        if mod is attractor:
+            # phase 2's bars for one step
+            bar = "rtol = atol = 1e-6"
+            e_p = check_close(f"phase 22 {label} pos", sk.pos, sp.pos,
+                              1e-6, 1e-6)
+            e_v = check_close(f"phase 22 {label} vel", sk.vel, sp.vel,
+                              1e-6, 1e-6)
+        else:
+            # the gravity solvers kick then step: v1 = d (v0 + a dt),
+            # p1 = p0 + (v0 + a dt) dt; the plain engine's a gives the
+            # accelerations' bar of the phase that holds the same solver
+            # (11/12 for pm, 16 for pm2, 19 for the persistent stack,
+            # with pmx 1e-4 max|a| + 2e-4 max|a_x|); positions within dt^2
+            # times it plus a few f32 roundings of |p| < 64 (phase 19)
+            dt, damp = params.delta_time, params.damping
+            a = (sp.vel / damp - v0) / dt
+            a_max = float(a.abs().max())
+            bar_a = 1e-4 * a_max
+            if ek.pmx is not None:
+                flat, na = p0.reshape(3, -1), sk.n_active
+                g = ek.pairwise.gravitational_constant
+                levels = pm2.as_levels(ek.pm2)
+                a_x = (pmx.pmx_accel(flat, na, g, ek.pm, levels, ek.pmx)[0]
+                       - pm2.pmn_accel(flat, na, g, ek.pm, levels))
+                bar_a += 2e-4 * float(a_x.abs().max())
+            bar_p = dt * dt * bar_a + 64 * 2.0 ** -20
+            bar_v = dt * bar_a + float(sp.vel.abs().max()) * 2.0 ** -20
+            bar = f"|a| {a_max:.4g}, |dp| <= {bar_p:.3g}, |dv| <= {bar_v:.3g}"
+            e_p = check_close(f"phase 22 {label} pos", sk.pos, sp.pos, 0.0,
+                              bar_p)
+            e_v = check_close(f"phase 22 {label} vel", sk.vel, sp.vel, 0.0,
+                              bar_v)
+        note = ("" if ek.pmx is None else f"; pmx members (all, corrected) "
+                f"{ek.pmx_member_count()} on both paths at capacity "
+                f"{ek.pmx.capacity}")
+        if camera is not None:
+            pv = torch.from_numpy(params.pack()).to(dev)
+            vp = torch.from_numpy(camera.view_proj()).to(dev)
+            fargs = (sk.pos, sk.vel, sk.init_color, pv, vp, sk.n_active)
+            fk = rc.render(*fargs, width=1280, height=720)
+            fp = rc.render(*fargs, width=1280, height=720, plain=True)
+            check_close(f"phase 22 {label} frame", fk, fp, 1e-4, 1e-5)
+            u8 = int((raster.to_rgba8(fk).int()
+                      - raster.to_rgba8(fp).int()).abs().max())
+            lit_px = int((fk.sum(-1) > 0).sum())
+            if u8 > 1 or lit_px < 100:
+                fail(f"phase 22 {label} frame at {n_k}: u8 {u8}, {lit_px} "
+                     f"lit pixels")
+            note += (f"; the frame through the compact kernels vs plain "
+                    f"within 1e-5 + 1e-4|p|, {u8} u8, {lit_px} lit pixels")
+        print(f"phase 22 {label} first frame at {n_k}: kernel vs plain "
+              f"engine max |dp| {e_p:.3g}, |dv| {e_v:.3g} ({bar}); kernel "
+              f"launches {k_launches}, plain none{note}")
+        del ek, ep
+    print(f"phase 22 done in {time.perf_counter() - t_start:.1f} s")
+    return {"launches": total}
 
 
 def main() -> int:
@@ -3770,12 +4039,15 @@ def main() -> int:
     # -- phase 21: the packaging tool --------------------------------------------
     phase21(dev)
 
+    # -- phase 22: the worked examples -------------------------------------------
+    p22 = phase22(dev)["launches"]
+
     src = "particle_sim_tpu_torch/csrc/"
     kernels = [
         {"name": "step", "route": "cuda", "source": src + "step.cu",
          "replaces": "particle_sim_tpu/ops/step_pallas.py:38",
          "launches": launches["step"] + pmn_launches["step"]
-         + pmx_launches["step"] + p19["step"] + p20["step"],
+         + pmx_launches["step"] + p19["step"] + p20["step"] + p22["step"],
          "max_abs_err": err["step"],
          "ms": timing[1_000_000][0], "plain_ms": timing[1_000_000][1],
          "bound_ms": bytes_ms(STEP_BYTES * 1_000_000), "bound_by": "bytes",
@@ -3783,7 +4055,7 @@ def main() -> int:
         {"name": "compact", "route": "cuda",
          "source": src + "raster_compact.cu",
          "replaces": "particle_sim_tpu/render/raster_compact.py:165",
-         "launches": launches["compact"] + p20["compact"],
+         "launches": launches["compact"] + p20["compact"] + p22["compact"],
          "max_abs_err": err["compact"],
          "ms": cd_timing[1_000_000]["compact"][0],
          "plain_ms": cd_timing[1_000_000]["compact"][1],
@@ -3793,7 +4065,7 @@ def main() -> int:
         {"name": "deposit", "route": "cuda",
          "source": src + "raster_compact.cu",
          "replaces": "particle_sim_tpu/render/raster_compact.py:85",
-         "launches": launches["deposit"] + p20["deposit"],
+         "launches": launches["deposit"] + p20["deposit"] + p22["deposit"],
          "max_abs_err": err["deposit"],
          "ms": cd_timing[1_000_000]["deposit"][0],
          "plain_ms": cd_timing[1_000_000]["deposit"][1],
@@ -3802,7 +4074,8 @@ def main() -> int:
          "library_ms": cd_timing[1_000_000]["deposit"][2]},
         {"name": "pairwise", "route": "cuda", "source": src + "pairwise.cu",
          "replaces": "particle_sim_tpu/ops/pairwise_pallas.py:54",
-         "launches": g_launches["pairwise"] + p20["pairwise"],
+         "launches": g_launches["pairwise"] + p20["pairwise"]
+         + p22["pairwise"],
          "max_abs_err": err["pairwise"],
          "ms": pw_ms, "plain_ms": pwp_ms, "bound_ms": pw_bound,
          "bound_by": "operations", "library_ms": None},
@@ -3812,7 +4085,8 @@ def main() -> int:
         {"name": "pairwise_diff", "route": "cuda",
          "source": src + "pairwise.cu",
          "replaces": "particle_sim_tpu/ops/pairwise_pallas.py:54",
-         "launches": pmx_launches["pairwise_diff"] + p20["pairwise_diff"],
+         "launches": pmx_launches["pairwise_diff"] + p20["pairwise_diff"]
+         + p22["pairwise_diff"],
          "max_abs_err": err["pairwise_diff"],
          "ms": dk_ms, "plain_ms": dp_ms, "bound_ms": d_flops,
          "bound_by": "operations", "library_ms": None},
@@ -3820,7 +4094,7 @@ def main() -> int:
          "source": src + "raster_sorted.cu",
          "replaces": "particle_sim_tpu/render/raster_sorted.py:47",
          "launches": g_launches["sorted_deposit"]
-         + pm_runs["b"][0]["sorted_deposit"],
+         + pm_runs["b"][0]["sorted_deposit"] + p22["sorted_deposit"],
          "max_abs_err": err["sorted_deposit"],
          "ms": sd_timing[1_000_000][0], "plain_ms": sd_timing[1_000_000][1],
          "bound_ms": sd_timing[1_000_000][3], "bound_by": "bytes",
@@ -3832,7 +4106,7 @@ def main() -> int:
          "launches": sum(runs[k] for runs in (pm_launches, pmn_launches,
                                               pmx_launches, p19)
                          for k in ("pm_deposit", "pm_deposit_mass"))
-         + p20["pm_deposit"],
+         + p20["pm_deposit"] + p22["pm_deposit"] + p22["pm_deposit_mass"],
          "max_abs_err": err["pm_deposit"],
          "ms": pm_timing["n=1000000"][0],
          "plain_ms": pm_timing["n=1000000"][1],
@@ -3841,7 +4115,8 @@ def main() -> int:
         {"name": "pm_gather", "route": "cuda", "source": src + "pm.cu",
          "replaces": "particle_sim_tpu/ops/pm_pallas.py:259",
          "launches": pm_launches["pm_gather"] + pmn_launches["pm_gather"]
-         + pmx_launches["pm_gather"] + p19["pm_gather"] + p20["pm_gather"],
+         + pmx_launches["pm_gather"] + p19["pm_gather"] + p20["pm_gather"]
+         + p22["pm_gather"],
          "max_abs_err": err["pm_gather"],
          "ms": pm_timing["n=1000000"][4],
          "plain_ms": pm_timing["n=1000000"][5],
@@ -3899,7 +4174,7 @@ def main() -> int:
          "replaces": "particle_sim_tpu/ops/psort.py:232",
          "launches": g_launches["radix_hist"]
          + pm_runs["b"][0]["radix_hist"] + pmx_launches["radix_hist"]
-         + p19["radix_hist"] + p20["radix_hist"],
+         + p19["radix_hist"] + p20["radix_hist"] + p22["radix_hist"],
          "max_abs_err": err["sort"], "ms": sort_timing["16M"]["hist"],
          "plain_ms": sort_timing["16M"]["hist_plain"],
          "bound_ms": sort_timing["16M"]["hist_bound"], "bound_by": "bytes",
@@ -3909,7 +4184,7 @@ def main() -> int:
          "replaces": "particle_sim_tpu/ops/psort.py:289",
          "launches": g_launches["radix_pass"]
          + pm_runs["b"][0]["radix_pass"] + pmx_launches["radix_pass"]
-         + p19["radix_pass"] + p20["radix_pass"],
+         + p19["radix_pass"] + p20["radix_pass"] + p22["radix_pass"],
          "max_abs_err": err["sort"], "ms": sort_timing["16M"]["pass_"],
          "plain_ms": sort_timing["16M"]["pass_plain"],
          "bound_ms": sort_timing["16M"]["pass_bound"], "bound_by": "bytes",

@@ -348,9 +348,28 @@ class Engine:
         # is the global state: this rank keeps its rows
         if self._coll is not None:
             value = self._shard(value)
+        else:
+            self._check_device("the state", value.pos, value.vel,
+                               value.init_color, value.n_active)
         self._state = value
         self._count = int(value.n_active)
         self._drop_persist()
+
+    def _check_device(self, what: str, *tensors: torch.Tensor) -> None:
+        """Raise ValueError unless every tensor lies on the engine's device:
+        the kernel wrappers send CPU tensors to their plain versions, so a
+        CPU state on a CUDA engine would step on the CPU (or fail deep in a
+        step) instead of being refused here. A device without an index
+        ("cuda") means the current one, where ``.to(device)`` puts
+        tensors."""
+        want = self.device
+        if want.type == "cuda" and want.index is None:
+            want = torch.device("cuda", torch.cuda.current_device())
+        for t in tensors:
+            if t.device != want:
+                raise ValueError(
+                    f"{what} is on {t.device} but the engine on {want}: "
+                    f"build it with device=engine.device")
 
     @property
     def particle_count(self) -> int:
@@ -377,7 +396,11 @@ class Engine:
         return self._coll.all_gather(m)
 
     def set_masses(self, masses) -> None:
-        """Set per-particle source masses (length = particle_count)."""
+        """Set per-particle source masses (length = particle_count): a host
+        array, or a tensor on the engine's device (ValueError otherwise)."""
+        if isinstance(masses, torch.Tensor):
+            self._check_device("the masses", masses)
+            masses = masses.detach().cpu()
         self.ensure_identity_order()
         self._drop_persist()          # the sorted masses are stale
         m = np.asarray(masses, dtype=np.float32).ravel()
