@@ -9,6 +9,9 @@ Stdlib only: a tiny HTTP server that serves the viewer page and upgrades
 ``/ws`` to a WebSocket (RFC 6455). One sim thread steps the engine; one
 pack thread builds the newest frame; per-client writer threads push it
 (latest wins: a slow client drops frames instead of stalling the sim).
+While tracing is on (utils/trace.py) the sim thread's wait for the
+engine lock, the frame's host work after the lock (fetch, header,
+payload) and the frames built and sent are recorded.
 
 Wire protocol (binary server->client):
     u32 magic 'PSIM' | u32 mode (0 planar-f32, 1 compact-f16, 2 raster)
@@ -78,6 +81,7 @@ from ..io import packer
 from ..ops import pm2 as pm2_ops
 from ..ops import pm_persist
 from ..ops import pmx as pmx_ops
+from ..utils import trace
 from ..render.camera import Camera
 
 logger = logging.getLogger("particle_sim_tpu_torch.server")
@@ -383,38 +387,42 @@ class StreamServer:
             stats = self.engine.stats
             paused = self.engine.is_paused()
             rseq, rt = self._reflected_seq, self._reflected_t
-        if mode == 2:
-            fb = fb_dev.cpu().numpy()        # fetch outside the lock
-        else:
-            pos = np.ascontiguousarray(pos_dev.cpu().numpy())
-            rgba = np.ascontiguousarray(rgba_dev.cpu().numpy())
-        if rseq > self._latency_seq:
-            # first frame reflecting event rseq: freeze its end-to-end
-            # server latency (arrival -> payload fetched); later frames
-            # re-report the same number instead of a growing stale one
-            self._latency_seq = rseq
-            self._latency_ms = (time.perf_counter() - rt) * 1e3
-        if mode == 2:
-            h, w = fb.shape[0], fb.shape[1]
-            count = w * h
-            payload = struct.pack("<II", w, h) + fb.tobytes()
-        elif mode == 1:
-            payload = packer.pack_f16(pos, rgba).tobytes()
-            count = len(payload) // packer.RECORD_BYTES
-        else:
-            count = pos.shape[1]
-            payload = pos.tobytes() + rgba.tobytes()
-        head = struct.pack(
-            HEADER_FMT, MAGIC, mode, count, self.frame_id,
-            total, float(stats.fps), float(stats.update_ms),
-            rseq, float(self._latency_ms),
-            FLAG_PAUSED if paused else 0)
-        return head + payload
+        with trace.span("server.frame_host"):
+            if mode == 2:
+                fb = fb_dev.cpu().numpy()        # fetch outside the lock
+            else:
+                pos = np.ascontiguousarray(pos_dev.cpu().numpy())
+                rgba = np.ascontiguousarray(rgba_dev.cpu().numpy())
+            if rseq > self._latency_seq:
+                # first frame reflecting event rseq: freeze its end-to-end
+                # server latency (arrival -> payload fetched); later frames
+                # re-report the same number instead of a growing stale one
+                self._latency_seq = rseq
+                self._latency_ms = (time.perf_counter() - rt) * 1e3
+            if mode == 2:
+                h, w = fb.shape[0], fb.shape[1]
+                count = w * h
+                payload = struct.pack("<II", w, h) + fb.tobytes()
+            elif mode == 1:
+                payload = packer.pack_f16(pos, rgba).tobytes()
+                count = len(payload) // packer.RECORD_BYTES
+            else:
+                count = pos.shape[1]
+                payload = pos.tobytes() + rgba.tobytes()
+            head = struct.pack(
+                HEADER_FMT, MAGIC, mode, count, self.frame_id,
+                total, float(stats.fps), float(stats.update_ms),
+                rseq, float(self._latency_ms),
+                FLAG_PAUSED if paused else 0)
+            return head + payload
 
     def _sim_loop(self) -> None:
         while self.running:
+            trace.refresh()
             t0 = time.perf_counter()
-            with self.lock:
+            with trace.span("server.lock_wait"):
+                self.lock.acquire()
+            try:
                 stepped = not self.engine.is_paused()
                 seq, seq_t = self._event_seq, self._event_t
                 self.engine.step(self.params)
@@ -422,6 +430,8 @@ class StreamServer:
                     # this step consumed every event up to seq: frames
                     # packed from it reflect that input
                     self._reflected_seq, self._reflected_t = seq, seq_t
+            finally:
+                self.lock.release()
             if stepped:
                 # paused frames are identical: don't re-pack/re-stream them
                 self._state_version += 1
@@ -437,11 +447,13 @@ class StreamServer:
         sim cadence (frame fetch/pack never stalls stepping)."""
         packed_version = -1
         while self.running:
+            trace.refresh()
             if self._state_version == packed_version:
                 time.sleep(0.002)
                 continue
             packed_version = self._state_version
             frame = self._build_frame()
+            trace.count("server.frames_built")
             with self.cond:
                 self.latest = frame
                 self.frame_id += 1
@@ -456,9 +468,12 @@ class StreamServer:
                     self.cond.wait_for(
                         lambda: self.frame_id != last_sent or not self.running,
                         timeout=1.0)
+                    fresh = self.frame_id != last_sent   # not a resend
                     frame, last_sent = self.latest, self.frame_id
                 if frame is not None:
                     sock.sendall(ws_encode(frame))
+                    if fresh:
+                        trace.count("server.frames_sent")
         except OSError:
             pass
 

@@ -82,6 +82,7 @@ from ..ops import (
 )
 from ..render import raster, raster_compact, raster_sorted
 from ..render.camera import Camera
+from ..utils import trace
 from .stats import FrameStats
 
 DEFAULT_COUNT_TORCH = 100_000
@@ -441,12 +442,17 @@ class Engine:
         if self.paused:
             return
         pv = self._param_vec(params)
-        t0 = time.perf_counter()
-        if self._persist_eligible():
-            self._step_persist(pv)
-        else:
-            self._step_identity(pv)
-        self.stats.record_update(time.perf_counter() - t0)
+        # one timer: the engine.step span's clock reads when tracing is on
+        trace.refresh()
+        with trace.span("engine.step", device=self.device.type == "cuda",
+                        on_device=self.stats.record_device) as sp:
+            t0 = None if sp else time.perf_counter()
+            if self._persist_eligible():
+                self._step_persist(pv)
+            else:
+                self._step_identity(pv)
+        self.stats.record_update((sp.end_ns - sp.start_ns) * 1e-9 if sp
+                                 else time.perf_counter() - t0)
         self._check_pmx_overflow()
         if self.debug_checks:
             from ..utils.debug import validate_state

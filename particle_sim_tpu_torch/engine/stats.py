@@ -1,9 +1,13 @@
 """Frame statistics — FPS windows and EMA update time.
 
-Counterpart of ``particle_sim_tpu/engine/stats.py``, unchanged: FPS counted
-over >=1 s windows and an EMA-smoothed (alpha=0.1) update time in ms.
-``update_ms`` measures the host-side dispatch of a step; ``device_ms`` is
-populated when the engine is asked to time a step with a device sync.
+Counterpart of ``particle_sim_tpu/engine/stats.py``: FPS counted over
+>=1 s windows and an EMA-smoothed (alpha=0.1) update time in ms.
+``update_ms`` is the host-side dispatch of a step: ``Engine.step`` times
+it once, with the ``engine.step`` span's clock reads when tracing is on
+(utils/trace.py), else with ``time.perf_counter``. ``device_ms`` is the
+step's device time: from ``Engine.step_synced`` (host time to a device
+sync), or, when tracing is on, from the ``engine.step`` span's CUDA
+events as they are read (:meth:`FrameStats.record_device`).
 """
 
 from __future__ import annotations
@@ -41,10 +45,15 @@ class FrameStats:
     def record_update(self, seconds: float, *, device: bool = False) -> None:
         ms = seconds * 1e3
         if device:
-            self.device_ms = (1 - EMA_ALPHA) * self.device_ms + EMA_ALPHA * ms
+            self.record_device(ms)
         else:
             self.update_ms = (1 - EMA_ALPHA) * self.update_ms + EMA_ALPHA * ms
         self.steps_total += 1
+
+    def record_device(self, ms: float) -> None:
+        """Fold a step's device milliseconds into ``device_ms`` (the
+        step itself was counted by record_update)."""
+        self.device_ms = (1 - EMA_ALPHA) * self.device_ms + EMA_ALPHA * ms
 
     def snapshot(self) -> dict:
         return {

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ..core import params as P
+from ..utils import trace
 from . import physics
 
 #: Corner order of the CIC stencil, (cz, cy, cx), shared with csrc/pm.cu.
@@ -381,17 +382,18 @@ def solve_accel(rho: torch.Tensor, cfg: "P.PMConfig", softening,
     h = cfg.cell_size if cell_size is None else cell_size
     if cfg.boundary not in ("isolated", "periodic"):
         raise ValueError(f"unknown boundary mode {cfg.boundary!r}")
-    ks = (base_kernels_device(cfg, softening, h, device=rho.device)
-          if kernels is None else kernels)
-    if cfg.boundary == "isolated":
-        return _solve_isolated(rho, ks, g, cfg.gradient, h)
-    rho_hat = torch.fft.rfftn(rho)
-    if cfg.gradient == "fd":
-        phi = torch.fft.irfftn(rho_hat * ks[0], s=rho.shape)
-        return _fd_gradient(phi.to(torch.float32), h)
-    specs = rho_hat[None] * torch.stack(ks)
-    return torch.fft.irfftn(specs, s=rho.shape,
-                            dim=(1, 2, 3)).to(torch.float32)
+    with trace.span("pm.solve", device=rho.is_cuda):
+        ks = (base_kernels_device(cfg, softening, h, device=rho.device)
+              if kernels is None else kernels)
+        if cfg.boundary == "isolated":
+            return _solve_isolated(rho, ks, g, cfg.gradient, h)
+        rho_hat = torch.fft.rfftn(rho)
+        if cfg.gradient == "fd":
+            phi = torch.fft.irfftn(rho_hat * ks[0], s=rho.shape)
+            return _fd_gradient(phi.to(torch.float32), h)
+        specs = rho_hat[None] * torch.stack(ks)
+        return torch.fft.irfftn(specs, s=rho.shape,
+                                dim=(1, 2, 3)).to(torch.float32)
 
 
 def solve_accel_diff(rho: torch.Tensor, grid: int, h, eps, eps_outer,
@@ -444,17 +446,18 @@ def momentum_clean(acc: torch.Tensor, n_active,
     other than the identity (ops/pm_persist.py). ``coll``
     (parallel.mesh.Collectives): the mean over every rank's shard (one
     all-reduce of the three weighted sums and the weight)."""
-    if live is None:
-        live = live_mask(acc.shape[1], n_active, acc.device)
-    live = live.to(torch.float32)
-    w = live if masses is None else live * masses
-    s = (acc * w[None]).sum(dim=1, keepdim=True)
-    c = w.sum()
-    if coll is not None:
-        sc = coll.sum_(torch.cat([s.reshape(3), c.reshape(1)]))
-        s, c = sc[:3].reshape(3, 1), sc[3]
-    mean = s / torch.clamp_min(c, 1e-12)
-    return (acc - mean) * live[None]
+    with trace.span("pm.momentum", device=acc.is_cuda):
+        if live is None:
+            live = live_mask(acc.shape[1], n_active, acc.device)
+        live = live.to(torch.float32)
+        w = live if masses is None else live * masses
+        s = (acc * w[None]).sum(dim=1, keepdim=True)
+        c = w.sum()
+        if coll is not None:
+            sc = coll.sum_(torch.cat([s.reshape(3), c.reshape(1)]))
+            s, c = sc[:3].reshape(3, 1), sc[3]
+        mean = s / torch.clamp_min(c, 1e-12)
+        return (acc - mean) * live[None]
 
 
 def pm_accel_ref(pos_flat: torch.Tensor, n_active, g_const, softening,
@@ -493,5 +496,6 @@ def step_pm_ref(pos: torch.Tensor, vel: torch.Tensor,
     flat = pos.reshape(3, -1)
     acc = pm_accel_ref(flat, n_active, pair_vec[0], cfg.softening, cfg,
                        masses=masses)
-    return physics.kick_and_step_planes(pos, vel, acc.reshape(pos.shape),
-                                        param_vec)
+    with trace.span("pm.kick", device=pos.is_cuda):
+        return physics.kick_and_step_planes(pos, vel, acc.reshape(pos.shape),
+                                            param_vec)

@@ -39,7 +39,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..core import params as P
-from ..utils import cuda_build
+from ..utils import cuda_build, trace
 from . import physics, pm, step_cuda
 
 #: Kernel launches in this process: the deposit with unit masses, the
@@ -287,14 +287,15 @@ def kick_and_step(pos: torch.Tensor, vel: torch.Tensor, acc: torch.Tensor,
     planes: a plain add and the step kernel on CUDA,
     physics.kick_and_step_planes copied back on the CPU. -> (pos, vel), the
     same tensors."""
-    if pos.device.type == "cpu":
-        p, v = physics.kick_and_step_planes(pos, vel, acc.reshape(pos.shape),
-                                            param_vec)
-        pos.copy_(p)
-        vel.copy_(v)
-        return pos, vel
-    vel.add_(acc.reshape(vel.shape) * param_vec[P.P_DT])
-    return step_cuda.step(pos, vel, param_vec)
+    with trace.span("pm.kick", device=pos.is_cuda):
+        if pos.device.type == "cpu":
+            p, v = physics.kick_and_step_planes(
+                pos, vel, acc.reshape(pos.shape), param_vec)
+            pos.copy_(p)
+            vel.copy_(v)
+            return pos, vel
+        vel.add_(acc.reshape(vel.shape) * param_vec[P.P_DT])
+        return step_cuda.step(pos, vel, param_vec)
 
 
 def step_pm(pos: torch.Tensor, vel: torch.Tensor, param_vec: torch.Tensor,

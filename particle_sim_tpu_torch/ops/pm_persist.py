@@ -65,6 +65,7 @@ import torch
 
 from ..core import params as P
 from ..core.state import LANE
+from ..utils import trace
 from . import physics, pm, pm2, pm_cuda, pmx, psort
 
 #: Grids of the JAX package's persistent mode; its cell and class keys
@@ -249,7 +250,8 @@ def repair_state(st: SortedPMState, n_active, cfg: "P.PMConfig",
                  use_kernels: bool = True) -> SortedPMState:
     """The state re-sorted by its current keys, ``resorts`` + 1 and, with
     levels, ``fine_b`` the new class boundaries."""
-    st2 = _resort(st, n_active, cfg, levels, use_kernels)
+    with trace.span("persist.repair", device=st.pos.is_cuda):
+        st2 = _resort(st, n_active, cfg, levels, use_kernels)
     return st2._replace(resorts=st.resorts + 1)
 
 
@@ -455,8 +457,9 @@ def step_sorted(st: SortedPMState, param_vec: torch.Tensor,
     if use_fast:
         pm_cuda.kick_and_step(pos, vel, acc, param_vec)
     else:
-        pos, vel = physics.kick_and_step_planes(pos, vel,
-                                                acc.reshape(pos.shape),
-                                                param_vec)
+        with trace.span("pm.kick", device=pos.is_cuda):
+            pos, vel = physics.kick_and_step_planes(pos, vel,
+                                                    acc.reshape(pos.shape),
+                                                    param_vec)
         st = st._replace(pos=pos.reshape(3, -1), vel=vel.reshape(3, -1))
     return st if cfgx is None else (st, out[2])

@@ -31,7 +31,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..utils import cuda_build
+from ..utils import cuda_build, trace
 from ..utils.search import rank_right_iota
 from .raster import (
     PX_PER_TILE, TILE_H, TILE_W, TileKeys, tile_keys, tiles_to_frame,
@@ -337,7 +337,8 @@ def render_tiles(words: PointWords, *, plain: bool = False) -> torch.Tensor:
     # The bucket is chosen from kept_n on the host: eager PyTorch has no
     # traced switch, so this is one device->host read per rendered frame
     # (never per simulation step).
-    kept_points = int(words.kept_n.item()) * CHUNK
+    with trace.span("render.kept_read"):
+        kept_points = int(words.kept_n.item()) * CHUNK
     bsz = next(bb for bb in buckets(n) if kept_points <= bb)
     do_compact, do_deposit = ((compact_plain, deposit_plain) if plain
                               else (compact, deposit))
