@@ -262,14 +262,25 @@ Phases (each prints a line; any failure raises and exits non-zero):
      dt^2 times the accelerations' bar of the phase that holds the same
      solver (phases 11-12, 16, 19), and the frame through the compact
      kernels against their plain versions at phase 3's bars
+ 23. the PM step's tail in two launches (chip_smoke.phase23, callable
+     alone): the momentum sums kernel and the step kernel's kicked form
+     at 1M and 16M, unit masses with a live count and masses with a
+     shuffled live mask, at 1M also the auto box's scale: the mean
+     within 1e-6 of the largest |mean| of a float64 mean, two sums
+     launches bit for bit, pos and vel bit for bit the chain it replaced
+     (fed the kernel's mean), kick_and_step bit for bit a plain add and
+     the step kernel; times in turns against the old chain, with the
+     bytes bound; traced 1M auto-box and 16M persistent engines count
+     pm.kick_fused once a step
 
 The line before the last is a JSON object with one entry per kernel (the
-launches of step are phases 4, 16 (the engine), 18, 19, 20 and 22
+launches of step are phases 4, 16 (the engine), 18, 19, 20, 22 and 23
 together; of pairwise phases 8 and 20 (the ring); of pairwise_diff
 phases 18, 20 (the deep zoom) and 22; of pm_deposit and pm_gather phase
-12's runs (a) and (b), 16, 18, 19, 20 and 22 together; of compact and
-deposit phases 4, 20 and 22; those of sorted_deposit phases 8 and 12
-(b); of radix_hist and radix_pass phases 8, 12 (b), 18, 19, 20 and 22;
+12's runs (a) and (b), 16, 18, 19, 20, 22 and 23 together; of compact
+and deposit phases 4, 20 and 22; those of sorted_deposit phases 8 and 12
+(b); of radix_hist and radix_pass phases 8, 12 (b), 18, 19, 20, 22 and
+23;
 those of
 pairwise_mxu, hilbert_keys, inlier_box, block_sort and merge_round the
 drives of phases 14 and 15); the last line is {"ok": true, "device":
@@ -1274,6 +1285,8 @@ def launch_counts() -> dict:
             "pm_deposit": pm_cuda.DEPOSIT_LAUNCHES
             + pm_cuda.DEPOSIT_MASS_LAUNCHES,
             "pm_gather": pm_cuda.GATHER_LAUNCHES,
+            "pm_momentum": pm_cuda.MOMENTUM_LAUNCHES,
+            "pm_kick_fused": pm_cuda.KICK_FUSED_LAUNCHES,
             "radix_hist": psort.RADIX_HIST_LAUNCHES,
             "radix_pass": psort.RADIX_PASS_LAUNCHES,
             "compact": rc.COMPACT_LAUNCHES, "deposit": rc.DEPOSIT_LAUNCHES,
@@ -1291,8 +1304,189 @@ def zero_launches() -> None:
     pairwise_cuda.DIFF_LAUNCHES = 0
     pm_cuda.DEPOSIT_LAUNCHES = pm_cuda.DEPOSIT_MASS_LAUNCHES = 0
     pm_cuda.GATHER_LAUNCHES = 0
+    pm_cuda.MOMENTUM_LAUNCHES = pm_cuda.KICK_FUSED_LAUNCHES = 0
     psort.RADIX_HIST_LAUNCHES = psort.RADIX_PASS_LAUNCHES = 0
     rc.COMPACT_LAUNCHES = rc.DEPOSIT_LAUNCHES = rs.LAUNCHES = 0
+
+
+def phase23(dev) -> dict:
+    """Phase 23: the PM step's tail in two launches, the momentum sums
+    (pm_cuda.momentum_mean, csrc/momentum.cu) and the step kernel's kicked
+    form with the clean and the scale (pm_cuda.clean_kick_and_step,
+    csrc/step.cu), at 1M and 16M on the hollow sphere's raw PM
+    acceleration (G = 128): unit masses with a live count, and masses
+    with a shuffled live mask; at 1M also the auto box's G / h^2 scale.
+    The kernel's mean within 1e-6 of the largest |mean| of a float64 mean
+    (and two launches bit for bit); pos and vel after one step bit for
+    bit the chain it replaced (pm.momentum_clean's passes with the
+    kernel's mean, the scale, vel += a*dt, the step kernel);
+    kick_and_step (pm2's and pmx's tail) bit for bit a plain add and the
+    step kernel. Times with CUDA events, in turns: the old chain
+    (momentum_clean, the scale, the add, the step kernel) against the two
+    launches, each launch alone, and the bytes bound beside them. Then
+    traced engines (the 1M auto box, the 16M persistent PM) count
+    pm.kick_fused once a step. Callable alone after
+    ``cuda_build.library()``. -> {"launches", "ms"}."""
+    import numpy as np
+    import torch
+
+    from particle_sim_tpu_torch.core import generate as gen
+    from particle_sim_tpu_torch.core.params import (
+        P_DT, PairwiseParams, PMConfig, SimParams,
+    )
+    from particle_sim_tpu_torch.core.state import ParticleState
+    from particle_sim_tpu_torch.engine import Engine
+    from particle_sim_tpu_torch.ops import pm, pm_cuda, step_cuda
+    from particle_sim_tpu_torch.utils import trace
+
+    t_start = time.perf_counter()
+    cfg = PMConfig()                          # G = 128, static box
+    pv = torch.from_numpy(SimParams(
+        delta_time=0.016, is_mouse_dragging=True,
+        mouse_position=(10.0, 5.0, -8.0), mouse_force=40.0,
+        mouse_radius=30.0).pack()).to(dev)
+    ms, total = {}, {}
+
+    def old_chain(pos, vel, acc, mean, live_f, scale):
+        a = (acc - mean[:, None]) * live_f[None]
+        a = scale * a
+        vel.add_(a.reshape(vel.shape) * pv[P_DT])
+        return step_cuda.step(pos, vel, pv)
+
+    for n in (1_000_000, 16_777_216):
+        pos_h, _, col = gen.generate(n)
+        vel_h = np.random.default_rng(23).normal(size=pos_h.shape) * 3.0
+        st = ParticleState.from_arrays(pos_h, vel_h.astype(np.float32), col,
+                                       device=dev)
+        del pos_h, vel_h, col
+        flat, na = st.pos.reshape(3, -1), st.n_active
+        cap = flat.shape[1]
+        gen_t = torch.Generator(device=dev).manual_seed(23)
+        shuffled = torch.randperm(cap, generator=gen_t, device=dev) < na
+        masses = 0.5 + torch.rand(cap, generator=gen_t, device=dev)
+        masses[0] = 1000.0
+        g = torch.tensor([0.7, cfg.softening], device=dev)[0]
+        cases = [("count", None, None, cfg), ("masses+live", masses,
+                                               shuffled, cfg)]
+        if n == 1_000_000:
+            cases.append(("auto_box", None, None,
+                          PMConfig(auto_box=True)))
+        for label, m, live, c in cases:
+            acc, cell = pm_cuda._accel_raw(flat, na, c, masses=m, live=live)
+            scale = g if cell is None else g / (cell * cell)
+            live_f = (pm.live_mask(cap, na, dev) if live is None
+                      else live).to(torch.float32)
+            zero_launches()
+            mean = pm_cuda.momentum_mean(acc, na, masses=m, live=live)
+            again = pm_cuda.momentum_mean(acc, na, masses=m, live=live)
+            w = live_f.double() * (1.0 if m is None else m.double())
+            exact = (acc.double() * w).sum(dim=1) / w.sum()
+            plain = pm.momentum_mean(acc, na, m, live=live)
+            bar = 1e-6 * float(exact.abs().max())
+            gap = float((mean.double() - exact).abs().max())
+            gap_plain = float((plain.double() - exact).abs().max())
+            if not torch.equal(mean, again):
+                fail(f"phase 23 {label} n={n}: two sums launches differ")
+            if gap > bar:
+                fail(f"phase 23 {label} n={n}: mean {gap:.3g} from float64 "
+                     f"(bar {bar:.3g})")
+            pk, vk = st.pos.clone(), st.vel.clone()
+            pm_cuda.clean_kick_and_step(pk, vk, acc, pv, mean, na, g,
+                                        live=live, cell=cell)
+            pp_, vp_ = st.pos.clone(), st.vel.clone()
+            old_chain(pp_, vp_, acc, mean, live_f, scale)
+            torch.cuda.synchronize()
+            got = launch_counts()
+            if (got["pm_momentum"], got["pm_kick_fused"], got["step"]) != (
+                    2, 1, 2):
+                fail(f"phase 23 {label} n={n}: launches {got}")
+            if not (torch.equal(pk, pp_) and torch.equal(vk, vp_)):
+                fail(f"phase 23 {label} n={n}: the fused step differs from "
+                     f"the chain by {float((pk - pp_).abs().max()):.3g} / "
+                     f"{float((vk - vp_).abs().max()):.3g}")
+            print(f"phase 23 {label} n={n}: mean {mean.tolist()}, "
+                  f"{gap:.3g} from float64 (bar {bar:.3g}; torch's float32 "
+                  f"sums {gap_plain:.3g}); two sums launches equal; pos and "
+                  f"vel == the chain bit for bit")
+            if label == "count":
+                # pm2's and pmx's tail: kick_and_step, no clean, no scale
+                pk, vk = st.pos.clone(), st.vel.clone()
+                pm_cuda.kick_and_step(pk.view(3, -1, 128),
+                                      vk.view(3, -1, 128), acc, pv)
+                pp_, vp_ = st.pos.clone(), st.vel.clone()
+                vp_.add_(acc.reshape(vp_.shape) * pv[P_DT])
+                step_cuda.step(pp_, vp_, pv)
+                if not (torch.equal(pk, pp_) and torch.equal(vk, vp_)):
+                    fail(f"phase 23 kick_and_step n={n}: differs from a "
+                         f"plain add and the step kernel")
+            # times in turns: the old chain, the two launches, each alone
+            tp, tv = st.pos.clone(), st.vel.clone()
+            fns = [
+                lambda: old_chain(tp, tv, acc, pm.momentum_mean(
+                    acc, na, m, live=live), live_f, scale),
+                lambda: pm_cuda.clean_kick_and_step(
+                    tp, tv, acc, pv, pm_cuda.momentum_mean(
+                        acc, na, masses=m, live=live), na, g, live=live,
+                    cell=cell),
+                lambda: pm_cuda.momentum_mean(acc, na, masses=m, live=live),
+                lambda: pm_cuda.clean_kick_and_step(
+                    tp, tv, acc, pv, mean, na, g, live=live, cell=cell)]
+            t = median_ms(fns, reps=7, inner=10, lead_ms=3.0)
+            live_b = 0 if live is None else 1
+            sums_b = cap * (12 + live_b + (0 if m is None else 4))
+            kick_b = cap * (12 + live_b + 24 + 24)
+            ms[f"{label} n={n}"] = t
+            print(f"phase 23 {label} n={n} times (ms, in turns): old chain "
+                  f"{t[0]:.5f} (momentum_clean's passes, the scale, the "
+                  f"add, the step kernel), two launches {t[1]:.5f}; sums "
+                  f"alone {t[2]:.5f} (bound {bytes_ms(sums_b):.5f}: "
+                  f"{sums_b / 1e6:.1f} MB), kicked step alone {t[3]:.5f} "
+                  f"(bound {bytes_ms(kick_b):.5f}: {kick_b / 1e6:.1f} MB)")
+            del acc, tp, tv, pk, vk, pp_, vp_
+        del st, flat, shuffled, masses
+        torch.cuda.empty_cache()
+
+    # traced engines: pm.kick_fused once a step
+    runs = (("pm1m autobox", dict(particle_count=1_000_000,
+                                  pm=PMConfig(auto_box=True),
+                                  pairwise=PairwiseParams(0.08, 2.0)),
+             SimParams(delta_time=0.004)),
+            ("pm16m persist", dict(particle_count=16_777_216, pm=cfg,
+                                   pm_persist=True,
+                                   pairwise=PairwiseParams(1.0, 2.0)),
+             SimParams()))
+    for label, kw, params in runs:
+        e = Engine(device=dev, **kw)
+        e.step(params)
+        torch.cuda.synchronize()
+        zero_launches()
+        trace.reset()
+        trace.enable()
+        try:
+            for _ in range(10):
+                e.step(params)
+            recs = trace.records()
+            counts = trace.counters()
+        finally:
+            trace.disable()
+            trace.reset()
+        got = launch_counts()
+        steps = sum(1 for r in recs if r.name == "engine.step")
+        if (steps, counts.get("pm.kick_fused"), got["pm_momentum"],
+                got["pm_kick_fused"]) != (10, 10, 10, 10):
+            fail(f"phase 23 {label}: engine.step {steps}, pm.kick_fused "
+                 f"{counts.get('pm.kick_fused')}, launches {got}")
+        kick_ms = [r.device_ms for r in recs
+                   if r.name in ("pm.momentum", "pm.kick")]
+        print(f"phase 23 {label} engine x 10 traced: pm.kick_fused 10, "
+              f"launches {got}; pm.momentum + pm.kick "
+              f"{sum(kick_ms) / 10:.4f} device ms a step")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        del e
+        torch.cuda.empty_cache()
+    print(f"phase 23 done in {time.perf_counter() - t_start:.1f} s")
+    return {"launches": total, "ms": ms}
 
 
 def phase20(dev, states) -> dict:
@@ -4042,12 +4236,16 @@ def main() -> int:
     # -- phase 22: the worked examples -------------------------------------------
     p22 = phase22(dev)["launches"]
 
+    # -- phase 23: the PM step's tail in two launches -----------------------------
+    p23 = phase23(dev)["launches"]
+
     src = "particle_sim_tpu_torch/csrc/"
     kernels = [
         {"name": "step", "route": "cuda", "source": src + "step.cu",
          "replaces": "particle_sim_tpu/ops/step_pallas.py:38",
          "launches": launches["step"] + pmn_launches["step"]
-         + pmx_launches["step"] + p19["step"] + p20["step"] + p22["step"],
+         + pmx_launches["step"] + p19["step"] + p20["step"] + p22["step"]
+         + p23["step"],
          "max_abs_err": err["step"],
          "ms": timing[1_000_000][0], "plain_ms": timing[1_000_000][1],
          "bound_ms": bytes_ms(STEP_BYTES * 1_000_000), "bound_by": "bytes",
@@ -4106,7 +4304,8 @@ def main() -> int:
          "launches": sum(runs[k] for runs in (pm_launches, pmn_launches,
                                               pmx_launches, p19)
                          for k in ("pm_deposit", "pm_deposit_mass"))
-         + p20["pm_deposit"] + p22["pm_deposit"] + p22["pm_deposit_mass"],
+         + p20["pm_deposit"] + p22["pm_deposit"] + p22["pm_deposit_mass"]
+         + p23["pm_deposit"],
          "max_abs_err": err["pm_deposit"],
          "ms": pm_timing["n=1000000"][0],
          "plain_ms": pm_timing["n=1000000"][1],
@@ -4116,7 +4315,7 @@ def main() -> int:
          "replaces": "particle_sim_tpu/ops/pm_pallas.py:259",
          "launches": pm_launches["pm_gather"] + pmn_launches["pm_gather"]
          + pmx_launches["pm_gather"] + p19["pm_gather"] + p20["pm_gather"]
-         + p22["pm_gather"],
+         + p22["pm_gather"] + p23["pm_gather"],
          "max_abs_err": err["pm_gather"],
          "ms": pm_timing["n=1000000"][4],
          "plain_ms": pm_timing["n=1000000"][5],
@@ -4174,7 +4373,8 @@ def main() -> int:
          "replaces": "particle_sim_tpu/ops/psort.py:232",
          "launches": g_launches["radix_hist"]
          + pm_runs["b"][0]["radix_hist"] + pmx_launches["radix_hist"]
-         + p19["radix_hist"] + p20["radix_hist"] + p22["radix_hist"],
+         + p19["radix_hist"] + p20["radix_hist"] + p22["radix_hist"]
+         + p23["radix_hist"],
          "max_abs_err": err["sort"], "ms": sort_timing["16M"]["hist"],
          "plain_ms": sort_timing["16M"]["hist_plain"],
          "bound_ms": sort_timing["16M"]["hist_bound"], "bound_by": "bytes",
@@ -4184,7 +4384,8 @@ def main() -> int:
          "replaces": "particle_sim_tpu/ops/psort.py:289",
          "launches": g_launches["radix_pass"]
          + pm_runs["b"][0]["radix_pass"] + pmx_launches["radix_pass"]
-         + p19["radix_pass"] + p20["radix_pass"] + p22["radix_pass"],
+         + p19["radix_pass"] + p20["radix_pass"] + p22["radix_pass"]
+         + p23["radix_pass"],
          "max_abs_err": err["sort"], "ms": sort_timing["16M"]["pass_"],
          "plain_ms": sort_timing["16M"]["pass_plain"],
          "bound_ms": sort_timing["16M"]["pass_bound"], "bound_by": "bytes",

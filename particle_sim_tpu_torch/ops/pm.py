@@ -434,6 +434,24 @@ def solve_accel_pair(rho: torch.Tensor, rho2: torch.Tensor,
 # full plain pipeline
 # ---------------------------------------------------------------------------
 
+def momentum_mean(acc: torch.Tensor, n_active, masses=None, live=None,
+                  coll=None) -> torch.Tensor:
+    """f32[3]: the live mass-weighted mean of ``acc`` (f32[3, N]),
+    ``sum w a / max(sum w, 1e-12)`` with w = live * masses. Arguments as
+    in :func:`momentum_clean`; ``live`` may also be float 0/1."""
+    if live is None:
+        live = live_mask(acc.shape[1], n_active, acc.device)
+    w = live.to(torch.float32)
+    if masses is not None:
+        w = w * masses
+    s = (acc * w[None]).sum(dim=1)
+    c = w.sum()
+    if coll is not None:
+        sc = coll.sum_(torch.cat([s, c.reshape(1)]))
+        s, c = sc[:3], sc[3]
+    return s / torch.clamp_min(c, 1e-12)
+
+
 def momentum_clean(acc: torch.Tensor, n_active,
                    masses=None, live=None, coll=None) -> torch.Tensor:
     """Subtract the live mass-weighted mean acceleration (zero padding).
@@ -445,19 +463,15 @@ def momentum_clean(acc: torch.Tensor, n_active,
     ``live`` (bool[N]) overrides ``arange < n_active``: for slot orders
     other than the identity (ops/pm_persist.py). ``coll``
     (parallel.mesh.Collectives): the mean over every rank's shard (one
-    all-reduce of the three weighted sums and the weight)."""
+    all-reduce of the three weighted sums and the weight). On CUDA the PM
+    steps take the mean in one kernel and subtract it inside the step
+    kernel's launch (ops/pm_cuda.py step_pm_planes)."""
     with trace.span("pm.momentum", device=acc.is_cuda):
         if live is None:
             live = live_mask(acc.shape[1], n_active, acc.device)
         live = live.to(torch.float32)
-        w = live if masses is None else live * masses
-        s = (acc * w[None]).sum(dim=1, keepdim=True)
-        c = w.sum()
-        if coll is not None:
-            sc = coll.sum_(torch.cat([s.reshape(3), c.reshape(1)]))
-            s, c = sc[:3].reshape(3, 1), sc[3]
-        mean = s / torch.clamp_min(c, 1e-12)
-        return (acc - mean) * live[None]
+        mean = momentum_mean(acc, n_active, masses, live=live, coll=coll)
+        return (acc - mean[:, None]) * live[None]
 
 
 def pm_accel_ref(pos_flat: torch.Tensor, n_active, g_const, softening,

@@ -26,9 +26,17 @@ cell). A non-finite acceleration grid comes out non-finite per component
 at the particles that read it (the TPU's un-sort pack poisons all three
 components of such a particle together).
 
-:func:`step_pm` updates ``pos`` and ``vel`` IN PLACE on CUDA, like
-``pairwise_cuda.step_pairwise``: the kernels' accelerations, a plain
-``vel += acc*dt``, then the attractor step kernel.
+:func:`step_pm` (through :func:`step_pm_planes`) updates ``pos`` and
+``vel`` IN PLACE on CUDA, like ``pairwise_cuda.step_pairwise``: the
+deposit, the cuFFT solve and the gather give the raw acceleration; then
+two launches finish the step: :func:`momentum_mean` (csrc/momentum.cu,
+the live mass-weighted mean) and :func:`clean_kick_and_step`, the step
+kernel's kicked form (csrc/step.cu), which subtracts the mean, applies
+the scale (G, or G / h^2 in an auto box), adds ``acc * dt`` to the
+velocity and runs the attractor step. :func:`pm_accel` still returns the
+cleaned, scaled acceleration (the plain ``pm.momentum_clean``) for the
+callers that want the acceleration itself; :func:`kick_and_step` kicks
+by an acceleration as it is (the multi-level and window-exact steps).
 """
 
 from __future__ import annotations
@@ -40,23 +48,31 @@ import torch
 
 from ..core import params as P
 from ..utils import cuda_build, trace
-from . import physics, pm, step_cuda
+from . import pm, step_cuda
 
 #: Kernel launches in this process: the deposit with unit masses, the
-#: deposit with masses, and the gather.
+#: deposit with masses, the gather, the momentum sums (csrc/momentum.cu),
+#: and the step kernel's kicked form with the momentum clean
+#: (:func:`clean_kick_and_step`; step_cuda.LAUNCHES counts these too).
 DEPOSIT_LAUNCHES = 0
 DEPOSIT_MASS_LAUNCHES = 0
 GATHER_LAUNCHES = 0
+MOMENTUM_LAUNCHES = 0
+KICK_FUSED_LAUNCHES = 0
+
+#: Blocks of the momentum sums kernel at most (8 of 256 threads on each
+#: of the H100's 132 SMs): with N they fix the order of its sums.
+MOMENTUM_MAX_BLOCKS = 132 * 8
 
 
-def _check(pos: torch.Tensor, masses, live) -> None:
+def _check(pos: torch.Tensor, masses, live, name: str = "pos") -> None:
     if not isinstance(pos, torch.Tensor):
-        raise TypeError("pos must be a torch.Tensor")
+        raise TypeError(f"{name} must be a torch.Tensor")
     if pos.dtype != torch.float32 or pos.ndim != 2 or pos.shape[0] != 3:
-        raise ValueError(f"pos must be float32[3, N], got {pos.dtype} "
+        raise ValueError(f"{name} must be float32[3, N], got {pos.dtype} "
                          f"{tuple(pos.shape)}")
     if not pos.is_contiguous():
-        raise ValueError("pos must be contiguous")
+        raise ValueError(f"{name} must be contiguous")
     n = pos.shape[1]
     for name, t, dtype in (("masses", masses, torch.float32),
                            ("live", live, torch.bool)):
@@ -233,7 +249,129 @@ def gather(grids: torch.Tensor, pos: torch.Tensor, n_active, box_min, cell,
     return out
 
 
+# -- the momentum clean ---------------------------------------------------------------
+@functools.lru_cache(maxsize=16)
+def _momentum_workspace(device: torch.device, stream: int) -> tuple:
+    """(partials f64[4 * MOMENTUM_MAX_BLOCKS], counter int32[1]) of the
+    sums kernel on one stream: the counter is 0 between launches (the
+    kernel's last block sets it back), so the launches queued on one
+    stream share it; another stream gets its own."""
+    return (torch.empty(4 * MOMENTUM_MAX_BLOCKS, dtype=torch.float64,
+                        device=device),
+            torch.zeros(1, dtype=torch.int32, device=device))
+
+
+def momentum_mean(acc: torch.Tensor, n_active, *, masses=None, live=None,
+                  coll=None) -> torch.Tensor:
+    """f32[3] live mass-weighted mean of ``acc`` (f32[3, N]): on CUDA one
+    launch of the sums kernel, float64 sums in an order fixed by N (two
+    calls give the same bits); pm.momentum_mean on CPU tensors. ``live``
+    (bool[N]) overrides ``arange < n_active``. ``coll``: the kernel's
+    float32 sums and weight are all-reduced, then divided as
+    pm.momentum_mean divides."""
+    global MOMENTUM_LAUNCHES
+    _check(acc, masses, live, name="acc")
+    with trace.span("pm.momentum", device=acc.is_cuda):
+        if acc.device.type == "cpu":
+            return pm.momentum_mean(acc, n_active, masses, live=live,
+                                    coll=coll)
+        dev = acc.device
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        na = None if live is not None else torch.as_tensor(
+            n_active, dtype=torch.int32, device=dev).reshape(1)
+        out = torch.empty(8, dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        partials, counter = _momentum_workspace(dev, stream)
+        with torch.cuda.device(dev):
+            err = cuda_build.library().psim_momentum_sums(
+                acc.data_ptr(), acc.shape[1], _ptr(live), _ptr(na),
+                _ptr(masses), partials.data_ptr(), counter.data_ptr(),
+                MOMENTUM_MAX_BLOCKS, out.data_ptr(), stream)
+        MOMENTUM_LAUNCHES += 1
+        cuda_build.check(err, "momentum sums")
+        if coll is None:
+            return out[4:7]
+        sums = coll.sum_(out[:4])
+        return sums[:3] / torch.clamp_min(sums[3], 1e-12)
+
+
+def clean_kick_and_step(pos: torch.Tensor, vel: torch.Tensor,
+                        acc: torch.Tensor, param_vec: torch.Tensor,
+                        mean: torch.Tensor, n_active, g_const, *,
+                        live=None, cell=None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The PM step's tail, IN PLACE on (3, R, LANE) planes, in one launch
+    of the step kernel's kicked form (step_cuda.kick_step; its plain
+    version on CPU tensors): ``a = (acc - mean) * live`` (``live`` bool[N]
+    or ``arange < n_active``), ``a = scale * a`` with scale ``g_const``,
+    or ``g_const / (cell * cell)`` when the auto box's ``cell`` is given,
+    then ``vel += a * dt`` and the attractor step. ``acc``: the raw
+    f32[3, N] acceleration; ``mean``: :func:`momentum_mean` of it. The
+    same operations in the same order as pm.momentum_clean, the scale
+    and :func:`kick_and_step`: for a given mean, the same bits. -> (pos,
+    vel), the same tensors."""
+    global KICK_FUSED_LAUNCHES
+    dev = pos.device
+    with trace.span("pm.kick", device=pos.is_cuda):
+        trace.count("pm.kick_fused")
+        g = (g_const if isinstance(g_const, torch.Tensor)
+             else device_const((float(g_const),), dev))
+        na = None if live is not None else torch.as_tensor(
+            n_active, dtype=torch.int32, device=dev)
+        out = step_cuda.kick_step(pos, vel, acc, param_vec, mean=mean,
+                                  live=live, n_active=na, g=g, cell=cell)
+        if dev.type == "cuda":
+            KICK_FUSED_LAUNCHES += 1
+        return out
+
+
+def kick_and_step(pos: torch.Tensor, vel: torch.Tensor, acc: torch.Tensor,
+                  param_vec: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``vel += acc*dt``, then the attractor step, IN PLACE on (3, R, LANE)
+    planes: one launch of the step kernel's kicked form with no clean and
+    no scale on CUDA (step_cuda.kick_step; bit for bit a plain ``vel +=
+    acc*dt`` and the step kernel), physics.kick_and_step_planes copied
+    back on the CPU. -> (pos, vel), the same tensors."""
+    with trace.span("pm.kick", device=pos.is_cuda):
+        return step_cuda.kick_step(pos, vel, acc.reshape(3, -1).contiguous(),
+                                   param_vec)
+
+
 # -- the pipeline --------------------------------------------------------------------
+def _accel_raw(pos_flat: torch.Tensor, n_active, cfg: "P.PMConfig", *,
+               masses=None, live=None, coll=None, plain: bool = False
+               ) -> tuple:
+    """(acc, cell): the gathered f32[3, N] acceleration of
+    :func:`pm_accel` before its momentum clean and scale; ``cell`` is the
+    auto box's 0-d cell size (the scale is G / cell^2), None for a static
+    box (the scale is G)."""
+    dep, gat = (deposit_plain, gather_plain) if plain else (deposit, gather)
+    if cfg.auto_box:
+        if live is not None:
+            raise ValueError("a live mask needs a static box")
+        # coords clamp into the traced box in either boundary mode, as in
+        # pm.pm_accel_ref: the upper corner never needs the wrap
+        box_min, cell = pm.auto_box(pos_flat, n_active, cfg.grid, coll=coll)
+        rho = dep(pos_flat, n_active, box_min, cell, cfg.grid,
+                  periodic=False, masses=masses)
+        if coll is not None:
+            coll.sum_(rho)
+        grids = pm.solve_accel(rho, cfg, cfg.softening, cell_size=1.0)
+        return gat(grids, pos_flat, n_active, box_min, cell,
+                   periodic=False), cell
+    periodic = cfg.boundary == "periodic"
+    box_min, cell = static_box(tuple(cfg.box_min), float(cfg.cell_size),
+                               pos_flat.device)
+    rho = dep(pos_flat, n_active, box_min, cell, cfg.grid,
+              periodic=periodic, masses=masses, live=live)
+    if coll is not None:
+        coll.sum_(rho)
+    grids = pm.solve_accel(rho, cfg, cfg.softening)
+    return gat(grids, pos_flat, n_active, box_min, cell, periodic=periodic,
+               live=live), None
+
+
 def pm_accel(pos_flat: torch.Tensor, n_active, g_const, cfg: "P.PMConfig",
              *, masses=None, live=None, coll=None,
              plain: bool = False) -> torch.Tensor:
@@ -252,64 +390,41 @@ def pm_accel(pos_flat: torch.Tensor, n_active, g_const, cfg: "P.PMConfig",
     rank, the gather stays local, and the auto box and the momentum
     clean are global. ``plain``: the kernels' plain versions on any
     device."""
-    dep, gat = (deposit_plain, gather_plain) if plain else (deposit, gather)
-    if cfg.auto_box:
-        if live is not None:
-            raise ValueError("a live mask needs a static box")
-        # coords clamp into the traced box in either boundary mode, as in
-        # pm.pm_accel_ref: the upper corner never needs the wrap
-        box_min, cell = pm.auto_box(pos_flat, n_active, cfg.grid, coll=coll)
-        rho = dep(pos_flat, n_active, box_min, cell, cfg.grid,
-                  periodic=False, masses=masses)
-        if coll is not None:
-            coll.sum_(rho)
-        grids = pm.solve_accel(rho, cfg, cfg.softening, cell_size=1.0)
-        acc = gat(grids, pos_flat, n_active, box_min, cell, periodic=False)
-        acc = pm.momentum_clean(acc, n_active, masses, coll=coll)
-        return (g_const / (cell * cell)) * acc
-    periodic = cfg.boundary == "periodic"
-    box_min, cell = static_box(tuple(cfg.box_min), float(cfg.cell_size),
-                               pos_flat.device)
-    rho = dep(pos_flat, n_active, box_min, cell, cfg.grid,
-              periodic=periodic, masses=masses, live=live)
-    if coll is not None:
-        coll.sum_(rho)
-    grids = pm.solve_accel(rho, cfg, cfg.softening)
-    acc = gat(grids, pos_flat, n_active, box_min, cell, periodic=periodic,
-              live=live)
-    return g_const * pm.momentum_clean(acc, n_active, masses, live=live,
-                                       coll=coll)
+    acc, cell = _accel_raw(pos_flat, n_active, cfg, masses=masses,
+                           live=live, coll=coll, plain=plain)
+    acc = pm.momentum_clean(acc, n_active, masses, live=live, coll=coll)
+    return (g_const if cell is None else g_const / (cell * cell)) * acc
 
 
-def kick_and_step(pos: torch.Tensor, vel: torch.Tensor, acc: torch.Tensor,
-                  param_vec: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``vel += acc*dt``, then the attractor step, IN PLACE on (3, R, LANE)
-    planes: a plain add and the step kernel on CUDA,
-    physics.kick_and_step_planes copied back on the CPU. -> (pos, vel), the
-    same tensors."""
-    with trace.span("pm.kick", device=pos.is_cuda):
-        if pos.device.type == "cpu":
-            p, v = physics.kick_and_step_planes(
-                pos, vel, acc.reshape(pos.shape), param_vec)
-            pos.copy_(p)
-            vel.copy_(v)
-            return pos, vel
-        vel.add_(acc.reshape(vel.shape) * param_vec[P.P_DT])
-        return step_cuda.step(pos, vel, param_vec)
+def step_pm_planes(pos: torch.Tensor, vel: torch.Tensor,
+                   param_vec: torch.Tensor, g_const, n_active,
+                   cfg: "P.PMConfig", *, masses=None, live=None, coll=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One PM step on (3, R, LANE) planes, IN PLACE: the raw acceleration
+    (:func:`pm_accel`'s deposit, solve and gather), then
+    :func:`momentum_mean` and :func:`clean_kick_and_step`, two launches
+    where the plain path makes a dozen passes over f32[3, N]; the plain
+    versions of each on CPU tensors. Arguments as in :func:`pm_accel`
+    (``coll``: the sums are all-reduced between the two launches). ->
+    (pos, vel), the same tensors."""
+    acc, cell = _accel_raw(pos.reshape(3, -1), n_active, cfg, masses=masses,
+                           live=live, coll=coll)
+    mean = momentum_mean(acc, n_active, masses=masses, live=live, coll=coll)
+    return clean_kick_and_step(pos, vel, acc, param_vec, mean, n_active,
+                               g_const, live=live, cell=cell)
 
 
 def step_pm(pos: torch.Tensor, vel: torch.Tensor, param_vec: torch.Tensor,
             pair_vec: torch.Tensor, n_active, cfg: "P.PMConfig", *,
             masses=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One PM step on (3, R, LANE) planes, in place (the plain
-    pm.step_pm_ref on CPU tensors, copied back). -> (pos, vel), the same
-    tensors."""
+    """One PM step on (3, R, LANE) planes, in place: the kernels through
+    :func:`step_pm_planes` on CUDA, the plain pm.step_pm_ref on CPU
+    tensors (copied back). -> (pos, vel), the same tensors."""
     if pos.device.type == "cpu":
         p, v = pm.step_pm_ref(pos, vel, param_vec, pair_vec, n_active, cfg,
                               masses=masses)
         pos.copy_(p)
         vel.copy_(v)
         return pos, vel
-    acc = pm_accel(pos.reshape(3, -1), n_active, pair_vec[0], cfg,
-                   masses=masses)
-    return kick_and_step(pos, vel, acc, param_vec)
+    return step_pm_planes(pos, vel, param_vec, pair_vec[0], n_active, cfg,
+                          masses=masses)

@@ -10,11 +10,15 @@ for the kernels' sake: on cell-sorted input a warp's particles share a
 few cells, so the deposit's warp pre-sum leaves few atomics, and the
 gather reads neighbouring grid cells.
 
-  * The steady frame is the per-frame pipeline on the sorted planes:
-    ``pm_cuda.deposit`` -> ``pm.solve_accel`` (cuFFT) -> ``pm_cuda.gather``
-    -> ``momentum_clean`` -> ``pm_cuda.kick_and_step``; refinement levels
+  * The steady frame is the per-frame pipeline on the sorted planes
+    (``pm_cuda.step_pm_planes``): ``pm_cuda.deposit`` ->
+    ``pm.solve_accel`` (cuFFT) -> ``pm_cuda.gather`` ->
+    ``pm_cuda.momentum_mean`` (one launch) ->
+    ``pm_cuda.clean_kick_and_step`` (one launch of the step kernel: the
+    clean, the G scale, the kick and the attractor). Refinement levels
     (ops/pm2.py) and the window-exact correction (ops/pmx.py) run
-    unchanged on the same planes. No sort, no host read. Liveness is
+    unchanged on the same planes (``momentum_clean``, then
+    ``pm_cuda.kick_and_step``). No sort, no host read. Liveness is
     ``ids < n_active``, so any slot order gives the same physics (f32
     summation order aside).
   * A **repair** re-sorts the state: ``psort.sort((key, slot))`` on the
@@ -356,8 +360,9 @@ def accel_sorted_ref(st: SortedPMState, g_const, cfg: "P.PMConfig", *,
     return acc if cfgx is None else (acc, n_m)
 
 
-def _accel(st, g_const, cfg, levels, cfgx, n_active, repair, use_fast,
-           coll=None):
+def _repaired(st, cfg, levels, n_active, repair, use_fast, coll) -> tuple:
+    """(state', n_active): ``st`` checked, and re-sorted first when a
+    repair fires."""
     n = st.pos.shape[1]
     _check_config(cfg, n)
     if coll is not None and not use_fast:
@@ -371,6 +376,13 @@ def _accel(st, g_const, cfg, levels, cfgx, n_active, repair, use_fast,
         repair = bool(needs_repair(st, n_active, cfg, levels))
     if repair:
         st = repair_state(st, n_active, cfg, levels, use_kernels=use_fast)
+    return st, n_active
+
+
+def _accel(st, g_const, cfg, levels, cfgx, n_active, repair, use_fast,
+           coll=None):
+    st, n_active = _repaired(st, cfg, levels, n_active, repair, use_fast,
+                             coll)
     if not use_fast:
         out = accel_sorted_ref(st, g_const, cfg, n_active=n_active,
                                levels=levels, cfgx=cfgx)
@@ -437,11 +449,22 @@ def step_sorted(st: SortedPMState, param_vec: torch.Tensor,
     """One frame on the persistent state: the PM acceleration (repairing
     first when ``repair`` says so; one level with a single ``cfg2``, the
     multi-level order with a tuple, optionally ended by ``cfgx``), then
-    the kick and the attractor step in slot order: in place through
-    pm_cuda.kick_and_step with ``use_fast``, else the plain
-    physics.kick_and_step_planes. -> state', or (state', pmx member
+    the kick and the attractor step in slot order: in place through the
+    kernels' wrappers with ``use_fast`` (with neither level nor ``cfgx``,
+    pm_cuda.step_pm_planes: the momentum clean, the G scale and the kick
+    in the step kernel's launch; else pm_cuda.kick_and_step), else the
+    plain physics.kick_and_step_planes. -> state', or (state', pmx member
     count) with ``cfgx``. ``coll``: one rank's shard of the mesh
     (:func:`accel_sorted`)."""
+    planes = (3, -1, LANE)
+    if use_fast and cfg2 is None and cfgx is None:
+        st, n_active = _repaired(st, cfg, (), n_active, repair, use_fast,
+                                 coll)
+        pm_cuda.step_pm_planes(st.pos.view(planes), st.vel.view(planes),
+                               param_vec, pair_vec[0], n_active, cfg,
+                               masses=st.masses, live=st.ids < n_active,
+                               coll=coll)
+        return st
     if isinstance(cfg2, tuple):
         out = accel_sorted_multi(st, pair_vec[0], cfg, cfg2,
                                  n_active=n_active, cfgx=cfgx, repair=repair,
@@ -452,7 +475,6 @@ def step_sorted(st: SortedPMState, param_vec: torch.Tensor,
                            cfg2=cfg2, repair=repair, use_fast=use_fast,
                            coll=coll)
     st, acc = out[0], out[1]
-    planes = (3, -1, LANE)
     pos, vel = st.pos.view(planes), st.vel.view(planes)
     if use_fast:
         pm_cuda.kick_and_step(pos, vel, acc, param_vec)

@@ -6,6 +6,10 @@ Counterpart of ``particle_sim_tpu/ops/step_pallas.py``. :func:`step` runs
 old tensors sees them change, so clone first where the old state is
 needed. On CPU tensors it runs the plain version (ops/step_ref.py), also
 in place; on CUDA tensors it launches the kernel or raises.
+
+:func:`kick_step` is the kernel's kicked form: one step after ``vel +=
+a * dt``, where ``a`` is an acceleration optionally cleaned of a mean
+(the particle mesh's momentum clean) and scaled, all in the one launch.
 """
 
 from __future__ import annotations
@@ -16,9 +20,10 @@ import torch
 
 from ..core.params import PARAM_VEC_SIZE
 from ..utils import cuda_build
-from . import step_ref
+from . import physics, step_ref
 
-#: Kernel launches made by :func:`step` in this process.
+#: Kernel launches made by :func:`step` and :func:`kick_step` in this
+#: process.
 LAUNCHES = 0
 
 
@@ -70,4 +75,92 @@ def step(pos: torch.Tensor, vel: torch.Tensor, param_vec: torch.Tensor, *,
                             param_vec.data_ptr(), n, substeps, stream)
     LAUNCHES += 1
     cuda_build.check(err, "step")
+    return pos, vel
+
+
+def kick_plain(pos, vel, acc, param_vec, *, mean=None, live=None,
+               scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of :func:`kick_step`, in the plain PM
+    path's operations: ``(acc - mean) * live``, then ``scale * acc``, then
+    physics.kick_and_step_planes; copied into ``pos`` and ``vel``."""
+    if mean is not None:
+        acc = (acc - mean[:, None]) * live.to(torch.float32)[None]
+    if scale is not None:
+        acc = scale * acc
+    p, v = physics.kick_and_step_planes(pos, vel, acc.reshape(pos.shape),
+                                        param_vec)
+    pos.copy_(p)
+    vel.copy_(v)
+    return pos, vel
+
+
+def _check_operand(name, t, dtype, shape, device) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor")
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
+        raise ValueError(f"{name} must be {dtype}{list(shape)} on {device}, "
+                         f"got {t.dtype}{list(t.shape)} on {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_scalar(name, t, dtype, device) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor")
+    _check_operand(name, t.reshape(-1), dtype, (1,), device)
+
+
+def kick_step(pos: torch.Tensor, vel: torch.Tensor, acc: torch.Tensor,
+              param_vec: torch.Tensor, *, mean=None, live=None,
+              n_active=None, g=None, cell=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``vel += a * dt``, then one attractor step, in place on (3, ...)
+    planes, in one launch. ``acc``: float32[3, N] contiguous, N the
+    particles of ``pos``. ``mean`` (float32[3]): ``a = (acc - mean) *
+    live`` first, ``live`` bool[N] or else ``arange(N) < n_active``
+    (int32[1] or 0-d). ``g`` (a 0-d or one-element float32): ``a = scale *
+    a``, scale ``g``, or ``g / (cell * cell)`` with ``cell`` (the same).
+    Every tensor on pos's device. On CPU tensors: :func:`kick_plain`.
+    -> (pos, vel), the same tensors."""
+    global LAUNCHES
+    _check(pos, vel, param_vec, 1)
+    n = pos.numel() // 3
+    dev = pos.device
+    _check_operand("acc", acc, torch.float32, (3, n), dev)
+    if mean is not None:
+        _check_operand("mean", mean, torch.float32, (3,), dev)
+        if live is not None:
+            _check_operand("live", live, torch.bool, (n,), dev)
+        elif n_active is None:
+            raise ValueError("a mean needs live or n_active")
+        else:
+            _check_scalar("n_active", n_active, torch.int32, dev)
+    if g is not None:
+        _check_scalar("g", g, torch.float32, dev)
+    if cell is not None:
+        if g is None:
+            raise ValueError("cell scales g: give g")
+        _check_scalar("cell", cell, torch.float32, dev)
+    if dev.type == "cpu":
+        if mean is not None and live is None:
+            live = torch.arange(n, dtype=torch.int32) < n_active
+        scale = g if cell is None else g / (cell * cell)
+        return kick_plain(pos, vel, acc, param_vec, mean=mean, live=live,
+                          scale=scale)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lib = cuda_build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.psim_kick_step(
+            pos.data_ptr(), vel.data_ptr(), param_vec.data_ptr(), n,
+            acc.data_ptr(), ptr(mean), ptr(live),
+            None if mean is None or live is not None else n_active.data_ptr(),
+            ptr(g), ptr(cell), stream)
+    LAUNCHES += 1
+    cuda_build.check(err, "kick step")
     return pos, vel

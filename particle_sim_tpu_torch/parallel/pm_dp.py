@@ -4,7 +4,7 @@ solve on every rank, local gather.
 Counterpart of ``particle_sim_tpu/parallel/pm_dp.py``. The shards couple
 only through the G^3 mass grid, so one all-reduce of the grid (8 MB at
 G = 128) replaces the ring's n_dev - 1 rotations (parallel/ring.py). Per
-step, on every rank (ops/pm_cuda.py ``pm_accel`` with ``coll``):
+step, on every rank (ops/pm_cuda.py ``step_pm_planes`` with ``coll``):
 
   1. CIC-deposit the local shard onto a full local grid (the deposit
      kernel, csrc/pm.cu): the grid is dense, every shard reaches every
@@ -13,8 +13,10 @@ step, on every rank (ops/pm_cuda.py ``pm_accel`` with ``coll``):
   3. solve the Poisson convolution (cuFFT) on every rank: replicated
      work beats a sharded FFT at these grids;
   4. gather the accelerations of the local shard only (the gather
-     kernel), then clean the momentum globally (one all-reduce of the
-     weighted sums and the weight). With ``cfg.auto_box`` the box comes
+     kernel), then clean the momentum globally: the sums kernel, one
+     all-reduce of the three weighted sums and the weight, and the clean,
+     the G scale and the kick inside the step kernel's launch
+     (``pm_cuda.step_pm_planes``). With ``cfg.auto_box`` the box comes
      from an all-reduce MIN and MAX of the local extents.
 
 The communication is O(G^3), independent of N. The global padding is
@@ -51,11 +53,13 @@ def make_pm_step(mesh, cfg: "Pm.PMConfig", *, use_kernels: bool = False,
         local_active = torch.clamp(
             torch.as_tensor(n_active, device=pos.device)
             - coll.rank * local_n, 0, local_n)
+        if use_kernels:
+            return pm_cuda.step_pm_planes(pos, vel, param_vec, pair_vec[0],
+                                          local_active, cfg, masses=masses,
+                                          coll=coll)
         acc = pm_cuda.pm_accel(pos.reshape(3, -1), local_active,
                                pair_vec[0], cfg, masses=masses, coll=coll,
-                               plain=not use_kernels)
-        if use_kernels:
-            return pm_cuda.kick_and_step(pos, vel, acc, param_vec)
+                               plain=True)
         return physics.kick_and_step_planes(pos, vel, acc.reshape(shape),
                                             param_vec)
 

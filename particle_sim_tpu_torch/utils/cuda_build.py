@@ -40,6 +40,12 @@ _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 # c_void_p, or ctypes would pass them as 32-bit ints and cut them
 SIGNATURES = {
     "psim_step": (_P, _P, _P, _I64, _I, _P),
+    # pos, vel, params, n, acc, mean, live, n_active, g, cell (NULL where
+    # unused), stream
+    "psim_kick_step": (_P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P),
+    # acc, n, live, n_active, masses, partials, counter, max blocks, out,
+    # stream
+    "psim_momentum_sums": (_P, _I64, _P, _P, _P, _P, _P, _I, _P, _P),
     "psim_compact": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     "psim_deposit": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # xi, xj, gv, eps_sq, n_i, n_j (NULL: ni, nj), out, partial, ni, nj,

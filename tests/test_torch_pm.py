@@ -1,7 +1,10 @@
 """The port's particle-mesh modules (ops/pm.py, ops/pm_cuda.py,
 ops/diagnostics.py) against the JAX package's on the CPU: the same inputs,
 made with numpy from a seed, through both. ``pm_cuda`` runs its plain
-versions here (CPU tensors); the JAX fast path runs in interpret mode."""
+versions here (CPU tensors); the JAX fast path runs in interpret mode.
+The PM step's two-launch tail (``pm_cuda.momentum_mean`` and
+``clean_kick_and_step``) is held to the plain chain it replaces, bit for
+bit, on the CPU and, where a card is present, on it."""
 
 import dataclasses
 
@@ -15,9 +18,9 @@ from particle_sim_tpu.ops import diagnostics as jdiag
 from particle_sim_tpu.ops import pm as jpm
 from particle_sim_tpu.ops import pm_pallas as jpm_pallas
 
-from particle_sim_tpu_torch.core.params import PMConfig, SimParams
+from particle_sim_tpu_torch.core.params import P_DT, PMConfig, SimParams
 from particle_sim_tpu_torch.ops import diagnostics as diag
-from particle_sim_tpu_torch.ops import pm, pm_cuda
+from particle_sim_tpu_torch.ops import physics, pm, pm_cuda, step_cuda
 
 torch.set_num_threads(1)
 
@@ -421,6 +424,132 @@ def test_step_pm_updates_in_place():
     p, v = pm_cuda.step_pm(pos, vel, pv, pp, N, cfg)
     assert p is pos and v is vel
     assert torch.equal(pos, want[0]) and torch.equal(vel, want[1])
+
+
+# -- the momentum clean, the scale and the kick in two launches ---------------------
+def _tail_inputs(case, n, device):
+    """(pos, vel, acc, pv, n_active, masses, live, g, cell) for one case
+    of the PM step's tail; planes f32[3, n]."""
+    rng = np.random.default_rng(23)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    pos = t(rng.normal(scale=20.0, size=(3, n)))
+    vel = t(rng.normal(size=(3, n)))
+    # a bias the clean must take off, as the PM solve leaves one
+    acc = t(rng.normal(size=(3, n)) + np.array([[0.3], [-0.2], [0.1]]))
+    pv = t(SimParams(delta_time=0.016, is_mouse_dragging=True,
+                     mouse_position=(5.0, -3.0, 8.0), mouse_force=40.0,
+                     mouse_radius=30.0).pack())
+    n_active = t(n, torch.int32)
+    masses = live = cell = None
+    g = t([0.7, 4.0])[0]                           # pair_vec[0]: a 0-d view
+    if case in ("masses", "cuda_100k"):
+        masses = t(rng.random(n) + 0.5)
+        masses[0] = 300.0
+    if case in ("live_shuffled", "cuda_100k"):
+        # a live mask in a shuffled slot order (the persistent PM's)
+        live = t(rng.permutation(n) < n - n // 5, torch.bool)
+    if case == "n_active":
+        n_active = t(n - 1000, torch.int32)
+        acc[:, n - 1000:] = 1e3                    # dead slots: cleaned to 0
+    if case in ("auto_box", "cuda_100k"):
+        cell = t(1.37)                             # the scale is g / h^2
+    return pos, vel, acc, pv, n_active, masses, live, g, cell
+
+
+def _plain_tail(pos, vel, acc, pv, n_active, masses, live, g, cell):
+    """The plain chain: pm.momentum_clean, the scale, then
+    physics.kick_and_step_planes (new tensors)."""
+    a = pm.momentum_clean(acc, n_active, masses, live=live)
+    a = (g if cell is None else g / (cell * cell)) * a
+    return physics.kick_and_step_planes(pos, vel, a, pv)
+
+
+@pytest.mark.parametrize("case", ["plain", "masses", "live_shuffled",
+                                  "n_active", "auto_box", "cuda_100k"])
+def test_momentum_mean_and_clean_kick_match_the_plain_chain(case):
+    """On CPU tensors the two-launch tail takes its plain versions: bit for
+    bit the plain chain, and no launch counted. On the card (cuda_100k,
+    100,000 particles with masses, a shuffled live mask and the auto-box
+    scale): the kernel's mean within 1e-6 of the largest |mean| of a
+    float64 mean, and the state bit for bit the chain it replaced (the
+    clean, the scale and vel += a*dt as torch passes, then the step
+    kernel) fed the kernel's mean."""
+    on_card = case.startswith("cuda")
+    if on_card and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: compares the kernels with the "
+                    "plain chain at 100,000 particles")
+    n = 100_000 if on_card else N
+    args = _tail_inputs(case, n, "cuda" if on_card else "cpu")
+    pos, vel, acc, pv, n_active, masses, live, g, cell = args
+    before = (pm_cuda.MOMENTUM_LAUNCHES, pm_cuda.KICK_FUSED_LAUNCHES,
+              step_cuda.LAUNCHES)
+    mean = pm_cuda.momentum_mean(acc, n_active, masses=masses, live=live)
+    p, v = pos.clone(), vel.clone()
+    out = pm_cuda.clean_kick_and_step(p, v, acc, pv, mean, n_active, g,
+                                      live=live, cell=cell)
+    assert out[0] is p and out[1] is v
+    after = (pm_cuda.MOMENTUM_LAUNCHES, pm_cuda.KICK_FUSED_LAUNCHES,
+             step_cuda.LAUNCHES)
+    if not on_card:
+        assert after == before                    # no kernel on the CPU
+        assert torch.equal(mean, pm.momentum_mean(acc, n_active, masses,
+                                                  live=live))
+        want_p, want_v = _plain_tail(*args)
+        assert torch.equal(p, want_p) and torch.equal(v, want_v)
+        return
+    assert after == tuple(b + 1 for b in before)
+    w = live.double() * masses.double()
+    exact = (acc.double() * w).sum(dim=1) / w.sum()
+    gap = float((mean.double() - exact).abs().max())
+    assert gap <= 1e-6 * float(exact.abs().max()), gap
+    a = (acc - mean[:, None]) * live.to(torch.float32)[None]
+    a = (g / (cell * cell)) * a
+    wp, wv = pos.clone(), vel.clone()
+    wv.add_(a * pv[P_DT])
+    step_cuda.step(wp, wv, pv)
+    assert torch.equal(p, wp) and torch.equal(v, wv)
+
+
+def _bad_tail(case):
+    """Keyword arguments of clean_kick_and_step with one fault."""
+    pos, vel, acc, pv, n_active, _, live, g, _ = _tail_inputs(
+        "live_shuffled", 1024, "cpu")
+    mean = torch.zeros(3)
+    kw = dict(pos=pos, vel=vel, acc=acc, param_vec=pv, mean=mean,
+              n_active=n_active, g_const=g, live=live)
+    what, field = case.split(":")
+    t = kw[field]
+    if what == "dtype":
+        kw[field] = t.to(torch.float64 if t.dtype != torch.float64
+                         else torch.float32)
+    elif what == "shape":
+        kw[field] = t[..., :-1] if t.ndim else t.reshape(1).repeat(2)
+    elif what == "device":
+        kw[field] = t.to("meta")
+    elif what == "noncontig":
+        kw[field] = (t.T.contiguous().T if t.ndim == 2
+                     else torch.stack([t, t], -1)[..., 0])
+    return kw
+
+
+@pytest.mark.parametrize("case", [
+    "dtype:acc", "dtype:mean", "dtype:live", "dtype:g_const", "shape:acc",
+    "shape:mean", "shape:live", "shape:g_const", "device:acc", "device:mean",
+    "device:live", "noncontig:acc", "noncontig:mean", "noncontig:live"])
+def test_clean_kick_and_momentum_mean_refuse_bad_input(case):
+    """The two wrappers raise on a wrong dtype, shape, device or a
+    non-contiguous operand, and leave the state alone."""
+    kw = _bad_tail(case)
+    pos0, vel0 = kw["pos"].clone(), kw["vel"].clone()
+    with pytest.raises((TypeError, ValueError)):
+        pm_cuda.clean_kick_and_step(**kw)
+    assert torch.equal(kw["pos"], pos0) and torch.equal(kw["vel"], vel0)
+    if case.endswith((":acc", ":live")):
+        with pytest.raises((TypeError, ValueError)):
+            pm_cuda.momentum_mean(kw["acc"], kw["n_active"], live=kw["live"])
 
 
 # -- diagnostics -------------------------------------------------------------------------

@@ -32,10 +32,14 @@ from particle_sim_tpu.ops import pmx as jpmx
 from particle_sim_tpu.render import raster as jraster
 
 from particle_sim_tpu_torch.core.params import (
-    PairwiseParams, PMConfig, SimParams,
+    Method, PairwiseParams, PMConfig, SimParams,
 )
-from particle_sim_tpu_torch.ops import pm, pm2, pm_cuda, pm_persist, pmx
+from particle_sim_tpu_torch.engine import Engine
+from particle_sim_tpu_torch.ops import (
+    physics, pm, pm2, pm_cuda, pm_persist, pmx, step_cuda,
+)
 from particle_sim_tpu_torch.render import raster
+from particle_sim_tpu_torch.utils import trace
 
 torch.set_num_threads(1)
 
@@ -236,6 +240,60 @@ def test_plain_path_matches_fast_path():
                                           use_fast=False)
     np.testing.assert_array_equal(st_a.ids.numpy(), st_b.ids.numpy())
     assert scale_err(acc_a.numpy(), acc_b.numpy()) <= PLAIN_BAR
+
+
+@pytest.mark.parametrize("case", ["unit", "masses", "traced_engine"])
+def test_step_sorted_two_launch_tail(case):
+    """The single-level frame takes pm_cuda.step_pm_planes (the momentum
+    mean, then the clean, the G scale and the kick in one step-kernel
+    launch): on CPU tensors bit for bit the chain it replaced
+    (accel_sorted's cleaned, scaled acceleration, then
+    physics.kick_and_step_planes), on a scrambled live mask, with no
+    launch counted. traced_engine: a traced persistent engine on the
+    kernels' wrappers counts pm.kick_fused once a step."""
+    launches = (pm_cuda.MOMENTUM_LAUNCHES, pm_cuda.KICK_FUSED_LAUNCHES,
+                step_cuda.LAUNCHES)
+    pv = SimParams(delta_time=0.016, is_mouse_dragging=True,
+                   mouse_position=(4.0, 2.0, -6.0), mouse_force=30.0,
+                   mouse_radius=20.0).pack()
+    pv = torch.from_numpy(pv)
+    pp = torch.from_numpy(PairwiseParams(0.8, CFG.softening).pack())
+    if case == "traced_engine":
+        e = Engine(particle_count=4096, device="cpu", method=Method.TORCH,
+                   pm=CFG, pm_persist=True)
+        # the kernels' wrappers, which take their plain versions here
+        e.method = Method.CUDA
+        trace.reset()
+        trace.enable()
+        try:
+            for _ in range(3):
+                e.step(SimParams(delta_time=0.016))
+            counts = trace.counters()
+        finally:
+            trace.disable()
+            trace.reset()
+        assert counts.get("pm.kick_fused") == 3, counts
+    else:
+        n = 1500
+        pos, _ = cloud(n, 31, capacity=2048)
+        rng = np.random.default_rng(32)
+        vel = torch.from_numpy(rng.normal(size=pos.shape).astype(np.float32))
+        masses = None
+        if case == "masses":
+            masses = torch.from_numpy(
+                (rng.random(pos.shape[1]) + 0.5).astype(np.float32))
+        st = scramble(port_state(pos, n, vel_flat=vel, masses=masses), 33)
+        st_a, acc = pm_persist.accel_sorted(st, pp[0], CFG, n_active=n,
+                                            repair=False)
+        want_p, want_v = physics.kick_and_step_planes(
+            st_a.pos, st_a.vel, acc, pv)
+        got = pm_persist.step_sorted(
+            st._replace(pos=st.pos.clone(), vel=st.vel.clone()), pv, pp, n,
+            CFG, repair=False)
+        assert torch.equal(got.ids, st.ids)
+        assert torch.equal(got.pos, want_p) and torch.equal(got.vel, want_v)
+    assert launches == (pm_cuda.MOMENTUM_LAUNCHES,
+                        pm_cuda.KICK_FUSED_LAUNCHES, step_cuda.LAUNCHES)
 
 
 def test_masses_ride_repairs():
