@@ -26,6 +26,13 @@ softening ``eps_a`` minus the sum at ``eps_b``, here as the two passes
 subtracted (the kernel's difference instantiation forms both weights of
 a pair at once).
 
+While tracing is on (utils/trace.py), :func:`pairwise_accel` counts the
+pairs it covers (``Ni * Nj`` from the shapes) under ``pairwise.pairs``,
+:func:`pairwise_accel_diff` under ``pairwise.diff_pairs``, and
+:func:`step_pairwise` records its force as the span ``pairwise.force``
+and its kick and attractor step as ``pairwise.kick``, the names
+ops/pairwise_cuda.py records on the card.
+
 :func:`pairwise_accel_mxu_ref` is the plain version of the matrix-product
 formulation (``pairwise_pallas.pairwise_accel_mxu``, the counterpart of
 csrc/pairwise_mxu.cu): the same sum with r^2 expanded as
@@ -42,6 +49,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils import trace
 from . import physics
 
 #: Pair elements per receiver chunk of the plain sum (~64 MB of f32 per
@@ -97,6 +105,13 @@ def pairwise_accel(
     n_j=None,              # live sources (None = Nj)
 ) -> torch.Tensor:
     """f32[Ni, 3] accelerations from all sources (the plain version)."""
+    trace.count("pairwise.pairs", x_nx3.shape[0] * x_3xn.shape[1])
+    return _pairwise_accel(x_nx3, x_3xn, n_active, g_const, softening,
+                           j_base=j_base, masses=masses, n_i=n_i, n_j=n_j)
+
+
+def _pairwise_accel(x_nx3, x_3xn, n_active, g_const, softening, *,
+                    j_base=0, masses=None, n_i=None, n_j=None):
     dev = x_nx3.device
     gv = source_weights(x_3xn.shape[1], n_active, g_const, j_base=j_base,
                         masses=masses, device=dev)
@@ -120,9 +135,10 @@ def pairwise_accel_diff(x_nx3: torch.Tensor, x_3xn: torch.Tensor, n_active,
     """f32[Ni, 3]: :func:`pairwise_accel` at softening ``eps_a`` minus the
     same at ``eps_b`` (the plain version of the kernel's difference
     pass)."""
+    trace.count("pairwise.diff_pairs", x_nx3.shape[0] * x_3xn.shape[1])
     kw = dict(masses=masses, n_i=n_i, n_j=n_j)
-    return (pairwise_accel(x_nx3, x_3xn, n_active, g_const, eps_a, **kw)
-            - pairwise_accel(x_nx3, x_3xn, n_active, g_const, eps_b, **kw))
+    return (_pairwise_accel(x_nx3, x_3xn, n_active, g_const, eps_a, **kw)
+            - _pairwise_accel(x_nx3, x_3xn, n_active, g_const, eps_b, **kw))
 
 
 #: ``|xj|^2`` of a masked source in the matrix-product form: r^2 ~ 1e30, so
@@ -199,7 +215,9 @@ def step_pairwise(
     """One step with all-pairs gravity + attractor + gravity on
     ``(3, R, LANE)`` planes. -> (pos, vel), new tensors."""
     flat = pos.reshape(3, -1)
-    acc = pairwise_accel(flat.T, flat, n_active, pair_vec[0], pair_vec[1],
-                         masses=masses)
-    return physics.kick_and_step_planes(pos, vel, acc.T.reshape(pos.shape),
-                                        param_vec)
+    with trace.span("pairwise.force", device=pos.is_cuda):
+        acc = pairwise_accel(flat.T, flat, n_active, pair_vec[0],
+                             pair_vec[1], masses=masses)
+    with trace.span("pairwise.kick", device=pos.is_cuda):
+        return physics.kick_and_step_planes(
+            pos, vel, acc.T.reshape(pos.shape), param_vec)

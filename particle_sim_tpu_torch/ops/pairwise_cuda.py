@@ -26,6 +26,15 @@ same shapes always sum in the same order.
 then a plain ``vel += acc*dt``, then the attractor step kernel
 (ops/step_cuda.py) — the order of ``physics.kick_and_step_planes``. Like
 the step kernel it updates ``pos`` and ``vel`` IN PLACE.
+
+Tracing (utils/trace.py; while it is off nothing is recorded, read or
+synchronised): :func:`step_pairwise` records the device spans
+``pairwise.force`` (the pair kernel and its slice sum) and
+``pairwise.kick`` (the kick and the step kernel);
+:func:`pairwise_accel` counts ``pairwise.pairs`` and
+:func:`pairwise_accel_diff` ``pairwise.diff_pairs``, the ``Ni * Nj``
+pairs a launch covers, from the host shapes. CPU tensors record the
+same names through the plain versions (ops/pairwise.py).
 """
 
 from __future__ import annotations
@@ -37,7 +46,7 @@ from typing import Tuple
 import torch
 
 from ..core.params import P_DT
-from ..utils import cuda_build
+from ..utils import cuda_build, trace
 from . import pairwise, pm_cuda, psort, step_cuda
 
 #: Kernel launches made by :func:`pairwise_accel` in this process.
@@ -194,6 +203,7 @@ def pairwise_accel(x_nx3: torch.Tensor, x_3xn: torch.Tensor, n_active,
     out = _launch(x_nx3, x_3xn, gv, _eps_sq(softening, dev=dev), n_i, n_j,
                   False)
     LAUNCHES += 1
+    trace.count("pairwise.pairs", x_nx3.shape[0] * x_3xn.shape[1])
     return out
 
 
@@ -221,6 +231,7 @@ def pairwise_accel_diff(x_nx3: torch.Tensor, x_3xn: torch.Tensor, n_active,
     out = _launch(x_nx3, x_3xn, gv, _eps_sq(eps_a, eps_b, dev=dev), n_i,
                   n_j, True)
     DIFF_LAUNCHES += 1
+    trace.count("pairwise.diff_pairs", x_nx3.shape[0] * x_3xn.shape[1])
     return out
 
 
@@ -442,7 +453,9 @@ def step_pairwise(pos: torch.Tensor, vel: torch.Tensor,
         vel.copy_(v)
         return pos, vel
     flat = pos.reshape(3, -1)
-    acc = pairwise_accel(flat.T, flat, n_active, pair_vec[0], pair_vec[1],
-                         masses=masses, n_j=n_active)
-    vel.add_(acc.T.reshape(vel.shape) * param_vec[P_DT])
-    return step_cuda.step(pos, vel, param_vec)
+    with trace.span("pairwise.force", device=True):
+        acc = pairwise_accel(flat.T, flat, n_active, pair_vec[0],
+                             pair_vec[1], masses=masses, n_j=n_active)
+    with trace.span("pairwise.kick", device=True):
+        vel.add_(acc.T.reshape(vel.shape) * param_vec[P_DT])
+        return step_cuda.step(pos, vel, param_vec)
