@@ -272,6 +272,14 @@ Phases (each prints a line; any failure raises and exits non-zero):
      the step kernel; times in turns against the old chain, with the
      bytes bound; traced 1M auto-box and 16M persistent engines count
      pm.kick_fused once a step
+ 24. the kernel path's isolated exact-gradient solve (chip_smoke.phase24,
+     callable alone; ops/pm_fft.py, csrc/pm_fft.cu) at G = 128 on the
+     16M static-box and 1M auto-box densities and with a level's
+     difference spectra: within 1e-5 of max|a| of the plain torch.fft
+     chain it replaced, the interleaved layout, two solves bit for bit,
+     one pm_solve launch a solve; times in turns against the plain chain
+     with the bytes bound (pm_fft.solve_bytes); traced 1M auto-box and
+     16M persistent engines count pm.solve.fused and pm_solve once a step
 
 The line before the last is a JSON object with one entry per kernel (the
 launches of step are phases 4, 16 (the engine), 18, 19, 20, 22 and 23
@@ -280,7 +288,7 @@ phases 18, 20 (the deep zoom) and 22; of pm_deposit and pm_gather phase
 12's runs (a) and (b), 16, 18, 19, 20, 22 and 23 together; of compact
 and deposit phases 4, 20 and 22; those of sorted_deposit phases 8 and 12
 (b); of radix_hist and radix_pass phases 8, 12 (b), 18, 19, 20, 22 and
-23;
+23; of pm_solve phases 20, 22, 23 and 24;
 those of
 pairwise_mxu, hilbert_keys, inlier_box, block_sort and merge_round the
 drives of phases 14 and 15); the last line is {"ok": true, "device":
@@ -1275,7 +1283,7 @@ def phase19(dev, states) -> dict:
 def launch_counts() -> dict:
     """Every kernel wrapper's launch count, by kernel name."""
     from particle_sim_tpu_torch.ops import (
-        pairwise_cuda, pm_cuda, psort, step_cuda,
+        pairwise_cuda, pm_cuda, pm_fft, psort, step_cuda,
     )
     from particle_sim_tpu_torch.render import raster_compact as rc
     from particle_sim_tpu_torch.render import raster_sorted as rs
@@ -1287,6 +1295,7 @@ def launch_counts() -> dict:
             "pm_gather": pm_cuda.GATHER_LAUNCHES,
             "pm_momentum": pm_cuda.MOMENTUM_LAUNCHES,
             "pm_kick_fused": pm_cuda.KICK_FUSED_LAUNCHES,
+            "pm_solve": pm_fft.LAUNCHES,
             "radix_hist": psort.RADIX_HIST_LAUNCHES,
             "radix_pass": psort.RADIX_PASS_LAUNCHES,
             "compact": rc.COMPACT_LAUNCHES, "deposit": rc.DEPOSIT_LAUNCHES,
@@ -1295,7 +1304,7 @@ def launch_counts() -> dict:
 
 def zero_launches() -> None:
     from particle_sim_tpu_torch.ops import (
-        pairwise_cuda, pm_cuda, psort, step_cuda,
+        pairwise_cuda, pm_cuda, pm_fft, psort, step_cuda,
     )
     from particle_sim_tpu_torch.render import raster_compact as rc
     from particle_sim_tpu_torch.render import raster_sorted as rs
@@ -1305,6 +1314,7 @@ def zero_launches() -> None:
     pm_cuda.DEPOSIT_LAUNCHES = pm_cuda.DEPOSIT_MASS_LAUNCHES = 0
     pm_cuda.GATHER_LAUNCHES = 0
     pm_cuda.MOMENTUM_LAUNCHES = pm_cuda.KICK_FUSED_LAUNCHES = 0
+    pm_fft.LAUNCHES = 0
     psort.RADIX_HIST_LAUNCHES = psort.RADIX_PASS_LAUNCHES = 0
     rc.COMPACT_LAUNCHES = rc.DEPOSIT_LAUNCHES = rs.LAUNCHES = 0
 
@@ -1487,6 +1497,143 @@ def phase23(dev) -> dict:
         torch.cuda.empty_cache()
     print(f"phase 23 done in {time.perf_counter() - t_start:.1f} s")
     return {"launches": total, "ms": ms}
+
+
+def phase24(dev) -> dict:
+    """Phase 24: the isolated exact-gradient solve of the kernel path
+    (ops/pm_fft.py, csrc/pm_fft.cu: the pad, product and interleave
+    kernels around four cuFFT plans) at G = 128 on the main path's
+    densities: the 16M hollow sphere deposited in the static box, the 1M
+    one in the auto box (cell units), and a refinement level's difference
+    spectra (32 / 0.75) on the 16M density. Each against the plain chain
+    it replaced (F.pad, rfftn, the product with the stacked spectra,
+    _irfftn_octant_batch) on the card within 1e-5 of the largest |a|, the
+    interleaved layout, two solves bit for bit, pm_solve launches one a
+    solve. Times with CUDA events, in turns: the plain chain against the
+    solve, beside the bytes bound (pm_fft.solve_bytes). Then traced
+    engines (the 1M auto box, the 16M persistent PM) count pm.solve.fused
+    and pm_solve launches once a step. Callable alone after
+    ``cuda_build.library()``. -> {"launches", "ms", "err"}."""
+    import torch
+    import torch.nn.functional as F
+
+    from particle_sim_tpu_torch.core import generate as gen
+    from particle_sim_tpu_torch.core.params import (
+        PairwiseParams, PMConfig, SimParams,
+    )
+    from particle_sim_tpu_torch.core.state import ParticleState
+    from particle_sim_tpu_torch.engine import Engine
+    from particle_sim_tpu_torch.ops import pm, pm2, pm_cuda, pm_fft
+    from particle_sim_tpu_torch.utils import trace
+
+    t_start = time.perf_counter()
+    g = 128
+    bound = bytes_ms(pm_fft.solve_bytes(g))
+    ms, errs, total = {}, {}, {}
+
+    def plain_chain(rho, ks):
+        rho_hat = torch.fft.rfftn(F.pad(rho, (0, g) * 3))
+        return pm._irfftn_octant_batch(rho_hat[None] * ks, g)[0]
+
+    for n, cfg in ((16_777_216, PMConfig()),
+                   (1_000_000, PMConfig(auto_box=True))):
+        pos_h, vel_h, col = gen.generate(n)
+        st = ParticleState.from_arrays(pos_h, vel_h, col, device=dev)
+        del pos_h, vel_h, col
+        flat, na = st.pos.reshape(3, -1), st.n_active
+        if cfg.auto_box:
+            box, cell = pm.auto_box(flat, na, g)
+            h = 1.0
+        else:
+            box, cell = pm_cuda.static_box(tuple(cfg.box_min),
+                                           float(cfg.cell_size), dev)
+            h = float(cfg.cell_size)
+        rho = pm_cuda.deposit(flat, na, box, cell, g, periodic=False)
+        box_name = "auto box" if cfg.auto_box else "static box"
+        cases = [(f"n={n} {box_name}",
+                  pm.base_kernels_device(cfg, cfg.softening, h, device=dev),
+                  lambda r, c=cfg, h=h: pm.solve_accel(
+                      r, c, c.softening, cell_size=h, fused=True))]
+        if not cfg.auto_box:
+            lv = pm2.PM2Config(None, 32.0, 0.75)
+            h2 = lv.window_size / g
+            cases.append((f"n={n} difference 32/0.75",
+                          pm2.fine_kernels(cfg, lv, device=dev),
+                          lambda r, h2=h2, lv=lv, c=cfg: pm.solve_accel_diff(
+                              r, g, h2, lv.softening, c.softening,
+                              fused=True)))
+        for label, ks, run in cases:
+            zero_launches()
+            got = run(rho)
+            again = run(rho)
+            torch.cuda.synchronize()
+            launched = launch_counts()["pm_solve"]
+            want = plain_chain(rho, ks)
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            errs[label] = err
+            if launched != 2:
+                fail(f"phase 24 {label}: {launched} pm_solve launches for "
+                     f"two solves")
+            if pm_cuda.grid_layout(got, flat) != "interleaved":
+                fail(f"phase 24 {label}: the solve's grids are not the "
+                     f"interleaved view")
+            if not torch.equal(got, again):
+                fail(f"phase 24 {label}: two solves of one density differ")
+            if not err <= 1e-5 * scale:
+                fail(f"phase 24 {label}: {err:.3g} from the plain chain, "
+                     f"bar {1e-5 * scale:.3g} (1e-5 of max|a| {scale:.4g})")
+            t = median_ms([lambda: plain_chain(rho, ks), lambda: run(rho)],
+                          reps=7, inner=10, lead_ms=10.0)
+            ms[label] = t
+            print(f"phase 24 {label} G={g}: the solve vs the plain chain "
+                  f"max |d| {err:.3g} ({err / scale:.3g} of max|a| "
+                  f"{scale:.4g}, bar 1e-5), two solves bit for bit, "
+                  f"interleaved, {launched} launches; times (ms, in turns): "
+                  f"plain chain {t[0]:.5f}, solve {t[1]:.5f}, bound "
+                  f"{bound:.5f} ({pm_fft.solve_bytes(g) / 1e9:.3f} GB; "
+                  f"{bound / t[1]:.1%} of it)")
+        del st, flat, rho
+        torch.cuda.empty_cache()
+
+    # traced engines: pm.solve.fused once a step
+    runs = (("pm1m autobox", dict(particle_count=1_000_000,
+                                  pm=PMConfig(auto_box=True),
+                                  pairwise=PairwiseParams(0.08, 2.0)),
+             SimParams(delta_time=0.004)),
+            ("pm16m persist", dict(particle_count=16_777_216, pm=PMConfig(),
+                                   pm_persist=True,
+                                   pairwise=PairwiseParams(1.0, 2.0)),
+             SimParams()))
+    for label, kw, params in runs:
+        e = Engine(device=dev, **kw)
+        e.step(params)
+        torch.cuda.synchronize()
+        zero_launches()
+        trace.reset()
+        trace.enable()
+        try:
+            for _ in range(10):
+                e.step(params)
+            recs = trace.records()
+            counts = trace.counters()
+        finally:
+            trace.disable()
+            trace.reset()
+        got = launch_counts()
+        if (counts.get("pm.solve.fused"), got["pm_solve"]) != (10, 10):
+            fail(f"phase 24 {label}: pm.solve.fused "
+                 f"{counts.get('pm.solve.fused')}, launches {got}")
+        solve_ms = [r.device_ms for r in recs if r.name == "pm.solve"]
+        print(f"phase 24 {label} engine x 10 traced: pm.solve.fused 10, "
+              f"launches {got}; pm.solve {sum(solve_ms) / 10:.4f} device "
+              f"ms a step")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        del e
+        torch.cuda.empty_cache()
+    print(f"phase 24 done in {time.perf_counter() - t_start:.1f} s")
+    return {"launches": total, "ms": ms, "err": errs}
 
 
 def phase20(dev, states) -> dict:
@@ -2175,7 +2322,8 @@ def main() -> int:
     from particle_sim_tpu_torch.core.state import ParticleState
     from particle_sim_tpu_torch.engine import Engine
     from particle_sim_tpu_torch.ops import (
-        pairwise, pairwise_cuda, pm, pm2, pm_cuda, pmx, psort, step_cuda,
+        pairwise, pairwise_cuda, pm, pm2, pm_cuda, pm_fft, pmx, psort,
+        step_cuda,
     )
     from particle_sim_tpu_torch.render import raster, raster_compact as rc
     from particle_sim_tpu_torch.render import raster_sorted as rs
@@ -3350,7 +3498,7 @@ def main() -> int:
         layers = median_ms(
             [lambda: pm_cuda.deposit(posn, na, box_t, cell_t, g,
                                      periodic=False),
-             lambda: pm.solve_accel(rho, cfg, cfg.softening),
+             lambda: pm.solve_accel(rho, cfg, cfg.softening, fused=True),
              lambda: pm_cuda.gather(grids, posn, na, box_t, cell_t,
                                     periodic=False),
              lambda: pm.momentum_clean(acc, na),
@@ -3935,7 +4083,8 @@ def main() -> int:
     grids_c = pm.solve_accel(rho_c, cfg_c, cfg_c.softening)
     lay = [("coarse deposit", lambda: pm_cuda.deposit(
                 c_pos, c_n, box_t, cell_t, 128, periodic=False)),
-           ("coarse solve", lambda: pm.solve_accel(rho_c, cfg_c, 3.0)),
+           ("coarse solve", lambda: pm.solve_accel(rho_c, cfg_c, 3.0,
+                                                   fused=True)),
            ("coarse gather", lambda: pm_cuda.gather(
                 grids_c, c_pos, c_n, box_t, cell_t, periodic=False))]
     wms = pm2._nested_wmins(c_pos, live_c, cfg_c, (lv1, lv2), None)
@@ -3953,7 +4102,7 @@ def main() -> int:
                      c_pos, c_n, w, c, 128, periodic=False, live=i)),
                 (f"level {k + 1} solve",
                  lambda r=rho2, h=h2, e=c2.softening, o=eo:
-                     pm.solve_accel_diff(r, 128, h, e, o)),
+                     pm.solve_accel_diff(r, 128, h, e, o, fused=True)),
                 (f"level {k + 1} gather",
                  lambda g_=g2, w=w, c=cell2, i=inner: pm_cuda.gather(
                      g_, c_pos, c_n, w, c, periodic=False, live=i))]
@@ -4239,6 +4388,10 @@ def main() -> int:
     # -- phase 23: the PM step's tail in two launches -----------------------------
     p23 = phase23(dev)["launches"]
 
+    # -- phase 24: the PM solve around cuFFT --------------------------------------
+    r24 = phase24(dev)
+    p24 = r24["launches"]
+
     src = "particle_sim_tpu_torch/csrc/"
     kernels = [
         {"name": "step", "route": "cuda", "source": src + "step.cu",
@@ -4389,6 +4542,21 @@ def main() -> int:
          "max_abs_err": err["sort"], "ms": sort_timing["16M"]["pass_"],
          "plain_ms": sort_timing["16M"]["pass_plain"],
          "bound_ms": sort_timing["16M"]["pass_bound"], "bound_by": "bytes",
+         "library_ms": None},
+        # the isolated exact-gradient solve of the kernel path: the pad,
+        # product and interleave kernels around four cuFFT plans, one
+        # launch a solve; phase 24 at G = 128 on the 16M static-box
+        # density; plain: the torch.fft chain it replaced (cuFFT through
+        # torch, with its copies)
+        {"name": "pm_solve", "route": "cuda", "source": src + "pm_fft.cu",
+         "replaces": "particle_sim_tpu/ops/pm.py:370",
+         "launches": sum(runs.get("pm_solve", 0) for runs in (
+             pm_launches, pmn_launches, pmx_launches, p19, p20, p22, p23,
+             p24)),
+         "max_abs_err": r24["err"]["n=16777216 static box"],
+         "ms": r24["ms"]["n=16777216 static box"][1],
+         "plain_ms": r24["ms"]["n=16777216 static box"][0],
+         "bound_ms": bytes_ms(pm_fft.solve_bytes(128)), "bound_by": "bytes",
          "library_ms": None},
     ]
     print(gpu_name_and_limit())

@@ -21,12 +21,17 @@ Gradient modes: ``exact`` (three inverse FFTs of the vector kernel) or
 
 The CIC deposit and gather here (``cic_deposit_ref``, ``cic_gather_ref``)
 are the plain versions the CUDA kernels (ops/pm_cuda.py, csrc/pm.cu) are
-held to. The FFTs go to ``torch.fft`` (cuFFT on the card): the JAX package
-leaves them to XLA outside any kernel, too.
+held to. The FFTs go to ``torch.fft`` (cuFFT on the card): the JAX
+package leaves them to XLA outside any kernel, too. The kernel path's
+isolated exact-gradient solve (``fused=True``, which ops/pm_cuda.py and
+ops/pm2.py's fast callers pass) runs the same transforms on CUDA tensors
+through ops/pm_fft.py instead: cuFFT plans and hand-written kernels
+(csrc/pm_fft.cu) with no copy between them.
 
 Kernel spectra are computed on the host in numpy (the same code as the
-JAX package, so they are bit-identical) and kept on the device as
-complex64 tensors in one least-recently-used cache of at most 8 entries:
+JAX package, so they are bit-identical) and kept on the device as one
+stacked complex64[k, ...] tensor an entry, indexed like the tuple of k
+spectra, in one least-recently-used cache of at most 8 entries:
 the base spectra (``base_kernels_device``; one G = 256 entry is ~1.6 GB)
 and the difference spectra g_eps - g_eps_outer of the refinement levels
 (``diff_kernels_device``, ops/pm2.py; ~203 MB a level at G = 128).
@@ -45,7 +50,7 @@ import torch
 
 from ..core import params as P
 from ..utils import trace
-from . import physics
+from . import physics, pm_fft
 
 #: Corner order of the CIC stencil, (cz, cy, cx), shared with csrc/pm.cu.
 _CORNERS = [(cz, cy, cx) for cz in (0, 1) for cy in (0, 1) for cx in (0, 1)]
@@ -256,9 +261,10 @@ _DEVICE_KERNELS: "collections.OrderedDict" = collections.OrderedDict()
 DEVICE_CACHE_SIZE = 8
 
 
-def _cached_spectra(key: tuple, device, host_fn) -> tuple:
-    """The complex64 spectra ``host_fn()`` on ``device``, from the LRU
-    cache under ``key`` + the device (least recently used out)."""
+def _cached_spectra(key: tuple, device, host_fn) -> torch.Tensor:
+    """The complex64 spectra ``host_fn()`` on ``device`` as one stacked
+    [k, ...] tensor, from the LRU cache under ``key`` + the device (least
+    recently used out)."""
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -267,7 +273,11 @@ def _cached_spectra(key: tuple, device, host_fn) -> tuple:
     if got is not None:
         _DEVICE_KERNELS.move_to_end(key)
         return got
-    got = tuple(torch.from_numpy(k).to(dev) for k in host_fn())
+    host = host_fn()
+    got = torch.empty((len(host),) + host[0].shape, dtype=torch.complex64,
+                      device=dev)
+    for dst, src in zip(got, host):
+        dst.copy_(torch.from_numpy(src))
     _DEVICE_KERNELS[key] = got
     while len(_DEVICE_KERNELS) > DEVICE_CACHE_SIZE:
         _DEVICE_KERNELS.popitem(last=False)
@@ -275,9 +285,9 @@ def _cached_spectra(key: tuple, device, host_fn) -> tuple:
 
 
 def base_kernels_device(cfg: "P.PMConfig", softening, cell_size=None, *,
-                        device="cpu") -> tuple:
-    """The solve's kernel spectra as complex64 tensors on ``device``,
-    cached (least recently used out, at most DEVICE_CACHE_SIZE entries,
+                        device="cpu") -> torch.Tensor:
+    """The solve's kernel spectra as one stacked complex64 tensor on
+    ``device``, cached (least recently used out, at most DEVICE_CACHE_SIZE entries,
     keyed with the device)."""
     g = cfg.grid
     h = float(cfg.cell_size if cell_size is None else cell_size)
@@ -291,9 +301,10 @@ def base_kernels_device(cfg: "P.PMConfig", softening, cell_size=None, *,
 
 
 def diff_kernels_device(grid: int, h, eps, eps_outer,
-                        gradient: str = "exact", *, device="cpu") -> tuple:
-    """The difference spectra (``_isolated_diff_kernels_host``) as
-    complex64 tensors on ``device``, in the same cache as the base
+                        gradient: str = "exact", *,
+                        device="cpu") -> torch.Tensor:
+    """The difference spectra (``_isolated_diff_kernels_host``) as one
+    stacked complex64 tensor on ``device``, in the same cache as the base
     spectra."""
     args = (grid, float(h), float(eps), float(eps_outer), gradient)
     return _cached_spectra(("diff",) + args, device,
@@ -357,17 +368,22 @@ def _fd_gradient(phi: torch.Tensor, h: float) -> torch.Tensor:
 
 
 def _solve_isolated(rho: torch.Tensor, ks, g: int, gradient: str,
-                    h) -> torch.Tensor:
-    """The Hockney solve of rho with the doubled-grid spectra ``ks``."""
+                    h, fused: bool = False) -> torch.Tensor:
+    """The Hockney solve of rho with the doubled-grid spectra ``ks``.
+    ``fused``: the exact gradient of a CUDA tensor goes through
+    ops/pm_fft.py, the same transforms with no copy between them."""
+    if fused and rho.is_cuda and gradient == "exact":
+        return interleaved_view(pm_fft.solve(rho, ks, g))
     rho_hat = torch.fft.rfftn(torch.nn.functional.pad(rho, (0, g) * 3))
     if gradient == "fd":
         phi = _irfftn_octant(rho_hat * ks[0], g)
         return _fd_gradient(phi.to(torch.float32), h)
-    return _irfftn_octant_batch(rho_hat[None] * torch.stack(ks), g)[0]
+    return _irfftn_octant_batch(rho_hat[None] * ks, g)[0]
 
 
 def solve_accel(rho: torch.Tensor, cfg: "P.PMConfig", softening,
-                cell_size=None, kernels=None) -> torch.Tensor:
+                cell_size=None, kernels=None, *,
+                fused: bool = False) -> torch.Tensor:
     """f32[3, G, G, G] acceleration grids (unit G_const) from the mass grid.
 
     The isolated solves and the 'fd' gradients return the view of an
@@ -377,7 +393,10 @@ def solve_accel(rho: torch.Tensor, cfg: "P.PMConfig", softening,
 
     ``cell_size`` overrides the config's static h (the auto-box path
     solves in cell units, h = 1). ``kernels``: base_kernels_device()
-    spectra; by default they come from its cache on rho's device."""
+    spectra; by default they come from its cache on rho's device.
+    ``fused`` (the kernel path's callers): the isolated exact-gradient
+    solve of a CUDA tensor runs through ops/pm_fft.py; every other solve,
+    and every solve without it, keeps the plain torch.fft chain."""
     g = cfg.grid
     h = cfg.cell_size if cell_size is None else cell_size
     if cfg.boundary not in ("isolated", "periodic"):
@@ -386,27 +405,28 @@ def solve_accel(rho: torch.Tensor, cfg: "P.PMConfig", softening,
         ks = (base_kernels_device(cfg, softening, h, device=rho.device)
               if kernels is None else kernels)
         if cfg.boundary == "isolated":
-            return _solve_isolated(rho, ks, g, cfg.gradient, h)
+            return _solve_isolated(rho, ks, g, cfg.gradient, h, fused)
         rho_hat = torch.fft.rfftn(rho)
         if cfg.gradient == "fd":
             phi = torch.fft.irfftn(rho_hat * ks[0], s=rho.shape)
             return _fd_gradient(phi.to(torch.float32), h)
-        specs = rho_hat[None] * torch.stack(ks)
+        specs = rho_hat[None] * ks
         return torch.fft.irfftn(specs, s=rho.shape,
                                 dim=(1, 2, 3)).to(torch.float32)
 
 
 def solve_accel_diff(rho: torch.Tensor, grid: int, h, eps, eps_outer,
-                     gradient: str = "exact", kernels=None) -> torch.Tensor:
+                     gradient: str = "exact", kernels=None, *,
+                     fused: bool = False) -> torch.Tensor:
     """f32[3, G, G, G] acceleration grids for the short-range difference
     kernel g_eps - g_eps_outer (isolated Hockney; a refinement level of
     ops/pm2.py), in solve_accel's layouts. ``kernels``:
     diff_kernels_device() spectra; by default from its cache on rho's
-    device."""
+    device. ``fused`` as in :func:`solve_accel`."""
     ks = (diff_kernels_device(grid, h, eps, eps_outer, gradient,
                               device=rho.device)
           if kernels is None else kernels)
-    return _solve_isolated(rho, ks, grid, gradient, float(h))
+    return _solve_isolated(rho, ks, grid, gradient, float(h), fused)
 
 
 def solve_accel_pair(rho: torch.Tensor, rho2: torch.Tensor,
@@ -417,16 +437,15 @@ def solve_accel_pair(rho: torch.Tensor, rho2: torch.Tensor,
     difference solve of ``rho2`` (``kernels2`` = pm2.fine_kernels(...))
     batched through one transform set: both share the doubled-grid shape,
     so the forward rfftns batch to 2 and the six inverse components ride
-    one _irfftn_octant_batch. ``kernels1``: base_kernels_device() spectra
-    (default: from its cache). The caller gates on boundary 'isolated'
-    and both gradients 'exact'."""
+    one _irfftn_octant_batch. ``kernels1``: base_kernels_device()
+    spectra (default: from its cache). The caller gates on boundary
+    'isolated' and both gradients 'exact'."""
     g = cfg.grid
     ks1 = (base_kernels_device(cfg, softening, device=rho.device)
            if kernels1 is None else kernels1)
     rp = torch.nn.functional.pad(torch.stack([rho, rho2]), (0, g) * 3)
     rhat = torch.fft.rfftn(rp, dim=(1, 2, 3))
-    specs = torch.cat([rhat[0][None] * torch.stack(ks1),
-                       rhat[1][None] * torch.stack(kernels2)])
+    specs = torch.cat([rhat[0][None] * ks1, rhat[1][None] * kernels2])
     return _irfftn_octant_batch(specs, g)
 
 

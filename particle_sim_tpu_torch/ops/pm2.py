@@ -188,7 +188,7 @@ def fine_accel_fast(pos_flat: torch.Tensor, live: torch.Tensor, n_active,
     if coll is not None:
         coll.sum_(rho2)
     grids2 = pm.solve_accel_diff(rho2, g, h2, cfg2.softening, eo,
-                                 cfg2.gradient, kernels=kernels)
+                                 cfg2.gradient, kernels=kernels, fused=True)
     return pm_cuda.gather(grids2, pos_flat, n_active, wmin, cell,
                           periodic=False, live=inner)
 

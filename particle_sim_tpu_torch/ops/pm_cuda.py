@@ -28,7 +28,9 @@ components of such a particle together).
 
 :func:`step_pm` (through :func:`step_pm_planes`) updates ``pos`` and
 ``vel`` IN PLACE on CUDA, like ``pairwise_cuda.step_pairwise``: the
-deposit, the cuFFT solve and the gather give the raw acceleration; then
+deposit, the solve (``pm.solve_accel(fused=True)``: the isolated
+exact-gradient solve through ops/pm_fft.py, the plain path keeps
+``torch.fft``) and the gather give the raw acceleration; then
 two launches finish the step: :func:`momentum_mean` (csrc/momentum.cu,
 the live mass-weighted mean) and :func:`clean_kick_and_step`, the step
 kernel's kicked form (csrc/step.cu), which subtracts the mean, applies
@@ -345,7 +347,8 @@ def _accel_raw(pos_flat: torch.Tensor, n_active, cfg: "P.PMConfig", *,
     """(acc, cell): the gathered f32[3, N] acceleration of
     :func:`pm_accel` before its momentum clean and scale; ``cell`` is the
     auto box's 0-d cell size (the scale is G / cell^2), None for a static
-    box (the scale is G)."""
+    box (the scale is G). ``plain``: the plain deposit, solve and gather
+    on any device."""
     dep, gat = (deposit_plain, gather_plain) if plain else (deposit, gather)
     if cfg.auto_box:
         if live is not None:
@@ -357,7 +360,8 @@ def _accel_raw(pos_flat: torch.Tensor, n_active, cfg: "P.PMConfig", *,
                   periodic=False, masses=masses)
         if coll is not None:
             coll.sum_(rho)
-        grids = pm.solve_accel(rho, cfg, cfg.softening, cell_size=1.0)
+        grids = pm.solve_accel(rho, cfg, cfg.softening, cell_size=1.0,
+                               fused=not plain)
         return gat(grids, pos_flat, n_active, box_min, cell,
                    periodic=False), cell
     periodic = cfg.boundary == "periodic"
@@ -367,7 +371,7 @@ def _accel_raw(pos_flat: torch.Tensor, n_active, cfg: "P.PMConfig", *,
               periodic=periodic, masses=masses, live=live)
     if coll is not None:
         coll.sum_(rho)
-    grids = pm.solve_accel(rho, cfg, cfg.softening)
+    grids = pm.solve_accel(rho, cfg, cfg.softening, fused=not plain)
     return gat(grids, pos_flat, n_active, box_min, cell, periodic=periodic,
                live=live), None
 

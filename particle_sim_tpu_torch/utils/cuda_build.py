@@ -7,7 +7,7 @@ nvcc per source, all started together, then one link:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
          -Xcompiler -fPIC -c -o <source>.o csrc/<source>.cu     # each
     nvcc -gencode arch=compute_90a,code=sm_90a -shared \
-         -o build/torch_kernels/libpsim_<hash>.so *.o
+         -o build/torch_kernels/libpsim_<hash>.so *.o -lcufft
 
 The library lives in ``build/torch_kernels/`` beside the package and is
 named by a hash of the sources and flags, so an edited source is rebuilt
@@ -33,6 +33,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+#: The libraries the kernels call: cuFFT (csrc/pm_fft.cu).
+LINK_FLAGS = ("-lcufft",)
 
 _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                    ctypes.c_float)
@@ -76,6 +78,15 @@ SIGNATURES = {
     # stream
     "psim_radix_pass": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                         _I, _I, _I, _P, _I64, _P, _P),
+    # rank, n, inembed, istride, idist, onembed, ostride, odist, type,
+    # batch, plan out, work bytes out
+    "psim_fft_plan": (_I, _P, _P, _I64, _I64, _P, _I64, _I64, _I, _I64, _P,
+                      _P),
+    "psim_fft_destroy": (_I,),
+    # rho, g, 3 spectra, scratch a, b, rhat, p, rr, work, out, 4 plans,
+    # scale, stream
+    "psim_pm_solve": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                      _I, _I, _F, _P),
 }
 
 
@@ -96,7 +107,7 @@ def _nvcc() -> str:
 def library_path(build_dir=None) -> Path:
     """The library of the current sources in ``build_dir`` (default
     BUILD_DIR)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -133,7 +144,9 @@ def build(build_dir=None) -> Tuple[Path, float]:
             raise RuntimeError("nvcc failed: " + "\n".join(failed))
         link = subprocess.run(
             [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
-             *[str(o) for o in objs]], capture_output=True, text=True)
+             *[str(o) for o in objs], *LINK_FLAGS, "-Xlinker",
+             f"-rpath={Path(nvcc).resolve().parent.parent / 'lib64'}"],
+            capture_output=True, text=True)
         if link.returncode != 0:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"

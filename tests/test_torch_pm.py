@@ -116,6 +116,13 @@ def test_device_spectra_cache_is_bounded_lru():
     assert len(pm._DEVICE_KERNELS) == pm.DEVICE_CACHE_SIZE
     assert pm.base_kernels_device(cfg, 1.0) is first
     assert all(k[3] != 2.0 for k in pm._DEVICE_KERNELS)
+    # every entry is one stacked tensor of three spectra, and an entry of
+    # another kind (the difference spectra) keeps the bound too
+    pm.diff_kernels_device(32, 1.0, 1.0, 2.0)
+    assert len(pm._DEVICE_KERNELS) == pm.DEVICE_CACHE_SIZE
+    for ks in pm._DEVICE_KERNELS.values():
+        assert isinstance(ks, torch.Tensor) and ks.is_contiguous()
+        assert ks.shape == (3, 64, 64, 33)
     pm._DEVICE_KERNELS.clear()
 
 
