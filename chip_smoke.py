@@ -166,7 +166,8 @@ Phases (each prints a line; any failure raises and exits non-zero):
      against the direct sum at eps 0.75 inside the window, < coarse / 10)
      and tests/test_pmn.py's (core rms < 0.06 with two levels, each level
      cutting it); the engine (Method.CUDA, two levels) for 20 steps,
-     launches 3 deposits and gathers and one step a frame; times of each
+     launches 3 deposits and gathers, one momentum sums and one step
+     (its kicked form) a frame; times of each
      level's deposit, difference solve and gather, the window origins,
      momentum_clean, the whole PM / pm2 / pmn steps, and
      pm.solve_accel_pair against the two solves it batches
@@ -189,7 +190,8 @@ Phases (each prints a line; any failure raises and exits non-zero):
      --pmx-softening 0.1: stats and done lines, launches 2 deposits, 2
      gathers, one difference pass of the pairwise kernel (none of the
      single pass), one radix sort (a histogram and a pass launch a
-     digit) and one step a frame, a finite final state,
+     digit), one momentum sums and one step (its kicked form) a frame, a
+     finite final state,
      momentum 0 and the centre of mass in place, the checkpoint's pm2 and
      pmx; psort.LIBRARY_CALLS unchanged through phases 17-18
  19. the persistent cell-sorted PM (ops/pm_persist.py): (1) accel_sorted
@@ -268,9 +270,10 @@ Phases (each prints a line; any failure raises and exits non-zero):
      shuffled live mask, at 1M also the auto box's scale: the mean
      within 1e-6 of the largest |mean| of a float64 mean, two sums
      launches bit for bit, pos and vel bit for bit the chain it replaced
-     (fed the kernel's mean), kick_and_step bit for bit a plain add and
-     the step kernel; times in turns against the old chain, with the
-     bytes bound; traced 1M auto-box and 16M persistent engines count
+     (fed the kernel's mean), the kicked form with no clean (the direct
+     sum's kick) bit for bit a plain add and the step kernel; times in
+     turns against the old chain, with the bytes bound; traced 1M
+     auto-box, 1M two-level and 16M persistent engines count
      pm.kick_fused once a step
  24. the kernel path's isolated exact-gradient solve (chip_smoke.phase24,
      callable alone; ops/pm_fft.py, csrc/pm_fft.cu) at G = 128 on the
@@ -1329,13 +1332,14 @@ def phase23(dev) -> dict:
     The kernel's mean within 1e-6 of the largest |mean| of a float64 mean
     (and two launches bit for bit); pos and vel after one step bit for
     bit the chain it replaced (pm.momentum_clean's passes with the
-    kernel's mean, the scale, vel += a*dt, the step kernel);
-    kick_and_step (pm2's and pmx's tail) bit for bit a plain add and the
-    step kernel. Times with CUDA events, in turns: the old chain
-    (momentum_clean, the scale, the add, the step kernel) against the two
-    launches, each launch alone, and the bytes bound beside them. Then
-    traced engines (the 1M auto box, the 16M persistent PM) count
-    pm.kick_fused once a step. Callable alone after
+    kernel's mean, the scale, vel += a*dt, the step kernel); the kicked
+    form with no clean and no scale (step_cuda.kick_step, the direct
+    sum's kick) bit for bit a plain add and the step kernel. Times with
+    CUDA events, in turns: the old chain (momentum_clean, the scale, the
+    add, the step kernel) against the two launches, each launch alone,
+    and the bytes bound beside them. Then traced engines (the 1M auto
+    box, the 1M two-level PM, the 16M persistent PM) count pm.kick_fused
+    once a step. Callable alone after
     ``cuda_build.library()``. -> {"launches", "ms"}."""
     import numpy as np
     import torch
@@ -1346,7 +1350,7 @@ def phase23(dev) -> dict:
     )
     from particle_sim_tpu_torch.core.state import ParticleState
     from particle_sim_tpu_torch.engine import Engine
-    from particle_sim_tpu_torch.ops import pm, pm_cuda, step_cuda
+    from particle_sim_tpu_torch.ops import pm, pm2, pm_cuda, step_cuda
     from particle_sim_tpu_torch.utils import trace
 
     t_start = time.perf_counter()
@@ -1382,7 +1386,7 @@ def phase23(dev) -> dict:
             cases.append(("auto_box", None, None,
                           PMConfig(auto_box=True)))
         for label, m, live, c in cases:
-            acc, cell = pm_cuda._accel_raw(flat, na, c, masses=m, live=live)
+            acc, cell = pm_cuda.accel_raw(flat, na, c, masses=m, live=live)
             scale = g if cell is None else g / (cell * cell)
             live_f = (pm.live_mask(cap, na, dev) if live is None
                       else live).to(torch.float32)
@@ -1419,15 +1423,15 @@ def phase23(dev) -> dict:
                   f"sums {gap_plain:.3g}); two sums launches equal; pos and "
                   f"vel == the chain bit for bit")
             if label == "count":
-                # pm2's and pmx's tail: kick_and_step, no clean, no scale
+                # the direct sum's kick: no clean, no scale
                 pk, vk = st.pos.clone(), st.vel.clone()
-                pm_cuda.kick_and_step(pk.view(3, -1, 128),
-                                      vk.view(3, -1, 128), acc, pv)
+                step_cuda.kick_step(pk.view(3, -1, 128),
+                                    vk.view(3, -1, 128), acc, pv)
                 pp_, vp_ = st.pos.clone(), st.vel.clone()
                 vp_.add_(acc.reshape(vp_.shape) * pv[P_DT])
                 step_cuda.step(pp_, vp_, pv)
                 if not (torch.equal(pk, pp_) and torch.equal(vk, vp_)):
-                    fail(f"phase 23 kick_and_step n={n}: differs from a "
+                    fail(f"phase 23 kick_step n={n}: differs from a "
                          f"plain add and the step kernel")
             # times in turns: the old chain, the two launches, each alone
             tp, tv = st.pos.clone(), st.vel.clone()
@@ -1460,6 +1464,10 @@ def phase23(dev) -> dict:
     runs = (("pm1m autobox", dict(particle_count=1_000_000,
                                   pm=PMConfig(auto_box=True),
                                   pairwise=PairwiseParams(0.08, 2.0)),
+             SimParams(delta_time=0.004)),
+            ("pm1m two-level", dict(particle_count=1_000_000, pm=cfg,
+                                    pm2=pm2.PM2Config(None, 32.0, 0.75),
+                                    pairwise=PairwiseParams(1.0, 3.0)),
              SimParams(delta_time=0.004)),
             ("pm16m persist", dict(particle_count=16_777_216, pm=cfg,
                                    pm_persist=True,
@@ -4047,7 +4055,8 @@ def main() -> int:
              f"levels {r_lv} (bars: 2 levels < 0.06, each level / 3, / 2)")
 
     # the three-level stack through the engine (the kernel path), for the
-    # launch counts: 3 deposits and gathers and 1 step kernel a frame
+    # launch counts: 3 deposits and gathers, the momentum sums and 1 step
+    # kernel (its kicked form) a frame
     steps_c = 20
     eng_c = Engine(particle_count=n_c, device="cuda", method=Method.CUDA,
                    pm=cfg_c, pm2=(lv1, lv2))
@@ -4056,15 +4065,19 @@ def main() -> int:
     step_cuda.LAUNCHES = 0
     pm_cuda.DEPOSIT_LAUNCHES = pm_cuda.DEPOSIT_MASS_LAUNCHES = 0
     pm_cuda.GATHER_LAUNCHES = 0
+    pm_cuda.MOMENTUM_LAUNCHES = pm_cuda.KICK_FUSED_LAUNCHES = 0
     for _ in range(steps_c):
         eng_c.step(SimParams(delta_time=0.004))
     torch.cuda.synchronize()
     pmn_launches = {"pm_deposit": pm_cuda.DEPOSIT_LAUNCHES,
                     "pm_deposit_mass": pm_cuda.DEPOSIT_MASS_LAUNCHES,
                     "pm_gather": pm_cuda.GATHER_LAUNCHES,
+                    "pm_momentum": pm_cuda.MOMENTUM_LAUNCHES,
+                    "pm_kick_fused": pm_cuda.KICK_FUSED_LAUNCHES,
                     "step": step_cuda.LAUNCHES}
     want = {"pm_deposit": 3 * steps_c, "pm_deposit_mass": 0,
-            "pm_gather": 3 * steps_c, "step": steps_c}
+            "pm_gather": 3 * steps_c, "pm_momentum": steps_c,
+            "pm_kick_fused": steps_c, "step": steps_c}
     if pmn_launches != want:
         fail(f"the pmn engine path missed a kernel: launches {pmn_launches},"
              f" expected {want}")
@@ -4320,6 +4333,7 @@ def main() -> int:
         pairwise_cuda.DIFF_LAUNCHES = 0
         pm_cuda.DEPOSIT_LAUNCHES = pm_cuda.DEPOSIT_MASS_LAUNCHES = 0
         pm_cuda.GATHER_LAUNCHES = 0
+        pm_cuda.MOMENTUM_LAUNCHES = pm_cuda.KICK_FUSED_LAUNCHES = 0
         psort.RADIX_HIST_LAUNCHES = psort.RADIX_PASS_LAUNCHES = 0
         out = io.StringIO()
         t0 = time.perf_counter()
@@ -4329,6 +4343,8 @@ def main() -> int:
         pmx_launches = {"pm_deposit": pm_cuda.DEPOSIT_LAUNCHES,
                         "pm_deposit_mass": pm_cuda.DEPOSIT_MASS_LAUNCHES,
                         "pm_gather": pm_cuda.GATHER_LAUNCHES,
+                        "pm_momentum": pm_cuda.MOMENTUM_LAUNCHES,
+                        "pm_kick_fused": pm_cuda.KICK_FUSED_LAUNCHES,
                         "pairwise": pairwise_cuda.LAUNCHES,
                         "pairwise_diff": pairwise_cuda.DIFF_LAUNCHES,
                         "radix_hist": psort.RADIX_HIST_LAUNCHES,
@@ -4347,7 +4363,8 @@ def main() -> int:
             or [ln.get("step") for ln in lines[:-1]] != [100, 200, 300]:
         fail(f"pmx cli: stats / done lines {lines}")
     want = {"pm_deposit": 2 * steps_r, "pm_deposit_mass": 0,
-            "pm_gather": 2 * steps_r, "pairwise": 0,
+            "pm_gather": 2 * steps_r, "pm_momentum": steps_r,
+            "pm_kick_fused": steps_r, "pairwise": 0,
             "pairwise_diff": steps_r, "radix_hist": steps_r,
             "radix_pass": psort.radix_digits() * steps_r, "step": steps_r}
     if pmx_launches != want:

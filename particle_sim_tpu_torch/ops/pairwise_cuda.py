@@ -23,14 +23,15 @@ the host shapes and the SM count (:func:`sm_count`, read once), so the
 same shapes always sum in the same order.
 
 :func:`step_pairwise` is the direct-sum step: the kernel's accelerations,
-then a plain ``vel += acc*dt``, then the attractor step kernel
-(ops/step_cuda.py) — the order of ``physics.kick_and_step_planes``. Like
-the step kernel it updates ``pos`` and ``vel`` IN PLACE.
+then ``vel += acc*dt`` and the attractor step in one launch of the step
+kernel's kicked form with no clean (``step_cuda.kick_step``) — the order
+of ``physics.kick_and_step_planes``. Like the step kernel it updates
+``pos`` and ``vel`` IN PLACE.
 
 Tracing (utils/trace.py; while it is off nothing is recorded, read or
 synchronised): :func:`step_pairwise` records the device spans
 ``pairwise.force`` (the pair kernel and its slice sum) and
-``pairwise.kick`` (the kick and the step kernel);
+``pairwise.kick`` (the kicked step kernel);
 :func:`pairwise_accel` counts ``pairwise.pairs`` and
 :func:`pairwise_accel_diff` ``pairwise.diff_pairs``, the ``Ni * Nj``
 pairs a launch covers, from the host shapes. CPU tensors record the
@@ -45,7 +46,6 @@ from typing import Tuple
 
 import torch
 
-from ..core.params import P_DT
 from ..utils import cuda_build, trace
 from . import pairwise, pm_cuda, psort, step_cuda
 
@@ -457,5 +457,4 @@ def step_pairwise(pos: torch.Tensor, vel: torch.Tensor,
         acc = pairwise_accel(flat.T, flat, n_active, pair_vec[0],
                              pair_vec[1], masses=masses, n_j=n_active)
     with trace.span("pairwise.kick", device=True):
-        vel.add_(acc.T.reshape(vel.shape) * param_vec[P_DT])
-        return step_cuda.step(pos, vel, param_vec)
+        return step_cuda.kick_step(pos, vel, acc.T.contiguous(), param_vec)

@@ -482,9 +482,11 @@ def momentum_clean(acc: torch.Tensor, n_active,
     ``live`` (bool[N]) overrides ``arange < n_active``: for slot orders
     other than the identity (ops/pm_persist.py). ``coll``
     (parallel.mesh.Collectives): the mean over every rank's shard (one
-    all-reduce of the three weighted sums and the weight). On CUDA the PM
-    steps take the mean in one kernel and subtract it inside the step
-    kernel's launch (ops/pm_cuda.py step_pm_planes)."""
+    all-reduce of the three weighted sums and the weight). The plain
+    paths and the kernel path's public accelerations
+    (pm_cuda.clean_and_scale) clean here; every PM step on the kernel
+    path takes the mean in one kernel and subtracts it inside the step
+    kernel's launch (ops/pm_cuda.py, the PM step's tail)."""
     with trace.span("pm.momentum", device=acc.is_cuda):
         if live is None:
             live = live_mask(acc.shape[1], n_active, acc.device)

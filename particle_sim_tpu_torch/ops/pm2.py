@@ -22,8 +22,9 @@ centroid of the parent level's members, computed on the device.
 gather kernels (ops/pm_cuda.py): the window's origin goes in as the
 deposit's device box, its mask as the ``live`` mask (outside particles
 deposit nothing and gather exactly 0, whatever their position). No sort
-is needed: the JAX fast path sorts only for its TPU kernels. On CPU
-tensors the wrappers take their plain versions. ``pmn_accel_ref`` /
+is needed: the JAX fast path sorts only for its TPU kernels. The levels'
+raw fields are summed (``pmn_accel_raw``) and cleaned once (ops/pm_cuda.py).
+On CPU tensors the wrappers take their plain versions. ``pmn_accel_ref`` /
 ``pm2_accel_ref`` are the plain path (scatter/gather, as the JAX jnp
 reference). Window origins stay on the device; no step reads back.
 """
@@ -305,24 +306,24 @@ def pmn_accel_ref(pos_flat: torch.Tensor, n_active, g_const,
     return g_const * pm.momentum_clean(acc, n_active, masses)
 
 
-def pmn_accel(pos_flat: torch.Tensor, n_active, g_const,
-              cfg: "P.PMConfig", levels, *, masses=None,
-              kernels=None, live=None, coll=None) -> torch.Tensor:
-    """f32[3, N] multi-level PM acceleration on the deposit and gather
-    kernels at any grid size (their plain versions on CPU tensors): the
-    coarse pm_cuda.pm_accel, then one deposit + difference solve + gather
-    a level (fine_accel_fast), then momentum_clean. Needs a static coarse
-    box. ``live`` (bool[N]) overrides ``arange < n_active``. ``coll``
-    (parallel.mesh.Collectives): ``pos_flat`` is this rank's shard; every
-    grid is summed over the ranks, the origins and the momentum clean are
-    global."""
+def pmn_accel_raw(pos_flat: torch.Tensor, n_active, cfg: "P.PMConfig",
+                  levels, *, masses=None, kernels=None, live=None,
+                  coll=None) -> torch.Tensor:
+    """f32[3, N] multi-level PM field on the deposit and gather kernels
+    at any grid size (their plain versions on CPU tensors), before the
+    momentum clean and the G scale: the coarse pm_cuda.accel_raw, then
+    one deposit + difference solve + gather a level (fine_accel_fast).
+    Needs a static coarse box. ``live`` (bool[N]) overrides ``arange <
+    n_active``. ``coll`` (parallel.mesh.Collectives): ``pos_flat`` is
+    this rank's shard; every grid is summed over the ranks, the origins
+    are global."""
     if cfg.auto_box:
         raise ValueError("multi-level PM needs a static coarse box")
     levels = _validate_levels(cfg, levels)
     if live is None:
         live = pm.live_mask(pos_flat.shape[1], n_active, pos_flat.device)
-    acc = pm_cuda.pm_accel(pos_flat, n_active, 1.0, cfg, masses=masses,
-                           live=live, coll=coll)
+    acc, _ = pm_cuda.accel_raw(pos_flat, n_active, cfg, masses=masses,
+                               live=live, coll=coll)
     wmins = _nested_wmins(pos_flat, live, cfg, levels, masses, coll=coll)
     eps_outer = cfg.softening
     for k, (c2, w) in enumerate(zip(levels, wmins)):
@@ -331,8 +332,18 @@ def pmn_accel(pos_flat: torch.Tensor, n_active, g_const,
                                     masses=masses, kernels=ker, wmin=w,
                                     eps_outer=eps_outer, coll=coll)
         eps_outer = float(c2.softening)
-    return g_const * pm.momentum_clean(acc, n_active, masses, live=live,
-                                       coll=coll)
+    return acc
+
+
+def pmn_accel(pos_flat: torch.Tensor, n_active, g_const,
+              cfg: "P.PMConfig", levels, *, masses=None,
+              kernels=None, live=None, coll=None) -> torch.Tensor:
+    """f32[3, N] multi-level PM acceleration: :func:`pmn_accel_raw`, then
+    pm_cuda.clean_and_scale (a global clean with ``coll``)."""
+    acc = pmn_accel_raw(pos_flat, n_active, cfg, levels, masses=masses,
+                        kernels=kernels, live=live, coll=coll)
+    return pm_cuda.clean_and_scale(acc, n_active, g_const, masses=masses,
+                                   live=live, coll=coll)
 
 
 def step_pmn(pos: torch.Tensor, vel: torch.Tensor, param_vec: torch.Tensor,
@@ -340,15 +351,18 @@ def step_pmn(pos: torch.Tensor, vel: torch.Tensor, param_vec: torch.Tensor,
              masses=None, kernels=None, use_fast: bool = True
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One frame: multi-level PM self-gravity + the attractor step on
-    (3, R, LANE) planes. ``use_fast``: pmn_accel and pm_cuda.kick_and_step
-    (the step kernel on CUDA), IN PLACE; else the plain pmn_accel_ref and
-    physics.kick_and_step_planes (new tensors). -> (pos, vel)."""
+    (3, R, LANE) planes. ``use_fast``: pmn_accel_raw and the PM step's
+    tail (pm_cuda.momentum_mean, clean_kick_and_step), IN PLACE; else the
+    plain pmn_accel_ref and physics.kick_and_step_planes. -> (pos, vel)."""
     flat = pos.reshape(3, -1)
-    fn = pmn_accel if use_fast else pmn_accel_ref
-    acc = fn(flat, n_active, pair_vec[0], cfg, levels, masses=masses,
-             kernels=kernels)
     if use_fast:
-        return pm_cuda.kick_and_step(pos, vel, acc, param_vec)
+        acc = pmn_accel_raw(flat, n_active, cfg, levels, masses=masses,
+                            kernels=kernels)
+        mean = pm_cuda.momentum_mean(acc, n_active, masses=masses)
+        return pm_cuda.clean_kick_and_step(pos, vel, acc, param_vec, mean,
+                                           n_active, pair_vec[0])
+    acc = pmn_accel_ref(flat, n_active, pair_vec[0], cfg, levels,
+                        masses=masses, kernels=kernels)
     return physics.kick_and_step_planes(pos, vel, acc.reshape(pos.shape),
                                         param_vec)
 

@@ -27,18 +27,16 @@ at the particles that read it (the TPU's un-sort pack poisons all three
 components of such a particle together).
 
 :func:`step_pm` (through :func:`step_pm_planes`) updates ``pos`` and
-``vel`` IN PLACE on CUDA, like ``pairwise_cuda.step_pairwise``: the
-deposit, the solve (``pm.solve_accel(fused=True)``: the isolated
-exact-gradient solve through ops/pm_fft.py, the plain path keeps
-``torch.fft``) and the gather give the raw acceleration; then
-two launches finish the step: :func:`momentum_mean` (csrc/momentum.cu,
-the live mass-weighted mean) and :func:`clean_kick_and_step`, the step
-kernel's kicked form (csrc/step.cu), which subtracts the mean, applies
-the scale (G, or G / h^2 in an auto box), adds ``acc * dt`` to the
-velocity and runs the attractor step. :func:`pm_accel` still returns the
-cleaned, scaled acceleration (the plain ``pm.momentum_clean``) for the
-callers that want the acceleration itself; :func:`kick_and_step` kicks
-by an acceleration as it is (the multi-level and window-exact steps).
+``vel`` IN PLACE: the deposit, the solve (``pm.solve_accel(fused=True)``:
+the isolated exact-gradient solve through ops/pm_fft.py, the plain path
+keeps ``torch.fft``) and the gather give the raw acceleration
+(:func:`accel_raw`); two launches finish this and every other PM step
+on the kernel path (pm2, pmx, pm_persist): :func:`momentum_mean`
+(csrc/momentum.cu, the live mass-weighted mean) and
+:func:`clean_kick_and_step` (csrc/step.cu's kicked form: the clean, the
+scale G or G / h^2, ``vel += acc * dt`` and the attractor step). The
+public accelerations end in :func:`clean_and_scale` instead: on CPU
+tensors the same bits for a given raw field.
 """
 
 from __future__ import annotations
@@ -310,9 +308,9 @@ def clean_kick_and_step(pos: torch.Tensor, vel: torch.Tensor,
     or ``g_const / (cell * cell)`` when the auto box's ``cell`` is given,
     then ``vel += a * dt`` and the attractor step. ``acc``: the raw
     f32[3, N] acceleration; ``mean``: :func:`momentum_mean` of it. The
-    same operations in the same order as pm.momentum_clean, the scale
-    and :func:`kick_and_step`: for a given mean, the same bits. -> (pos,
-    vel), the same tensors."""
+    same operations in the same order as :func:`clean_and_scale`, then
+    ``vel += a * dt`` and the step kernel: for a given mean, the same
+    bits. -> (pos, vel), the same tensors."""
     global KICK_FUSED_LAUNCHES
     dev = pos.device
     with trace.span("pm.kick", device=pos.is_cuda):
@@ -328,22 +326,10 @@ def clean_kick_and_step(pos: torch.Tensor, vel: torch.Tensor,
         return out
 
 
-def kick_and_step(pos: torch.Tensor, vel: torch.Tensor, acc: torch.Tensor,
-                  param_vec: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``vel += acc*dt``, then the attractor step, IN PLACE on (3, R, LANE)
-    planes: one launch of the step kernel's kicked form with no clean and
-    no scale on CUDA (step_cuda.kick_step; bit for bit a plain ``vel +=
-    acc*dt`` and the step kernel), physics.kick_and_step_planes copied
-    back on the CPU. -> (pos, vel), the same tensors."""
-    with trace.span("pm.kick", device=pos.is_cuda):
-        return step_cuda.kick_step(pos, vel, acc.reshape(3, -1).contiguous(),
-                                   param_vec)
-
-
 # -- the pipeline --------------------------------------------------------------------
-def _accel_raw(pos_flat: torch.Tensor, n_active, cfg: "P.PMConfig", *,
-               masses=None, live=None, coll=None, plain: bool = False
-               ) -> tuple:
+def accel_raw(pos_flat: torch.Tensor, n_active, cfg: "P.PMConfig", *,
+              masses=None, live=None, coll=None, plain: bool = False
+              ) -> tuple:
     """(acc, cell): the gathered f32[3, N] acceleration of
     :func:`pm_accel` before its momentum clean and scale; ``cell`` is the
     auto box's 0-d cell size (the scale is G / cell^2), None for a static
@@ -394,8 +380,17 @@ def pm_accel(pos_flat: torch.Tensor, n_active, g_const, cfg: "P.PMConfig",
     rank, the gather stays local, and the auto box and the momentum
     clean are global. ``plain``: the kernels' plain versions on any
     device."""
-    acc, cell = _accel_raw(pos_flat, n_active, cfg, masses=masses,
-                           live=live, coll=coll, plain=plain)
+    acc, cell = accel_raw(pos_flat, n_active, cfg, masses=masses,
+                          live=live, coll=coll, plain=plain)
+    return clean_and_scale(acc, n_active, g_const, cell=cell, masses=masses,
+                           live=live, coll=coll)
+
+
+def clean_and_scale(acc: torch.Tensor, n_active, g_const, *, cell=None,
+                    masses=None, live=None, coll=None) -> torch.Tensor:
+    """pm.momentum_clean of the raw f32[3, N] field ``acc``, then the
+    scale ``g_const`` (or ``g_const / (cell * cell)`` with the auto box's
+    ``cell``). Arguments as in :func:`pm_accel`."""
     acc = pm.momentum_clean(acc, n_active, masses, live=live, coll=coll)
     return (g_const if cell is None else g_const / (cell * cell)) * acc
 
@@ -405,14 +400,14 @@ def step_pm_planes(pos: torch.Tensor, vel: torch.Tensor,
                    cfg: "P.PMConfig", *, masses=None, live=None, coll=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One PM step on (3, R, LANE) planes, IN PLACE: the raw acceleration
-    (:func:`pm_accel`'s deposit, solve and gather), then
+    (:func:`accel_raw`: the deposit, solve and gather), then
     :func:`momentum_mean` and :func:`clean_kick_and_step`, two launches
     where the plain path makes a dozen passes over f32[3, N]; the plain
     versions of each on CPU tensors. Arguments as in :func:`pm_accel`
     (``coll``: the sums are all-reduced between the two launches). ->
     (pos, vel), the same tensors."""
-    acc, cell = _accel_raw(pos.reshape(3, -1), n_active, cfg, masses=masses,
-                           live=live, coll=coll)
+    acc, cell = accel_raw(pos.reshape(3, -1), n_active, cfg, masses=masses,
+                          live=live, coll=coll)
     mean = momentum_mean(acc, n_active, masses=masses, live=live, coll=coll)
     return clean_kick_and_step(pos, vel, acc, param_vec, mean, n_active,
                                g_const, live=live, cell=cell)
@@ -421,14 +416,8 @@ def step_pm_planes(pos: torch.Tensor, vel: torch.Tensor,
 def step_pm(pos: torch.Tensor, vel: torch.Tensor, param_vec: torch.Tensor,
             pair_vec: torch.Tensor, n_active, cfg: "P.PMConfig", *,
             masses=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One PM step on (3, R, LANE) planes, in place: the kernels through
-    :func:`step_pm_planes` on CUDA, the plain pm.step_pm_ref on CPU
-    tensors (copied back). -> (pos, vel), the same tensors."""
-    if pos.device.type == "cpu":
-        p, v = pm.step_pm_ref(pos, vel, param_vec, pair_vec, n_active, cfg,
-                              masses=masses)
-        pos.copy_(p)
-        vel.copy_(v)
-        return pos, vel
+    """One PM step on (3, R, LANE) planes, in place: :func:`step_pm_planes`
+    (on CPU tensors the bits of the plain pm.step_pm_ref). -> (pos, vel),
+    the same tensors."""
     return step_pm_planes(pos, vel, param_vec, pair_vec[0], n_active, cfg,
                           masses=masses)

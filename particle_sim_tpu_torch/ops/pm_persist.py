@@ -10,15 +10,15 @@ for the kernels' sake: on cell-sorted input a warp's particles share a
 few cells, so the deposit's warp pre-sum leaves few atomics, and the
 gather reads neighbouring grid cells.
 
-  * The steady frame is the per-frame pipeline on the sorted planes
-    (``pm_cuda.step_pm_planes``): ``pm_cuda.deposit`` ->
+  * The steady frame is the per-frame pipeline of
+    ``pm_cuda.step_pm_planes`` on the sorted planes: ``pm_cuda.deposit`` ->
     ``pm.solve_accel`` (cuFFT) -> ``pm_cuda.gather`` ->
     ``pm_cuda.momentum_mean`` (one launch) ->
     ``pm_cuda.clean_kick_and_step`` (one launch of the step kernel: the
     clean, the G scale, the kick and the attractor). Refinement levels
     (ops/pm2.py) and the window-exact correction (ops/pmx.py) run
-    unchanged on the same planes (``momentum_clean``, then
-    ``pm_cuda.kick_and_step``). No sort, no host read. Liveness is
+    unchanged on the same planes and add their raw fields to the coarse
+    one before that tail. No sort, no host read. Liveness is
     ``ids < n_active``, so any slot order gives the same physics (f32
     summation order aside).
   * A **repair** re-sorts the state: ``psort.sort((key, slot))`` on the
@@ -360,9 +360,20 @@ def accel_sorted_ref(st: SortedPMState, g_const, cfg: "P.PMConfig", *,
     return acc if cfgx is None else (acc, n_m)
 
 
-def _repaired(st, cfg, levels, n_active, repair, use_fast, coll) -> tuple:
-    """(state', n_active): ``st`` checked, and re-sorted first when a
-    repair fires."""
+def _repaired(st, cfg, cfg2, cfgx, n_active, repair, use_fast,
+              coll) -> tuple:
+    """(state', n_active, levels): ``st`` checked with ``cfg2`` (None, one
+    level, or a tuple on the k+1-class order) and ``cfgx``, and re-sorted
+    first when a repair fires."""
+    if isinstance(cfg2, tuple):
+        levels = pm2._validate_levels(cfg, cfg2)
+        k = len(levels)
+        if st.fine_b is None or st.fine_b.shape != (k,):
+            raise ValueError(f"multi-level persistent mode needs fine_b "
+                             f"int32[{k}] (init via init_sorted_multi)")
+    else:
+        levels = pm2.as_levels(cfg2)
+    validate(cfg, levels, cfgx)
     n = st.pos.shape[1]
     _check_config(cfg, n)
     if coll is not None and not use_fast:
@@ -376,28 +387,32 @@ def _repaired(st, cfg, levels, n_active, repair, use_fast, coll) -> tuple:
         repair = bool(needs_repair(st, n_active, cfg, levels))
     if repair:
         st = repair_state(st, n_active, cfg, levels, use_kernels=use_fast)
-    return st, n_active
+    return st, n_active, levels
 
 
-def _accel(st, g_const, cfg, levels, cfgx, n_active, repair, use_fast,
-           coll=None):
-    st, n_active = _repaired(st, cfg, levels, n_active, repair, use_fast,
-                             coll)
+def _accel_raw(st, n_active, live, cfg, levels, cfgx, coll) -> tuple:
+    """(acc, pmx member count or None): the kernels' raw field in slot
+    order, before the momentum clean and the G scale."""
+    kw = dict(masses=st.masses, live=live, coll=coll)
+    if cfgx is not None:
+        return pmx.pmx_accel_raw(st.pos, n_active, cfg, levels, cfgx, **kw)
+    if levels:
+        return pm2.pmn_accel_raw(st.pos, n_active, cfg, levels, **kw), None
+    return pm_cuda.accel_raw(st.pos, n_active, cfg, **kw)[0], None
+
+
+def _accel(st, g_const, cfg, cfg2, cfgx, n_active, repair, use_fast, coll):
+    st, n_active, levels = _repaired(st, cfg, cfg2, cfgx, n_active, repair,
+                                     use_fast, coll)
     if not use_fast:
         out = accel_sorted_ref(st, g_const, cfg, n_active=n_active,
                                levels=levels, cfgx=cfgx)
         return (st,) + (out if cfgx is not None else (out,))
     live = st.ids < n_active
-    if cfgx is not None:
-        acc, n_m = pmx.pmx_accel(st.pos, n_active, g_const, cfg, levels,
-                                 cfgx, masses=st.masses, live=live,
-                                 coll=coll)
-        return st, acc, n_m
-    if levels:
-        return st, pm2.pmn_accel(st.pos, n_active, g_const, cfg, levels,
-                                 masses=st.masses, live=live, coll=coll)
-    return st, pm_cuda.pm_accel(st.pos, n_active, g_const, cfg,
-                                masses=st.masses, live=live, coll=coll)
+    acc, n_m = _accel_raw(st, n_active, live, cfg, levels, cfgx, coll)
+    acc = pm_cuda.clean_and_scale(acc, n_active, g_const, masses=st.masses,
+                                  live=live, coll=coll)
+    return (st, acc) if cfgx is None else (st, acc, n_m)
 
 
 def accel_sorted(st: SortedPMState, g_const, cfg: "P.PMConfig", *,
@@ -416,8 +431,7 @@ def accel_sorted(st: SortedPMState, g_const, cfg: "P.PMConfig", *,
     (parallel.mesh.Collectives, with ``use_fast``): ``st`` is this rank's
     shard (global ``ids``, global ``n_active``); the grids, origins and
     the momentum clean are global, the repair this rank's own."""
-    levels = pm2.as_levels(cfg2)
-    return _accel(st, g_const, cfg, levels, None, n_active, repair, use_fast,
+    return _accel(st, g_const, cfg, cfg2, None, n_active, repair, use_fast,
                   coll)
 
 
@@ -432,14 +446,8 @@ def accel_sorted_multi(st: SortedPMState, g_const, cfg: "P.PMConfig",
     and a third output: its member count (a device int32; with ``coll``
     int32[2], members and corrected, pmx.exact_accel). Other arguments as
     in :func:`accel_sorted`."""
-    levels = pm2._validate_levels(cfg, levels)
-    k = len(levels)
-    if st.fine_b is None or st.fine_b.shape != (k,):
-        raise ValueError(f"multi-level persistent mode needs fine_b "
-                         f"int32[{k}] (init via init_sorted_multi)")
-    validate(cfg, levels, cfgx)
-    return _accel(st, g_const, cfg, levels, cfgx, n_active, repair, use_fast,
-                  coll)
+    return _accel(st, g_const, cfg, tuple(levels), cfgx, n_active, repair,
+                  use_fast, coll)
 
 
 def step_sorted(st: SortedPMState, param_vec: torch.Tensor,
@@ -449,39 +457,30 @@ def step_sorted(st: SortedPMState, param_vec: torch.Tensor,
     """One frame on the persistent state: the PM acceleration (repairing
     first when ``repair`` says so; one level with a single ``cfg2``, the
     multi-level order with a tuple, optionally ended by ``cfgx``), then
-    the kick and the attractor step in slot order: in place through the
-    kernels' wrappers with ``use_fast`` (with neither level nor ``cfgx``,
-    pm_cuda.step_pm_planes: the momentum clean, the G scale and the kick
-    in the step kernel's launch; else pm_cuda.kick_and_step), else the
+    the kick and the attractor step in slot order: with ``use_fast``, in
+    place, the raw field through the PM step's tail
+    (pm_cuda.momentum_mean, then pm_cuda.clean_kick_and_step), else the
     plain physics.kick_and_step_planes. -> state', or (state', pmx member
     count) with ``cfgx``. ``coll``: one rank's shard of the mesh
     (:func:`accel_sorted`)."""
+    st, n_active, levels = _repaired(st, cfg, cfg2, cfgx, n_active, repair,
+                                     use_fast, coll)
     planes = (3, -1, LANE)
-    if use_fast and cfg2 is None and cfgx is None:
-        st, n_active = _repaired(st, cfg, (), n_active, repair, use_fast,
-                                 coll)
-        pm_cuda.step_pm_planes(st.pos.view(planes), st.vel.view(planes),
-                               param_vec, pair_vec[0], n_active, cfg,
-                               masses=st.masses, live=st.ids < n_active,
-                               coll=coll)
-        return st
-    if isinstance(cfg2, tuple):
-        out = accel_sorted_multi(st, pair_vec[0], cfg, cfg2,
-                                 n_active=n_active, cfgx=cfgx, repair=repair,
-                                 use_fast=use_fast, coll=coll)
-    else:
-        validate(cfg, pm2.as_levels(cfg2), cfgx)
-        out = accel_sorted(st, pair_vec[0], cfg, n_active=n_active,
-                           cfg2=cfg2, repair=repair, use_fast=use_fast,
-                           coll=coll)
-    st, acc = out[0], out[1]
     pos, vel = st.pos.view(planes), st.vel.view(planes)
     if use_fast:
-        pm_cuda.kick_and_step(pos, vel, acc, param_vec)
+        live = st.ids < n_active
+        acc, n_m = _accel_raw(st, n_active, live, cfg, levels, cfgx, coll)
+        mean = pm_cuda.momentum_mean(acc, n_active, masses=st.masses,
+                                     live=live, coll=coll)
+        pm_cuda.clean_kick_and_step(pos, vel, acc, param_vec, mean,
+                                    n_active, pair_vec[0], live=live)
     else:
+        out = accel_sorted_ref(st, pair_vec[0], cfg, n_active=n_active,
+                               levels=levels, cfgx=cfgx)
+        acc, n_m = out if cfgx is not None else (out, None)
         with trace.span("pm.kick", device=pos.is_cuda):
             pos, vel = physics.kick_and_step_planes(pos, vel,
                                                     acc.reshape(pos.shape),
                                                     param_vec)
         st = st._replace(pos=pos.reshape(3, -1), vel=vel.reshape(3, -1))
-    return st if cfgx is None else (st, out[2])
+    return st if cfgx is None else (st, n_m)

@@ -33,7 +33,9 @@ correction is antisymmetric over members (momentum-exact).
      f32[3, N] at the sorted indices (the JAX un-sort by a second sort is
      a TPU workaround; a scatter of a permutation is exact).
 
-The member count stays on the device. With ``use_kernels=False`` the same
+The correction joins the mesh stack's raw field (``pmx_accel_raw``),
+cleaned once (ops/pm_cuda.py); the member count stays on the device.
+With ``use_kernels=False`` the same
 steps run on the plain versions (``psort.radix_sort_ref``,
 ``pairwise.pairwise_accel_diff``, the two plain passes subtracted); on
 CPU tensors the wrappers take them anyway. ``exact_accel_ref`` is the
@@ -188,19 +190,21 @@ def _validate(cfg: "P.PMConfig", levels, cfgx: PMXConfig) -> None:
             f"{parent_size - 2.0 * parent_margin})")
 
 
-def pmx_accel(pos_flat: torch.Tensor, n_active, g_const, cfg: "P.PMConfig",
-              levels, cfgx: PMXConfig, *, masses=None, kernels=None,
-              use_fast: bool = True, live=None, coll=None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(acc f32[3, N], n_members) — the full stack: coarse PM + the pm2
-    refinement levels (possibly none) + the window-exact correction.
-    ``levels`` is () or a tuple of PM2Config (outermost first).
-    ``use_fast``: every layer on the kernels (their plain versions on CPU
-    tensors); else the plain path throughout. ``live`` (bool[N], with
+def pmx_accel_raw(pos_flat: torch.Tensor, n_active, cfg: "P.PMConfig",
+                  levels, cfgx: PMXConfig, *, masses=None, kernels=None,
+                  use_fast: bool = True, live=None, coll=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(acc f32[3, N], n_members) — the full stack before its momentum
+    clean and G scale: coarse PM + the pm2 refinement levels (possibly
+    none) + the window-exact correction. ``levels`` is () or a tuple of
+    PM2Config (outermost first). ``use_fast``: every layer on the kernels
+    (their plain versions on CPU tensors), the mesh field raw
+    (pm_cuda.accel_raw, pm2.pmn_accel_raw); else the plain path
+    throughout, its mesh field cleaned. ``live`` (bool[N], with
     ``use_fast`` only) overrides ``arange < n_active``. ``coll``
     (parallel.mesh.Collectives, with ``use_fast``): ``pos_flat`` is this
-    rank's shard, every layer is global (pm2.pmn_accel, exact_accel), and
-    the count is exact_accel's int32[2]."""
+    rank's shard, every layer is global (pm2.pmn_accel_raw, exact_accel),
+    and the count is exact_accel's int32[2]."""
     levels = tuple(levels) if levels else ()
     _validate(cfg, levels, cfgx)
     if coll is not None and not use_fast:
@@ -210,9 +214,9 @@ def pmx_accel(pos_flat: torch.Tensor, n_active, g_const, cfg: "P.PMConfig",
         live = pm.live_mask(pos_flat.shape[1], n_active, pos_flat.device)
     if levels:
         if use_fast:
-            acc = pm2.pmn_accel(pos_flat, n_active, 1.0, cfg, levels,
-                                masses=masses, kernels=kernels, live=live,
-                                coll=coll)
+            acc = pm2.pmn_accel_raw(pos_flat, n_active, cfg, levels,
+                                    masses=masses, kernels=kernels,
+                                    live=live, coll=coll)
         else:
             acc = pm2.pmn_accel_ref(pos_flat, n_active, 1.0, cfg, levels,
                                     masses=masses, kernels=kernels)
@@ -228,8 +232,8 @@ def pmx_accel(pos_flat: torch.Tensor, n_active, g_const, cfg: "P.PMConfig",
                                 cfgx.window_size)
     else:
         if use_fast:
-            acc = pm_cuda.pm_accel(pos_flat, n_active, 1.0, cfg,
-                                   masses=masses, live=live, coll=coll)
+            acc, _ = pm_cuda.accel_raw(pos_flat, n_active, cfg,
+                                       masses=masses, live=live, coll=coll)
         else:
             acc = pm.pm_accel_ref(pos_flat, n_active, 1.0, cfg.softening,
                                   cfg, masses=masses)
@@ -238,9 +242,20 @@ def pmx_accel(pos_flat: torch.Tensor, n_active, g_const, cfg: "P.PMConfig",
     corr, n_m = exact_accel(pos_flat, live, cfgx, _eps_prev(cfg, levels),
                             masses=masses, wmin=wmin, use_kernels=use_fast,
                             coll=coll)
-    acc = acc + corr
-    return g_const * pm.momentum_clean(acc, n_active, masses, live=live,
-                                       coll=coll), n_m
+    return acc + corr, n_m
+
+
+def pmx_accel(pos_flat: torch.Tensor, n_active, g_const, cfg: "P.PMConfig",
+              levels, cfgx: PMXConfig, *, masses=None, kernels=None,
+              use_fast: bool = True, live=None, coll=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(acc f32[3, N], n_members): :func:`pmx_accel_raw`, then
+    pm_cuda.clean_and_scale (a global clean with ``coll``)."""
+    acc, n_m = pmx_accel_raw(pos_flat, n_active, cfg, levels, cfgx,
+                             masses=masses, kernels=kernels,
+                             use_fast=use_fast, live=live, coll=coll)
+    return pm_cuda.clean_and_scale(acc, n_active, g_const, masses=masses,
+                                   live=live, coll=coll), n_m
 
 
 def step_pmx(pos: torch.Tensor, vel: torch.Tensor, param_vec: torch.Tensor,
@@ -253,11 +268,15 @@ def step_pmx(pos: torch.Tensor, vel: torch.Tensor, param_vec: torch.Tensor,
     member count (a device int32) as a third output so the engine can
     report capacity truncation."""
     flat = pos.reshape(3, -1)
-    acc, n_m = pmx_accel(flat, n_active, pair_vec[0], cfg, levels, cfgx,
-                         masses=masses, kernels=kernels, use_fast=use_fast)
     if use_fast:
-        pos, vel = pm_cuda.kick_and_step(pos, vel, acc, param_vec)
+        acc, n_m = pmx_accel_raw(flat, n_active, cfg, levels, cfgx,
+                                 masses=masses, kernels=kernels)
+        mean = pm_cuda.momentum_mean(acc, n_active, masses=masses)
+        pos, vel = pm_cuda.clean_kick_and_step(pos, vel, acc, param_vec,
+                                               mean, n_active, pair_vec[0])
     else:
+        acc, n_m = pmx_accel(flat, n_active, pair_vec[0], cfg, levels, cfgx,
+                             masses=masses, kernels=kernels, use_fast=False)
         pos, vel = physics.kick_and_step_planes(
             pos, vel, acc.reshape(pos.shape), param_vec)
     return pos, vel, n_m

@@ -15,8 +15,8 @@ moves in JAX's direction, sent to rank - 1 and received from rank + 1,
 and the next hop's receive is posted before the kernel runs on the
 current buffer, so the transfer overlaps the O(N^2 / n_dev) work.
 There are n_dev - 1 hops: the JAX loop's last ``ppermute`` is never
-read. The accumulated force then integrates through the same kick and
-step as the single-device direct path.
+read. The accumulated force then integrates through the same kicked
+step kernel as the single-device direct path (``step_cuda.kick_step``).
 
 Per step each rank sends its 12-byte-a-particle shard (16 with masses)
 n_dev - 1 times: O(N) bytes against O(N^2 / n_dev) work.
@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops import pairwise, pairwise_cuda, physics, pm_cuda
+from ..ops import pairwise, pairwise_cuda, physics, step_cuda
 from .mesh import Collectives
 
 
@@ -46,8 +46,8 @@ def make_ring_pairwise_step(mesh, *, use_kernels: bool = True,
     ``n_active``: the GLOBAL active count; ``masses``: this rank's f32
     source masses (they travel with the positions; receivers are
     mass-free: gravity is an acceleration field). ``use_kernels``: the
-    pairwise kernel, then the kick and the step kernel in place; else the
-    plain sum and physics.kick_and_step_planes (new tensors)."""
+    pairwise kernel, then the kicked step kernel in place; else the plain
+    sum and physics.kick_and_step_planes (new tensors)."""
     coll = Collectives(mesh)
     n_dev, rank = coll.size, coll.rank
     accel = pairwise_cuda.pairwise_accel if use_kernels else (
@@ -78,10 +78,10 @@ def make_ring_pairwise_step(mesh, *, use_kernels: bool = True,
             for w in works:
                 w.wait()
             buf, nxt = nxt, buf
-        acc = acc.T
         if use_kernels:
-            return pm_cuda.kick_and_step(pos, vel, acc, param_vec)
-        return physics.kick_and_step_planes(pos, vel, acc.reshape(shape),
+            return step_cuda.kick_step(pos, vel, acc.T.contiguous(),
+                                       param_vec)
+        return physics.kick_and_step_planes(pos, vel, acc.T.reshape(shape),
                                             param_vec)
 
     return step

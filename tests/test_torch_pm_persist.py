@@ -242,15 +242,20 @@ def test_plain_path_matches_fast_path():
     assert scale_err(acc_a.numpy(), acc_b.numpy()) <= PLAIN_BAR
 
 
-@pytest.mark.parametrize("case", ["unit", "masses", "traced_engine"])
+@pytest.mark.parametrize("case", ["unit", "masses", "traced_engine", "cfg2",
+                                  "levels", "levels_pmx",
+                                  "traced_engine_pm2"])
 def test_step_sorted_two_launch_tail(case):
-    """The single-level frame takes pm_cuda.step_pm_planes (the momentum
-    mean, then the clean, the G scale and the kick in one step-kernel
-    launch): on CPU tensors bit for bit the chain it replaced
-    (accel_sorted's cleaned, scaled acceleration, then
-    physics.kick_and_step_planes), on a scrambled live mask, with no
-    launch counted. traced_engine: a traced persistent engine on the
-    kernels' wrappers counts pm.kick_fused once a step."""
+    """Every frame on the kernels' wrappers ends in the PM step's tail
+    (the raw field of its layers, the momentum mean, then the clean, the
+    G scale and the kick in one step-kernel launch): on CPU tensors bit
+    for bit the chain of accel_sorted's / accel_sorted_multi's cleaned,
+    scaled acceleration and physics.kick_and_step_planes, on a scrambled
+    live mask, with no launch counted; with one refinement level
+    (cfg2), two (levels) and two with the exact window (levels_pmx, the
+    same member count). traced_engine(_pm2): a traced persistent engine
+    on the kernels' wrappers, without and with a refinement level,
+    counts pm.kick_fused once a step."""
     launches = (pm_cuda.MOMENTUM_LAUNCHES, pm_cuda.KICK_FUSED_LAUNCHES,
                 step_cuda.LAUNCHES)
     pv = SimParams(delta_time=0.016, is_mouse_dragging=True,
@@ -258,9 +263,10 @@ def test_step_sorted_two_launch_tail(case):
                    mouse_radius=20.0).pack()
     pv = torch.from_numpy(pv)
     pp = torch.from_numpy(PairwiseParams(0.8, CFG.softening).pack())
-    if case == "traced_engine":
+    if case.startswith("traced_engine"):
         e = Engine(particle_count=4096, device="cpu", method=Method.TORCH,
-                   pm=CFG, pm_persist=True)
+                   pm=CFG, pm_persist=True,
+                   pm2=L1 if case.endswith("pm2") else None)
         # the kernels' wrappers, which take their plain versions here
         e.method = Method.CUDA
         trace.reset()
@@ -276,20 +282,36 @@ def test_step_sorted_two_launch_tail(case):
     else:
         n = 1500
         pos, _ = cloud(n, 31, capacity=2048)
+        if case.startswith("levels"):
+            pos, n = clump_scene(17)
         rng = np.random.default_rng(32)
         vel = torch.from_numpy(rng.normal(size=pos.shape).astype(np.float32))
         masses = None
-        if case == "masses":
+        if case in ("masses", "levels_pmx"):
             masses = torch.from_numpy(
                 (rng.random(pos.shape[1]) + 0.5).astype(np.float32))
-        st = scramble(port_state(pos, n, vel_flat=vel, masses=masses), 33)
-        st_a, acc = pm_persist.accel_sorted(st, pp[0], CFG, n_active=n,
-                                            repair=False)
+        cfg2 = {"cfg2": L1, "levels": (L1, L2),
+                "levels_pmx": (L1, L2)}.get(case)
+        cfgx = PMX_WINDOW if case == "levels_pmx" else None
+        if isinstance(cfg2, tuple):
+            st = scramble(pm_persist.init_sorted_multi(
+                torch.from_numpy(pos), n, CFG, cfg2, vel_flat=vel,
+                masses=masses), 33)
+            st_a, acc, *n_m = pm_persist.accel_sorted_multi(
+                st, pp[0], CFG, cfg2, n_active=n, cfgx=cfgx, repair=False)
+        else:
+            st = scramble(port_state(pos, n, vel_flat=vel, masses=masses,
+                                     cfg2=cfg2), 33)
+            st_a, acc = pm_persist.accel_sorted(st, pp[0], CFG, n_active=n,
+                                                cfg2=cfg2, repair=False)
         want_p, want_v = physics.kick_and_step_planes(
             st_a.pos, st_a.vel, acc, pv)
         got = pm_persist.step_sorted(
             st._replace(pos=st.pos.clone(), vel=st.vel.clone()), pv, pp, n,
-            CFG, repair=False)
+            CFG, cfg2=cfg2, cfgx=cfgx, repair=False)
+        if cfgx is not None:
+            got, got_m = got
+            assert int(got_m) == int(n_m[0]) > 0
         assert torch.equal(got.ids, st.ids)
         assert torch.equal(got.pos, want_p) and torch.equal(got.vel, want_v)
     assert launches == (pm_cuda.MOMENTUM_LAUNCHES,
