@@ -201,10 +201,15 @@ Phases (each prints a line; any failure raises and exits non-zero):
      prefix, disorder 0) and matches the per-frame pm_accel permuted by
      ids within 1e-4 max|a|; (2) the deposit and gather on a cell-sorted
      copy against the original order at 1M and 16,777,216, and at 16M
-     against the disorder (the sorted state drifted by sigma cells); (4)
-     the main path: the CLI with --pm --pm-persist --central-mass 1000 at
-     1M x 200 steps: launches (deposit with masses = gather = step =
-     steps, one radix sort for the mirror and one a repair), a finite
+     against the disorder (the sorted state drifted by sigma cells);
+     (2b) the deposit of cell-sorted input against the deposit for any
+     order at the main path's persistent 16M states (steps 0, 40, 150,
+     and 150 with a quarter of its slots moved): times in turns beside
+     the bound and plain, runs, each gap to plain; (4) the main path:
+     the CLI with --pm --pm-persist --central-mass 1000 at 1M x 200
+     steps: launches (deposit with masses = gather = step = steps, all
+     of them the sorted deposit, one radix sort for the mirror and one a
+     repair), a finite
      final state, momentum 0 and the centre of mass in place, the
      repairs; (3) at 1M, 4,194,304 and 16M (dt = 0) the per-frame PM
      step, the steady persistent step, one repair (full, and
@@ -887,6 +892,72 @@ def phase19(dev, states) -> dict:
                        f"{td:.5f}, {tg:.5f}" for s, d, td, tg in rows))
     ms["disorder rows 16M"] = rows
 
+    # (2b) the deposit of cell-sorted input (pm_cuda.deposit with
+    # cell_sorted, the single-level persistent step's) and the deposit for
+    # any order, in turns, on the persistent 16M states of the main path's
+    # run (--pm-persist --central-mass 1000): the first frame, the
+    # collapse (step 40), past the box (step 150), and step 150 with a
+    # quarter of its slots moved among themselves; the state's runs
+    # (adjacent slots of different lower cells, plain torch on cell_keys)
+    # and each kernel's gap to the plain deposit over max|rho|
+    del sp, grids, sorted16
+    e16 = Engine(n16, device=dev, pm=cfg, pm_persist=True,
+                 pairwise=PairwiseParams(1.0, cfg.softening))
+    m16 = np.ones(n16, np.float32)
+    m16[0] = 1000.0
+    e16.set_masses(m16)
+    bound16 = bytes_ms(n16 * 17 + g ** 3 * 4)
+    done16, sorted_rows = 0, []
+    for label in ("step 0", "step 40", "step 150", "step 150 moved"):
+        if label == "step 0":
+            st16 = pper.init_sorted(e16.state.pos.reshape(3, -1), n16, cfg,
+                                    masses=e16._masses_for_capacity())
+        elif label == "step 150 moved":
+            sel = torch.nonzero(torch.rand(n16, generator=gen_t, device=dev)
+                                < 0.25)[:, 0]
+            order = torch.arange(n16, device=dev)
+            order[sel] = sel[torch.randperm(sel.numel(), generator=gen_t,
+                                            device=dev)]
+            st16 = st16._replace(pos=st16.pos[:, order].contiguous(),
+                                 ids=st16.ids[order],
+                                 masses=st16.masses[order].contiguous())
+        else:
+            while done16 < int(label.split()[1]):
+                e16.step(SimParams())
+                done16 += 1
+            torch.cuda.synchronize()
+            st16 = e16._persist
+        lv = st16.ids < n16
+        key = pper.cell_keys(st16.pos, lv, cfg)
+        runs = int((key[1:] != key[:-1]).sum()) + 1
+        share = int(pper.disorder(key)) / n16
+        kw = dict(periodic=False, masses=st16.masses, live=lv)
+        fns = [lambda: pm_cuda.deposit(st16.pos, n16, box, cell, g,
+                                       cell_sorted=True, **kw),
+               lambda: pm_cuda.deposit(st16.pos, n16, box, cell, g, **kw)]
+        plain = pm_cuda.deposit_plain(st16.pos, n16, box, cell, g, **kw)
+        scale = float(plain.abs().max())
+        gaps = [float((f() - plain).abs().max()) / scale for f in fns]
+        t = median_ms(fns, reps=5, inner=5, lead_ms=8.0)
+        t_plain = median_ms([lambda: pm_cuda.deposit_plain(
+            st16.pos, n16, box, cell, g, **kw)], reps=3, inner=1)[0]
+        sorted_rows.append((label, runs, share, t[0], t[1], t_plain,
+                            gaps[0], gaps[1]))
+        # float32 sums in another order: no further from the plain deposit
+        # than the deposit for any order is
+        if gaps[0] > max(1e-5, 2 * gaps[1]):
+            fail(f"sorted deposit at {n16} {label}: {gaps[0]:.3g} of "
+                 f"max|rho| from plain (the deposit for any order "
+                 f"{gaps[1]:.3g})")
+        print(f"phase 19 sorted deposit at {n16} {label}: {runs} runs, "
+              f"disorder {share:.4f}; cell_sorted {t[0]:.5f} ms, any order "
+              f"{t[1]:.5f} ms ({t[1] / t[0]:.2f}x), plain {t_plain:.3f} ms, "
+              f"bound {bound16:.5f} ms (bytes); gap to plain {gaps[0]:.3g} / "
+              f"{gaps[1]:.3g} of max|rho|")
+    ms["sorted deposit rows 16M"] = sorted_rows
+    del e16, st16, plain, key, lv
+    torch.cuda.empty_cache()
+
     # (4) the persistent main path through the CLI: the shell falls onto
     # a central mass (phase 12 (b) in the persistent mode)
     n_d, steps_d = 1_000_000, 200
@@ -899,7 +970,7 @@ def phase19(dev, states) -> dict:
         step_cuda.LAUNCHES = pairwise_cuda.LAUNCHES = 0
         pairwise_cuda.DIFF_LAUNCHES = 0
         pm_cuda.DEPOSIT_LAUNCHES = pm_cuda.DEPOSIT_MASS_LAUNCHES = 0
-        pm_cuda.GATHER_LAUNCHES = 0
+        pm_cuda.DEPOSIT_SORTED_LAUNCHES = pm_cuda.GATHER_LAUNCHES = 0
         psort.RADIX_HIST_LAUNCHES = psort.RADIX_PASS_LAUNCHES = 0
         out = io.StringIO()
         t0 = time.perf_counter()
@@ -908,6 +979,7 @@ def phase19(dev, states) -> dict:
         wall_d = time.perf_counter() - t0
         got = {"pm_deposit": pm_cuda.DEPOSIT_LAUNCHES,
                "pm_deposit_mass": pm_cuda.DEPOSIT_MASS_LAUNCHES,
+               "pm_deposit_sorted": pm_cuda.DEPOSIT_SORTED_LAUNCHES,
                "pm_gather": pm_cuda.GATHER_LAUNCHES,
                "pairwise": pairwise_cuda.LAUNCHES,
                "pairwise_diff": pairwise_cuda.DIFF_LAUNCHES,
@@ -925,6 +997,7 @@ def phase19(dev, states) -> dict:
     # one sort makes the mirror; every repair is one sort more
     repairs = got["radix_hist"] - 1
     want = {"pm_deposit": 0, "pm_deposit_mass": steps_d,
+            "pm_deposit_sorted": steps_d,
             "pm_gather": steps_d, "pairwise": 0, "pairwise_diff": 0,
             "radix_hist": repairs + 1,
             "radix_pass": psort.radix_digits() * (repairs + 1),
@@ -1295,6 +1368,7 @@ def launch_counts() -> dict:
             "pairwise_diff": pairwise_cuda.DIFF_LAUNCHES,
             "pm_deposit": pm_cuda.DEPOSIT_LAUNCHES
             + pm_cuda.DEPOSIT_MASS_LAUNCHES,
+            "pm_deposit_sorted": pm_cuda.DEPOSIT_SORTED_LAUNCHES,
             "pm_gather": pm_cuda.GATHER_LAUNCHES,
             "pm_momentum": pm_cuda.MOMENTUM_LAUNCHES,
             "pm_kick_fused": pm_cuda.KICK_FUSED_LAUNCHES,
@@ -1315,7 +1389,7 @@ def zero_launches() -> None:
     step_cuda.LAUNCHES = pairwise_cuda.LAUNCHES = 0
     pairwise_cuda.DIFF_LAUNCHES = 0
     pm_cuda.DEPOSIT_LAUNCHES = pm_cuda.DEPOSIT_MASS_LAUNCHES = 0
-    pm_cuda.GATHER_LAUNCHES = 0
+    pm_cuda.DEPOSIT_SORTED_LAUNCHES = pm_cuda.GATHER_LAUNCHES = 0
     pm_cuda.MOMENTUM_LAUNCHES = pm_cuda.KICK_FUSED_LAUNCHES = 0
     pm_fft.LAUNCHES = 0
     psort.RADIX_HIST_LAUNCHES = psort.RADIX_PASS_LAUNCHES = 0
@@ -1490,10 +1564,15 @@ def phase23(dev) -> dict:
             trace.reset()
         got = launch_counts()
         steps = sum(1 for r in recs if r.name == "engine.step")
+        # the sorted deposit only on the single-level persistent state
+        sorted_want = 10 if "persist" in label else 0
         if (steps, counts.get("pm.kick_fused"), got["pm_momentum"],
-                got["pm_kick_fused"]) != (10, 10, 10, 10):
+                got["pm_kick_fused"], counts.get("pm.deposit.sorted", 0),
+                got["pm_deposit_sorted"]) != (10, 10, 10, 10, sorted_want,
+                                              sorted_want):
             fail(f"phase 23 {label}: engine.step {steps}, pm.kick_fused "
-                 f"{counts.get('pm.kick_fused')}, launches {got}")
+                 f"{counts.get('pm.kick_fused')}, pm.deposit.sorted "
+                 f"{counts.get('pm.deposit.sorted')}, launches {got}")
         kick_ms = [r.device_ms for r in recs
                    if r.name in ("pm.momentum", "pm.kick")]
         print(f"phase 23 {label} engine x 10 traced: pm.kick_fused 10, "
@@ -3335,6 +3414,7 @@ def main() -> int:
             rs.LAUNCHES = 0
             pm_cuda.DEPOSIT_LAUNCHES = 0
             pm_cuda.DEPOSIT_MASS_LAUNCHES = 0
+            pm_cuda.DEPOSIT_SORTED_LAUNCHES = 0
             pm_cuda.GATHER_LAUNCHES = 0
             psort.RADIX_HIST_LAUNCHES = psort.RADIX_PASS_LAUNCHES = 0
             out = io.StringIO()
@@ -3344,6 +3424,7 @@ def main() -> int:
             wall = time.perf_counter() - t0
             got = {"pm_deposit": pm_cuda.DEPOSIT_LAUNCHES,
                    "pm_deposit_mass": pm_cuda.DEPOSIT_MASS_LAUNCHES,
+                   "pm_deposit_sorted": pm_cuda.DEPOSIT_SORTED_LAUNCHES,
                    "pm_gather": pm_cuda.GATHER_LAUNCHES,
                    "step": step_cuda.LAUNCHES,
                    "sorted_deposit": rs.LAUNCHES,
@@ -3377,6 +3458,7 @@ def main() -> int:
         n_diag = sum("potential" in ln for ln in lines)
         want = {"pm_deposit": steps_ + n_diag if tag == "a" else 0,
                 "pm_deposit_mass": 0 if tag == "a" else steps_,
+                "pm_deposit_sorted": 0,
                 "pm_gather": steps_ + n_diag, "step": steps_,
                 "sorted_deposit": 0 if tag == "a" else 2,
                 "radix_hist": 0 if tag == "a" else 2,
@@ -4332,7 +4414,7 @@ def main() -> int:
         step_cuda.LAUNCHES = pairwise_cuda.LAUNCHES = 0
         pairwise_cuda.DIFF_LAUNCHES = 0
         pm_cuda.DEPOSIT_LAUNCHES = pm_cuda.DEPOSIT_MASS_LAUNCHES = 0
-        pm_cuda.GATHER_LAUNCHES = 0
+        pm_cuda.DEPOSIT_SORTED_LAUNCHES = pm_cuda.GATHER_LAUNCHES = 0
         pm_cuda.MOMENTUM_LAUNCHES = pm_cuda.KICK_FUSED_LAUNCHES = 0
         psort.RADIX_HIST_LAUNCHES = psort.RADIX_PASS_LAUNCHES = 0
         out = io.StringIO()
@@ -4342,6 +4424,7 @@ def main() -> int:
         wall_r = time.perf_counter() - t0
         pmx_launches = {"pm_deposit": pm_cuda.DEPOSIT_LAUNCHES,
                         "pm_deposit_mass": pm_cuda.DEPOSIT_MASS_LAUNCHES,
+                        "pm_deposit_sorted": pm_cuda.DEPOSIT_SORTED_LAUNCHES,
                         "pm_gather": pm_cuda.GATHER_LAUNCHES,
                         "pm_momentum": pm_cuda.MOMENTUM_LAUNCHES,
                         "pm_kick_fused": pm_cuda.KICK_FUSED_LAUNCHES,
@@ -4363,8 +4446,8 @@ def main() -> int:
             or [ln.get("step") for ln in lines[:-1]] != [100, 200, 300]:
         fail(f"pmx cli: stats / done lines {lines}")
     want = {"pm_deposit": 2 * steps_r, "pm_deposit_mass": 0,
-            "pm_gather": 2 * steps_r, "pm_momentum": steps_r,
-            "pm_kick_fused": steps_r, "pairwise": 0,
+            "pm_deposit_sorted": 0, "pm_gather": 2 * steps_r,
+            "pm_momentum": steps_r, "pm_kick_fused": steps_r, "pairwise": 0,
             "pairwise_diff": steps_r, "radix_hist": steps_r,
             "radix_pass": psort.radix_digits() * steps_r, "step": steps_r}
     if pmx_launches != want:

@@ -58,6 +58,30 @@
 //     groups in a shared-memory table keyed by the cell before its atomics.
 //     A block of spread particles finds none and skips the table, so the
 //     spread case pays one match and two votes a warp.
+// deposit of cell-sorted input (pm_deposit_kernel_sorted, the persistent
+//   state's; psim_pm_deposit_sorted): the bytes, 17 a particle and the grid,
+//   take 0.0876 ms at 16M; the loads, cic_setup's three IEEE divisions and the
+//   weights alone took 0.170 ms. pm_deposit_kernel, timed with parts of it
+//   taken out at the persistent 16M states of the main path (--pm-persist
+//   --central-mass 1000; the first frame / step 40 / step 150, ms): whole
+//   0.432 / 0.460 / 0.715, setup only 0.170, + match and tree 0.196 / 0.196 /
+//   0.197, + the table without its grid atomics 0.327 / 0.332 / 0.409. So the
+//   table's zeroing, barriers and flush cost ~0.13 ms on any input and the
+//   grid atomics the rest, growing with the cells a block meets. The state is
+//   not long runs of one cell for long: one frame after a repair each cell's
+//   particles are in slot order, but those that cross into a neighbour cell
+//   stay where they were, so the runs go from 46,168 at the first frame to
+//   7.3M ten steps later, and a block of 256 slots meets 2 to 52 cells (3.4M
+//   (block, cell) pairs at step 150). A design that sums runs of one cell in
+//   registers and a warp scan took 0.18 ms at the first frame and 4.3 ms at
+//   step 150 (a run of 1.4 slots is an atomic a slot); warp-private tables
+//   without float atomics 0.27 / 0.32 / 0.84. This one keeps the warp step and
+//   the block table and spreads their cost: a block takes two rounds of 256
+//   slots (all loads first), zeroes its 512-slot table once for both, flushes
+//   only the slots a cell took (a list), and skips the x pairs whose two
+//   weights are 0 (the lower faces of a cloud clamped onto the box: f = 0
+//   there): 0.333 / 0.338 / 0.474 ms, 0.447 a step over a 200-step run against
+//   0.692 (chip_smoke.py phase 19 times it).
 // gather: load requests. One thread a particle reads 8 corners of 3
 //   components. With three planar grids that is 24 scalar loads, each its
 //   own L1/L2 sector request (neighbouring threads hit unrelated cells), and
@@ -74,6 +98,11 @@
 // shared-memory merge table of the deposit: more slots than a block has
 // particles, so an insertion always finds its cell or a free slot
 #define PM_SLOTS 512
+// the deposit of cell-sorted input: rounds of PM_BLOCK slots a block (as
+// many particles as PM_SLOTS), and the longest probe of its table before
+// a cell goes to the grid at once
+#define PM_SORTED_ROUNDS 2
+#define PM_SORTED_PROBES 64
 
 namespace {
 
@@ -87,16 +116,15 @@ __device__ __forceinline__ int upper_cell(int k, int g, bool periodic) {
   return k + 1 < g ? k + 1 : periodic ? 0 : g - 1;
 }
 
-__device__ __forceinline__ Cic cic_setup(const float* __restrict__ pos,
-                                         size_t n, size_t i,
-                                         const float* __restrict__ box_min,
-                                         float cell, int g, float hi,
-                                         bool periodic) {
+// The CIC cell and fractions of the position p (x, y, z).
+__device__ __forceinline__ Cic cic_of(const float (&p)[3],
+                                      const float* __restrict__ box_min,
+                                      float cell, int g, float hi,
+                                      bool periodic) {
   Cic r;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    float c = __fdiv_rn(__fsub_rn(__ldg(pos + a * n + i), __ldg(box_min + a)),
-                        cell);
+    float c = __fdiv_rn(__fsub_rn(p[a], __ldg(box_min + a)), cell);
     if (periodic) {
       // torch.remainder / jnp.mod: fmod, then shift a negative rest by G
       float m = fmodf(c, (float)g);
@@ -114,6 +142,17 @@ __device__ __forceinline__ Cic cic_setup(const float* __restrict__ pos,
     r.f[a] = __fsub_rn(c, fl);
   }
   return r;
+}
+
+// cic_of the particle i of the f32[3, n] planes
+__device__ __forceinline__ Cic cic_setup(const float* __restrict__ pos,
+                                         size_t n, size_t i,
+                                         const float* __restrict__ box_min,
+                                         float cell, int g, float hi,
+                                         bool periodic) {
+  const float p[3] = {__ldg(pos + i), __ldg(pos + n + i),
+                      __ldg(pos + 2 * n + i)};
+  return cic_of(p, box_min, cell, g, hi, periodic);
 }
 
 // the corners of a lower cell's flat index, as cic_setup forms them
@@ -174,7 +213,10 @@ __device__ __forceinline__ bool group_sum(unsigned peers, float w[8]) {
 // The 8 corners' atomics. An x pair (ix, ix + 1) inside one aligned
 // 16-byte word goes as one float4 reduction (rho is 16-byte aligned; the
 // other two lanes add +0, which changes no value), any other as two
-// scalars (the word's last lane, or the periodic seam's wrap).
+// scalars (the word's last lane, or the periodic seam's wrap). kSkipZero:
+// no atomic for an x pair whose two weights are 0 (a cloud clamped onto
+// a lower face of the box has f = 0 there, so half its corners weigh 0).
+template <bool kSkipZero = false>
 __device__ __forceinline__ void add_corners(float* __restrict__ rho,
                                             const Cic& c, int g,
                                             const float w[8]) {
@@ -185,6 +227,7 @@ __device__ __forceinline__ void add_corners(float* __restrict__ rho,
     const size_t row = ((size_t)iz * g + iy) * g;
     const size_t k0 = row + c.lo[0], k1 = row + c.hi[0];
     const float a = w[2 * p], b = w[2 * p + 1];
+    if (kSkipZero && a == 0.0f && b == 0.0f) continue;
     const int r = (int)(k0 & 3);
     if (k1 == k0 + 1 && r != 3) {
       const float4 v = make_float4(r == 0 ? a : 0.0f,
@@ -250,6 +293,83 @@ __global__ void __launch_bounds__(PM_BLOCK) pm_deposit_kernel(
 #pragma unroll
     for (int k = 0; k < 8; ++k) ws[k] = slot_w[k][s];
     add_corners(rho, cic_of_cell(key, g, periodic != 0), g, ws);
+  }
+}
+
+// The deposit of cell-sorted input (the persistent state's slots,
+// ops/pm_persist.py; the note at the top says why this design): the sums
+// of pm_deposit_kernel, for any order. A block takes PM_SORTED_ROUNDS
+// rounds of PM_BLOCK consecutive slots and loads them all first; a round
+// is pm_deposit_kernel's warp step (the lanes of one lower cell summed by
+// the shuffle tree), its leaders add into the block's table, and the
+// table goes to the grid once, after the last round, over the slots a
+// cell took (the list `used`) and without the x pairs whose two weights
+// are 0. A cell the table cannot place goes to the grid at once.
+template <bool kMass>
+__global__ void __launch_bounds__(PM_BLOCK) pm_deposit_kernel_sorted(
+    const float* __restrict__ pos, int n, const int* __restrict__ n_active,
+    const uint8_t* __restrict__ live, const float* __restrict__ masses,
+    const float* __restrict__ box_min, const float* __restrict__ cell_p,
+    int g, float hi, int periodic, float* __restrict__ rho) {
+  __shared__ int slot_cell[PM_SLOTS];
+  __shared__ float slot_w[8][PM_SLOTS];
+  __shared__ int used[PM_SLOTS];
+  __shared__ int n_used;
+  const bool per = periodic != 0;
+  const float cell = __ldg(cell_p);
+  float p[PM_SORTED_ROUNDS][3], m[PM_SORTED_ROUNDS];
+  bool on[PM_SORTED_ROUNDS];
+#pragma unroll
+  for (int j = 0; j < PM_SORTED_ROUNDS; ++j) {
+    const int i = (blockIdx.x * PM_SORTED_ROUNDS + j) * PM_BLOCK + threadIdx.x;
+    const bool in = i < n;
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      p[j][a] = in ? __ldg(pos + (size_t)a * n + i) : 0.0f;
+    m[j] = kMass && in ? __ldg(masses + i) : 1.0f;
+    on[j] = in && alive(i, n_active, live);
+  }
+  for (int s = threadIdx.x; s < PM_SLOTS; s += PM_BLOCK) {
+    slot_cell[s] = -1;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) slot_w[k][s] = 0.0f;
+  }
+  if (threadIdx.x == 0) n_used = 0;
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < PM_SORTED_ROUNDS; ++j) {
+    Cic c = {};
+    float w[8] = {};
+    int key = -1;   // dead lanes group among themselves and add nothing
+    if (on[j]) {
+      c = cic_of(p[j], box_min, cell, g, hi, per);
+      corner_weights<kMass>(c, m[j], w);
+      key = (c.lo[2] * g + c.lo[1]) * g + c.lo[0];
+    }
+    const unsigned peers = __match_any_sync(FULL_WARP, key);
+    if (!group_sum(peers, w) || key < 0) continue;
+    unsigned s = ((unsigned)key * 2654435761u) >> 23;   // 9 bits
+    int probe = 0;
+    for (; probe < PM_SORTED_PROBES; ++probe) {
+      const int prev = atomicCAS(&slot_cell[s], -1, key);
+      if (prev == -1) used[atomicAdd(&n_used, 1)] = s;
+      if (prev == -1 || prev == key) break;
+      s = (s + 1) & (PM_SLOTS - 1);
+    }
+    if (probe < PM_SORTED_PROBES) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) atomicAdd(&slot_w[k][s], w[k]);
+    } else {
+      add_corners<true>(rho, c, g, w);
+    }
+  }
+  __syncthreads();
+  for (int u = threadIdx.x; u < n_used; u += PM_BLOCK) {
+    const int s = used[u];
+    float ws[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) ws[k] = slot_w[k][s];
+    add_corners<true>(rho, cic_of_cell(slot_cell[s], g, per), g, ws);
   }
 }
 
@@ -339,6 +459,35 @@ PSIM_EXPORT int psim_pm_deposit(const float* pos, int n, const int* n_active,
           rho);
     } else {
       pm_deposit_kernel<false><<<blocks, PM_BLOCK, 0, stream>>>(
+          pos, n, n_active, live, masses, box_min, cell, g, hi, periodic,
+          rho);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// psim_pm_deposit for cell-sorted input (pm_deposit_kernel_sorted): the
+// same arguments and the same sums for any order, fast on the persistent
+// state's slots.
+PSIM_EXPORT int psim_pm_deposit_sorted(const float* pos, int n,
+                                       const int* n_active,
+                                       const uint8_t* live,
+                                       const float* masses,
+                                       const float* box_min,
+                                       const float* cell, int g, float hi,
+                                       int periodic, float* rho,
+                                       cudaStream_t stream) {
+  if (reinterpret_cast<uintptr_t>(rho) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const long long per_block = (long long)PM_BLOCK * PM_SORTED_ROUNDS;
+  const int blocks = (int)((n + per_block - 1) / per_block);
+  if (blocks > 0) {
+    if (masses != nullptr) {
+      pm_deposit_kernel_sorted<true><<<blocks, PM_BLOCK, 0, stream>>>(
+          pos, n, n_active, live, masses, box_min, cell, g, hi, periodic,
+          rho);
+    } else {
+      pm_deposit_kernel_sorted<false><<<blocks, PM_BLOCK, 0, stream>>>(
           pos, n, n_active, live, masses, box_min, cell, g, hi, periodic,
           rho);
     }

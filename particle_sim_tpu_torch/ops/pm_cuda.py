@@ -7,9 +7,10 @@ matmul kernels and un-sorts the accelerations; here both kernels take the
 particles in their own order (one thread each, float atomics for the
 deposit), so there is no sort, no tiling by grid and any grid size works.
 The deposit sums the corner weights of particles that share a cell before
-its atomics; the gather reads the acceleration grids in the interleaved
-layout that ``pm.solve_accel`` writes (:func:`grid_layout`); csrc/pm.cu
-says why.
+its atomics (``cell_sorted``: the design for the persistent state's
+cell-sorted slots); the gather reads the acceleration grids in the
+interleaved layout that ``pm.solve_accel`` writes (:func:`grid_layout`);
+csrc/pm.cu says why.
 
 Each wrapper takes its plain version (:func:`deposit_plain`,
 :func:`gather_plain`, wrapping ``pm.cic_deposit_ref`` /
@@ -51,11 +52,14 @@ from ..utils import cuda_build, trace
 from . import pm, step_cuda
 
 #: Kernel launches in this process: the deposit with unit masses, the
-#: deposit with masses, the gather, the momentum sums (csrc/momentum.cu),
-#: and the step kernel's kicked form with the momentum clean
-#: (:func:`clean_kick_and_step`; step_cuda.LAUNCHES counts these too).
+#: deposit with masses, the deposit of cell-sorted input (``cell_sorted``;
+#: the two counts before it count these too), the gather, the momentum
+#: sums (csrc/momentum.cu), and the step kernel's kicked form with the
+#: momentum clean (:func:`clean_kick_and_step`; step_cuda.LAUNCHES counts
+#: these too).
 DEPOSIT_LAUNCHES = 0
 DEPOSIT_MASS_LAUNCHES = 0
+DEPOSIT_SORTED_LAUNCHES = 0
 GATHER_LAUNCHES = 0
 MOMENTUM_LAUNCHES = 0
 KICK_FUSED_LAUNCHES = 0
@@ -143,7 +147,8 @@ def deposit_plain(pos, n_active, box_min, cell, grid: int, *, periodic: bool,
 
 
 def deposit(pos: torch.Tensor, n_active, box_min, cell, grid: int, *,
-            periodic: bool, masses=None, live=None) -> torch.Tensor:
+            periodic: bool, masses=None, live=None,
+            cell_sorted: bool = False) -> torch.Tensor:
     """f32[G, G, G] CIC mass grid of the particles ``pos`` (f32[3, N]).
 
     Particles with index < ``n_active`` deposit (``live``, bool[N],
@@ -151,8 +156,13 @@ def deposit(pos: torch.Tensor, n_active, box_min, cell, grid: int, *,
     ``masses`` (f32[N]) or 1. ``box_min`` (3 values) and ``cell`` (the
     cell size) may be tuples, floats or device tensors. ``periodic``
     wraps coordinates and the last cell's upper corner (pm.cell_coords_dyn);
-    otherwise they clamp into the grid."""
-    global DEPOSIT_LAUNCHES, DEPOSIT_MASS_LAUNCHES
+    otherwise they clamp into the grid. ``cell_sorted``: the caller keeps
+    the particles in the order of this deposit's own lower cells
+    (ops/pm_persist.py), so the kernel for that input launches
+    (``psim_pm_deposit_sorted``, counted by ``pm.deposit.sorted``); the
+    same sums for any order, to float32 summation order. CPU tensors take
+    the plain version either way."""
+    global DEPOSIT_LAUNCHES, DEPOSIT_MASS_LAUNCHES, DEPOSIT_SORTED_LAUNCHES
     _check(pos, masses, live)
     if grid ** 3 >= 2 ** 31:
         raise ValueError(f"grid {grid}: too large for int32 cell indices")
@@ -164,8 +174,9 @@ def deposit(pos: torch.Tensor, n_active, box_min, cell, grid: int, *,
                       device=pos.device)
     lib = cuda_build.library()
     stream = torch.cuda.current_stream(pos.device).cuda_stream
+    launch = lib.psim_pm_deposit_sorted if cell_sorted else lib.psim_pm_deposit
     with torch.cuda.device(pos.device):
-        err = lib.psim_pm_deposit(
+        err = launch(
             pos.data_ptr(), pos.shape[1], na.data_ptr(), _ptr(live),
             _ptr(masses), bmin.data_ptr(), cell_t.data_ptr(), grid,
             pm.clamp_limit(grid, periodic), int(periodic), rho.data_ptr(),
@@ -174,6 +185,9 @@ def deposit(pos: torch.Tensor, n_active, box_min, cell, grid: int, *,
         DEPOSIT_LAUNCHES += 1
     else:
         DEPOSIT_MASS_LAUNCHES += 1
+    if cell_sorted:
+        DEPOSIT_SORTED_LAUNCHES += 1
+        trace.count("pm.deposit.sorted")
     cuda_build.check(err, "pm deposit")
     return rho
 
@@ -328,14 +342,16 @@ def clean_kick_and_step(pos: torch.Tensor, vel: torch.Tensor,
 
 # -- the pipeline --------------------------------------------------------------------
 def accel_raw(pos_flat: torch.Tensor, n_active, cfg: "P.PMConfig", *,
-              masses=None, live=None, coll=None, plain: bool = False
-              ) -> tuple:
+              masses=None, live=None, coll=None, plain: bool = False,
+              cell_sorted: bool = False) -> tuple:
     """(acc, cell): the gathered f32[3, N] acceleration of
     :func:`pm_accel` before its momentum clean and scale; ``cell`` is the
     auto box's 0-d cell size (the scale is G / cell^2), None for a static
     box (the scale is G). ``plain``: the plain deposit, solve and gather
-    on any device."""
-    dep, gat = (deposit_plain, gather_plain) if plain else (deposit, gather)
+    on any device. ``cell_sorted``: :func:`deposit`'s, for a caller that
+    keeps ``pos_flat`` in the order of the grid's lower cells."""
+    dep, gat = ((deposit_plain, gather_plain) if plain else
+                (functools.partial(deposit, cell_sorted=cell_sorted), gather))
     if cfg.auto_box:
         if live is not None:
             raise ValueError("a live mask needs a static box")

@@ -6,9 +6,13 @@ the particles in (approximately) cell-sorted slots, with their identity
 riding along as ``ids``; a frame runs in slot order and never un-sorts.
 The JAX package built this to drop its two grouping sorts a frame. The
 port's PM kernels sort nothing (csrc/pm.cu), so here the order is kept
-for the kernels' sake: on cell-sorted input a warp's particles share a
-few cells, so the deposit's warp pre-sum leaves few atomics, and the
-gather reads neighbouring grid cells.
+for the kernels' sake: on cell-sorted input a block's particles share a
+few cells, so the deposit's pre-sums leave few atomics, and the gather
+reads neighbouring grid cells. Without refinement levels the slots are
+sorted by the deposit grid's own lower cells (:func:`cell_keys`), so the
+deposit is the one for that input (``pm_cuda.deposit(...,
+cell_sorted=True)``, counted by ``pm.deposit.sorted``); the class orders
+of the levels are not, and keep the deposit for any order.
 
   * The steady frame is the per-frame pipeline of
     ``pm_cuda.step_pm_planes`` on the sorted planes: ``pm_cuda.deposit`` ->
@@ -398,7 +402,9 @@ def _accel_raw(st, n_active, live, cfg, levels, cfgx, coll) -> tuple:
         return pmx.pmx_accel_raw(st.pos, n_active, cfg, levels, cfgx, **kw)
     if levels:
         return pm2.pmn_accel_raw(st.pos, n_active, cfg, levels, **kw), None
-    return pm_cuda.accel_raw(st.pos, n_active, cfg, **kw)[0], None
+    # sorted by this deposit's own lower cells (cell_keys)
+    return pm_cuda.accel_raw(st.pos, n_active, cfg, cell_sorted=True,
+                             **kw)[0], None
 
 
 def _accel(st, g_const, cfg, cfg2, cfgx, n_active, repair, use_fast, coll):

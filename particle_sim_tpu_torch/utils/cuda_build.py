@@ -55,6 +55,8 @@ SIGNATURES = {
     "psim_pairwise": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "psim_sorted_deposit": (_P, _P, _P, _P, _I, _I, _P),
     "psim_pm_deposit": (_P, _I, _P, _P, _P, _P, _P, _I, _F, _I, _P, _P),
+    "psim_pm_deposit_sorted": (_P, _I, _P, _P, _P, _P, _P, _I, _F, _I, _P,
+                               _P),
     "psim_pm_gather": (_P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _F, _I,
                        _P, _P),
     # xi, order, xj, gv, eps_sq, box, out, ni, nj, stream
