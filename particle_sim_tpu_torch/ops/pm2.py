@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..core import params as P
+from ..utils import trace
 from . import physics, pm, pm_cuda
 
 
@@ -184,14 +185,19 @@ def fine_accel_fast(pos_flat: torch.Tensor, live: torch.Tensor, n_active,
     eo = cfg.softening if eps_outer is None else eps_outer
     cell = pm_cuda.device_const((h2,), pos_flat.device)
     inner = _in_window(pos_flat, wmin, cfg2.window_size, cfg2.margin) & live
-    rho2 = pm_cuda.deposit(pos_flat, n_active, wmin, cell, g, periodic=False,
-                           masses=masses, live=inner)
+    on_device = pos_flat.is_cuda
+    with trace.span("pm2.deposit", device=on_device):
+        rho2 = pm_cuda.deposit(pos_flat, n_active, wmin, cell, g,
+                               periodic=False, masses=masses, live=inner)
     if coll is not None:
         coll.sum_(rho2)
-    grids2 = pm.solve_accel_diff(rho2, g, h2, cfg2.softening, eo,
-                                 cfg2.gradient, kernels=kernels, fused=True)
-    return pm_cuda.gather(grids2, pos_flat, n_active, wmin, cell,
-                          periodic=False, live=inner)
+    with trace.span("pm2.solve", device=on_device):
+        grids2 = pm.solve_accel_diff(rho2, g, h2, cfg2.softening, eo,
+                                     cfg2.gradient, kernels=kernels,
+                                     fused=True)
+    with trace.span("pm2.gather", device=on_device):
+        return pm_cuda.gather(grids2, pos_flat, n_active, wmin, cell,
+                              periodic=False, live=inner)
 
 
 def pm2_accel(pos_flat: torch.Tensor, n_active, g_const,
@@ -313,10 +319,13 @@ def pmn_accel_raw(pos_flat: torch.Tensor, n_active, cfg: "P.PMConfig",
     at any grid size (their plain versions on CPU tensors), before the
     momentum clean and the G scale: the coarse pm_cuda.accel_raw, then
     one deposit + difference solve + gather a level (fine_accel_fast).
-    Needs a static coarse box. ``live`` (bool[N]) overrides ``arange <
-    n_active``. ``coll`` (parallel.mesh.Collectives): ``pos_flat`` is
-    this rank's shard; every grid is summed over the ranks, the origins
-    are global."""
+    Traced: the window origins in span ``pm2.windows``, each level (its
+    field added in) in ``pm2.level`` around its masked deposit's
+    ``pm2.deposit``, difference solve's ``pm2.solve`` and masked
+    gather's ``pm2.gather``. Needs a static coarse box. ``live``
+    (bool[N]) overrides ``arange < n_active``. ``coll``
+    (parallel.mesh.Collectives): ``pos_flat`` is this rank's shard; every
+    grid is summed over the ranks, the origins are global."""
     if cfg.auto_box:
         raise ValueError("multi-level PM needs a static coarse box")
     levels = _validate_levels(cfg, levels)
@@ -324,13 +333,16 @@ def pmn_accel_raw(pos_flat: torch.Tensor, n_active, cfg: "P.PMConfig",
         live = pm.live_mask(pos_flat.shape[1], n_active, pos_flat.device)
     acc, _ = pm_cuda.accel_raw(pos_flat, n_active, cfg, masses=masses,
                                live=live, coll=coll)
-    wmins = _nested_wmins(pos_flat, live, cfg, levels, masses, coll=coll)
+    on_device = pos_flat.is_cuda
+    with trace.span("pm2.windows", device=on_device):
+        wmins = _nested_wmins(pos_flat, live, cfg, levels, masses, coll=coll)
     eps_outer = cfg.softening
     for k, (c2, w) in enumerate(zip(levels, wmins)):
         ker = None if kernels is None else kernels[k]
-        acc = acc + fine_accel_fast(pos_flat, live, n_active, cfg, c2,
-                                    masses=masses, kernels=ker, wmin=w,
-                                    eps_outer=eps_outer, coll=coll)
+        with trace.span("pm2.level", device=on_device):
+            acc = acc + fine_accel_fast(pos_flat, live, n_active, cfg, c2,
+                                        masses=masses, kernels=ker, wmin=w,
+                                        eps_outer=eps_outer, coll=coll)
         eps_outer = float(c2.softening)
     return acc
 

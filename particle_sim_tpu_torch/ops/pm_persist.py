@@ -177,10 +177,12 @@ def disorder(key: torch.Tensor) -> torch.Tensor:
 def needs_repair(st: SortedPMState, n_active, cfg: "P.PMConfig",
                  levels: Sequence = ()) -> torch.Tensor:
     """bool 0-d on the state's device: disorder > REPAIR_SHARE * n_active.
-    Nothing is read back."""
-    d = disorder(state_keys(st, n_active, cfg, levels))
-    return d.to(torch.float32) > REPAIR_SHARE * torch.as_tensor(
-        n_active, device=d.device)
+    Nothing is read back. Traced: span ``persist.verdict`` (the keys,
+    with levels their window origins and masks, and the disorder)."""
+    with trace.span("persist.verdict", device=st.pos.is_cuda):
+        d = disorder(state_keys(st, n_active, cfg, levels))
+        return d.to(torch.float32) > REPAIR_SHARE * torch.as_tensor(
+            n_active, device=d.device)
 
 
 # -- sorting ---------------------------------------------------------------------
