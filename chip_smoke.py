@@ -101,8 +101,10 @@ Phases (each prints a line; any failure raises and exits non-zero):
  12. the PM main path through the CLI at 1M: (a) the documented command
      --pm --pm-auto-box --pairwise-g 0.08 --dt 0.004 --diagnostics, 600
      steps; (b) --pm --central-mass 1000 --renderer sorted, 200 steps, a
-     frame every 100; checks the launch counts (deposit = gather = step =
-     steps, the mass deposit in (b); in (a) each diagnostics line adds a
+     frame every 100; checks the launch counts (deposit = gather = kicked
+     gather = steps and no step kernel: the single-level tail from the
+     grids, phase 25; the mass deposit in (b); in (a) each diagnostics
+     line adds a
      deposit and a gather, the mesh potential's; (b)'s two sorted frames
      launch the sort's kernels), a finite final state,
      momentum 0 and the centre of mass in place, the diagnostics lines,
@@ -207,9 +209,9 @@ Phases (each prints a line; any failure raises and exits non-zero):
      and 150 with a quarter of its slots moved): times in turns beside
      the bound and plain, runs, each gap to plain; (4) the main path:
      the CLI with --pm --pm-persist --central-mass 1000 at 1M x 200
-     steps: launches (deposit with masses = gather = step = steps, all
-     of them the sorted deposit, one radix sort for the mirror and one a
-     repair), a finite
+     steps: launches (deposit with masses = gather = kicked gather =
+     steps, all of them the sorted deposit, no step kernel, one radix
+     sort for the mirror and one a repair), a finite
      final state, momentum 0 and the centre of mass in place, the
      repairs; (3) at 1M, 4,194,304 and 16M (dt = 0) the per-frame PM
      step, the steady persistent step, one repair (full, and
@@ -259,7 +261,9 @@ Phases (each prints a line; any failure raises and exits non-zero):
      and deep_zoom 500,000 x 300 without and with --exact, each with
      --out into a temporary directory where it renders: every printed
      line parses and holds only finite numbers, every frame is lit, the
-     path's kernels launched (step once a step), the renderer each frame
+     path's kernels launched (a step once a step: the step kernel, or
+     on the single-level PM of disk and collapse the kicked gather), the
+     renderer each frame
      took, --exact logs its truncation warning once (members past the
      capacity of 8,192); wall time and host-paced ms a step (a steady
      window of 50 steps of the same scene); then each example's first
@@ -288,15 +292,31 @@ Phases (each prints a line; any failure raises and exits non-zero):
      one pm_solve launch a solve; times in turns against the plain chain
      with the bytes bound (pm_fft.solve_bytes); traced 1M auto-box and
      16M persistent engines count pm.solve.fused and pm_solve once a step
+ 25. the single-level PM step's tail from the grids (chip_smoke.phase25,
+     callable alone): pm_cuda.grid_momentum_mean (csrc/momentum.cu's grid
+     instance) and pm_cuda.gather_kick_and_step (csrc/pm.cu's kicked
+     gather) against the gather, momentum_mean and clean_kick_and_step
+     at the persistent 16M states of --pm-persist --central-mass 1000
+     (steps 0, 40, 150; the sphere as generated and in two seeded
+     orientations) and the 1M auto box: pos and vel bit for bit the chain
+     given the particle mean; the grid sums within GRID_SUMS_ULPS of
+     their plain version on the solved grids and on a random field, two
+     launches bit for bit; the grid mean within GRID_MEAN_SHARE of the
+     particle mean; times in turns
+     (the old tail, the new, each launch alone) with the bytes bounds;
+     traced engines count pm.kick_gathered once a step on one
+     interleaved grid (1M static and auto box, 16M persistent) and never
+     with a level or pmx
 
 The line before the last is a JSON object with one entry per kernel (the
-launches of step are phases 4, 16 (the engine), 18, 19, 20, 22 and 23
-together; of pairwise phases 8 and 20 (the ring); of pairwise_diff
+launches of step are phases 4, 16 (the engine), 18, 19, 20, 22, 23 and
+25 together; of pairwise phases 8 and 20 (the ring); of pairwise_diff
 phases 18, 20 (the deep zoom) and 22; of pm_deposit and pm_gather phase
-12's runs (a) and (b), 16, 18, 19, 20, 22 and 23 together; of compact
+12's runs (a) and (b), 16, 18, 19, 20, 22, 23 and 25 together (a kicked
+gather counts as a gather); of compact
 and deposit phases 4, 20 and 22; those of sorted_deposit phases 8 and 12
-(b); of radix_hist and radix_pass phases 8, 12 (b), 18, 19, 20, 22 and
-23; of pm_solve phases 20, 22, 23 and 24;
+(b); of radix_hist and radix_pass phases 8, 12 (b), 18, 19, 20, 22,
+23 and 25; of pm_solve phases 20, 22, 23 and 24;
 those of
 pairwise_mxu, hilbert_keys, inlier_box, block_sort and merge_round the
 drives of phases 14 and 15); the last line is {"ok": true, "device":
@@ -308,6 +328,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import statistics
 import struct
@@ -971,6 +992,7 @@ def phase19(dev, states) -> dict:
         pairwise_cuda.DIFF_LAUNCHES = 0
         pm_cuda.DEPOSIT_LAUNCHES = pm_cuda.DEPOSIT_MASS_LAUNCHES = 0
         pm_cuda.DEPOSIT_SORTED_LAUNCHES = pm_cuda.GATHER_LAUNCHES = 0
+        pm_cuda.KICK_GATHER_LAUNCHES = 0
         psort.RADIX_HIST_LAUNCHES = psort.RADIX_PASS_LAUNCHES = 0
         out = io.StringIO()
         t0 = time.perf_counter()
@@ -981,6 +1003,7 @@ def phase19(dev, states) -> dict:
                "pm_deposit_mass": pm_cuda.DEPOSIT_MASS_LAUNCHES,
                "pm_deposit_sorted": pm_cuda.DEPOSIT_SORTED_LAUNCHES,
                "pm_gather": pm_cuda.GATHER_LAUNCHES,
+               "pm_kick_gather": pm_cuda.KICK_GATHER_LAUNCHES,
                "pairwise": pairwise_cuda.LAUNCHES,
                "pairwise_diff": pairwise_cuda.DIFF_LAUNCHES,
                "radix_hist": psort.RADIX_HIST_LAUNCHES,
@@ -998,10 +1021,10 @@ def phase19(dev, states) -> dict:
     repairs = got["radix_hist"] - 1
     want = {"pm_deposit": 0, "pm_deposit_mass": steps_d,
             "pm_deposit_sorted": steps_d,
-            "pm_gather": steps_d, "pairwise": 0, "pairwise_diff": 0,
-            "radix_hist": repairs + 1,
+            "pm_gather": steps_d, "pm_kick_gather": steps_d, "pairwise": 0,
+            "pairwise_diff": 0, "radix_hist": repairs + 1,
             "radix_pass": psort.radix_digits() * (repairs + 1),
-            "step": steps_d}
+            "step": 0}
     if got != want or lines[-1].get("done") is not True:
         fail(f"the persistent pm cli path missed a kernel: launches {got}, "
              f"expected {want}")
@@ -1372,6 +1395,7 @@ def launch_counts() -> dict:
             "pm_gather": pm_cuda.GATHER_LAUNCHES,
             "pm_momentum": pm_cuda.MOMENTUM_LAUNCHES,
             "pm_kick_fused": pm_cuda.KICK_FUSED_LAUNCHES,
+            "pm_kick_gather": pm_cuda.KICK_GATHER_LAUNCHES,
             "pm_solve": pm_fft.LAUNCHES,
             "radix_hist": psort.RADIX_HIST_LAUNCHES,
             "radix_pass": psort.RADIX_PASS_LAUNCHES,
@@ -1391,6 +1415,7 @@ def zero_launches() -> None:
     pm_cuda.DEPOSIT_LAUNCHES = pm_cuda.DEPOSIT_MASS_LAUNCHES = 0
     pm_cuda.DEPOSIT_SORTED_LAUNCHES = pm_cuda.GATHER_LAUNCHES = 0
     pm_cuda.MOMENTUM_LAUNCHES = pm_cuda.KICK_FUSED_LAUNCHES = 0
+    pm_cuda.KICK_GATHER_LAUNCHES = 0
     pm_fft.LAUNCHES = 0
     psort.RADIX_HIST_LAUNCHES = psort.RADIX_PASS_LAUNCHES = 0
     rc.COMPACT_LAUNCHES = rc.DEPOSIT_LAUNCHES = rs.LAUNCHES = 0
@@ -1721,6 +1746,322 @@ def phase24(dev) -> dict:
         torch.cuda.empty_cache()
     print(f"phase 24 done in {time.perf_counter() - t_start:.1f} s")
     return {"launches": total, "ms": ms, "err": errs}
+
+
+#: Phase 25: the grid sums kernel against its plain version (both float64
+#: sums of the same float32 inputs, each rounded to float32, then divided),
+#: in float32 ulps of grid_mean_scale: the sums' order moves them ~1e-10
+#: relative, below one rounding of the sums, of the weight and of the mean.
+GRID_SUMS_ULPS = 4
+#: Phase 25: the grid mean against the particle mean, a share of
+#: grid_mean_scale: rho's float32 rounding, largest past the collapse with
+#: ~1.8M particles in one cell. Read on an H100 at the 16M persistent
+#: states (three orientations, steps 0 / 40 / 150: at most 4.9e-10 /
+#: 1.0e-6 / 1.0e-5) and the 1M auto box (8.7e-10); the bar is five times
+#: the largest. Past the collapse the mean itself is of that order, so
+#: this is a physics statement; GRID_SUMS_ULPS is what holds the kernel.
+GRID_MEAN_SHARE = 5e-5
+
+
+def grid_mean_scale(rho, grids):
+    """f64[3]: sum rho |a| / sum rho + |sum rho a / sum rho| per component,
+    the size the grid mean's bars are shares of."""
+    w = rho.double().reshape(-1)
+    a = grids.double().reshape(3, -1)
+    c = w.sum()
+    return ((a.abs() * w[None]).sum(1) + (a * w[None]).sum(1).abs()) / c
+
+
+def turned(state, seed: int):
+    """``state`` (core.state.ParticleState) with its positions turned about
+    the origin by a rotation drawn from ``seed`` (a unit quaternion): the
+    same sphere in another orientation against the PM grid."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    w, x, y, z = (lambda q: q / np.linalg.norm(q))(
+        np.random.default_rng(seed).normal(size=4))
+    rot = torch.tensor([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+        [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+        [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)],
+    ], dtype=torch.float64, device=state.pos.device)
+    pos = (rot @ state.pos.reshape(3, -1).double()).float()
+    return dataclasses.replace(state, pos=pos.view(state.pos.shape))
+
+
+def phase25(dev) -> dict:
+    """Phase 25: the single-level PM step's tail from the grids, two
+    launches that never write the raw f32[3, N] field:
+    pm_cuda.grid_momentum_mean (csrc/momentum.cu's grid instance: the
+    mean from rho and the interleaved grid) and
+    pm_cuda.gather_kick_and_step (csrc/pm.cu's kicked gather), against
+    the tail it replaced (pm_cuda.gather, momentum_mean,
+    clean_kick_and_step) on the main path's persistent 16M states
+    (--pm-persist --central-mass 1000: the first frame, step 40, step
+    150; masses and the live mask; the sphere as generated, timed, and
+    turned by two seeded rotations) and the 1M hollow sphere in the auto
+    box (a live count, the G / h^2 scale). Given the particle-side mean
+    the kicked gather is pos and vel bit for bit the chain. The grid
+    sums kernel is two launches bit for bit and within GRID_SUMS_ULPS
+    float32 ulps of grid_mean_scale of grid_momentum_mean_plain, on the
+    solved grids and on a random field of their shape (whose weighted
+    mean stands far above that bar: a wrong weight, stride or component
+    shows); the
+    grid mean lies within GRID_MEAN_SHARE of grid_mean_scale of the
+    particle side's. Times in turns (the old tail, the new, each launch
+    alone) beside the bytes bounds, with dt 0 so repeated calls keep the
+    state.
+    Then traced engines count pm.kick_gathered once a step (1M per-frame
+    static box and auto box, the 16M persistent from step 150) and never
+    with a refinement level or the exact window. Callable alone after
+    ``cuda_build.library()``. -> {"launches", "ms"}."""
+    import numpy as np
+    import torch
+
+    from particle_sim_tpu_torch.core.params import (
+        P_DT, PairwiseParams, PMConfig, SimParams,
+    )
+    from particle_sim_tpu_torch.engine import Engine
+    from particle_sim_tpu_torch.ops import pm, pm2, pm_cuda, pmx
+    from particle_sim_tpu_torch.ops import pm_persist as pper
+    from particle_sim_tpu_torch.utils import trace
+
+    t_start = time.perf_counter()
+    pv = torch.from_numpy(SimParams(
+        delta_time=0.016, is_mouse_dragging=True,
+        mouse_position=(10.0, 5.0, -8.0), mouse_force=40.0,
+        mouse_radius=30.0).pack()).to(dev)
+    pv0 = pv.clone()
+    pv0[P_DT] = 0.0                           # timing: the state stays
+    ms, total = {}, {}
+
+    u = 2.0 ** -24
+    shares = []
+
+    def tail_case(label, pos, vel, n_active, cfg, g_const, masses, live,
+                  cell_sorted, timed=True):
+        flat = pos.reshape(3, -1)
+        n = flat.shape[1]
+        rho, grids, box, cell, periodic = pm_cuda._mesh(
+            flat, n_active, cfg, masses=masses, live=live, coll=None,
+            plain=False, cell_sorted=cell_sorted)
+        auto = cfg.auto_box
+        gkw = dict(periodic=periodic, live=live)
+        zero_launches()
+        acc = pm_cuda.gather(grids, flat, n_active, box, cell, **gkw)
+        p_mean = pm_cuda.momentum_mean(acc, n_active, masses=masses,
+                                       live=live)
+        g_mean = pm_cuda.grid_momentum_mean(rho, grids)
+        again = pm_cuda.grid_momentum_mean(rho, grids)
+        # the old tail and the kicked gather, from the same mean
+        po, vo = pos.clone(), vel.clone()
+        pm_cuda.clean_kick_and_step(po, vo, acc, pv, p_mean, n_active,
+                                    g_const, live=live,
+                                    cell=cell if auto else None)
+        pk, vk = pos.clone(), vel.clone()
+        pm_cuda.gather_kick_and_step(grids, pk, vk, pv, p_mean, n_active,
+                                     g_const, box, cell, auto_box=auto,
+                                     **gkw)
+        torch.cuda.synchronize()
+        got = launch_counts()
+        if (got["pm_gather"], got["pm_momentum"], got["pm_kick_fused"],
+                got["pm_kick_gather"], got["step"]) != (2, 3, 2, 1, 1):
+            fail(f"phase 25 {label}: launches {got}")
+        if not (torch.equal(pk, po) and torch.equal(vk, vo)):
+            fail(f"phase 25 {label}: the kicked gather differs from the "
+                 f"chain by {float((pk - po).abs().max()):.3g} / "
+                 f"{float((vk - vo).abs().max()):.3g}")
+        if not torch.equal(g_mean, again):
+            fail(f"phase 25 {label}: two grid sums launches differ")
+        # the kernel against its plain version: the solved grids and a
+        # random field of their shape (its pad lane NaN), whose weighted
+        # mean stands far above the bar
+        buf = torch.randn((cfg.grid,) * 3 + (4,), generator=torch.Generator(
+            device=dev).manual_seed(n + len(label)), device=dev)
+        buf[..., 3] = float("nan")
+        noise = pm.interleaved_view(buf)
+        ulps = []
+        for field in (grids, noise):
+            k_mean = pm_cuda.grid_momentum_mean(rho, field).double()
+            d = (k_mean - pm_cuda.grid_momentum_mean_plain(
+                rho, field).double()).abs()
+            ulps.append(d / (u * grid_mean_scale(rho, field)))
+            if bool((ulps[-1] > GRID_SUMS_ULPS).any()):
+                fail(f"phase 25 {label}: grid sums {k_mean.tolist()} off "
+                     f"their plain version by {ulps[-1].tolist()} ulps "
+                     f"(bar {GRID_SUMS_ULPS})")
+        del noise, buf
+        share = ((g_mean.double() - p_mean.double()).abs()
+                 / grid_mean_scale(rho, grids))
+        shares.append(float(share.max()))
+        if bool((share > GRID_MEAN_SHARE).any()):
+            fail(f"phase 25 {label}: grid mean {g_mean.tolist()} vs "
+                 f"particle mean {p_mean.tolist()}: {share.tolist()} of "
+                 f"the scale, over {GRID_MEAN_SHARE}")
+        print(f"phase 25 {label}: kicked gather == gather + "
+              f"clean_kick_and_step bit for bit (the particle mean); grid "
+              f"sums == plain within {float(ulps[0].max()):.3g} / "
+              f"{float(ulps[1].max()):.3g} ulps (solved / random field; bar "
+              f"{GRID_SUMS_ULPS}), two launches equal; grid mean "
+              f"{g_mean.tolist()} vs particle {p_mean.tolist()}, gap "
+              f"{[f'{x:.3g}' for x in share.tolist()]} of the scale "
+              f"{[f'{x:.4g}' for x in grid_mean_scale(rho, grids).tolist()]} "
+              f"(bar {GRID_MEAN_SHARE})")
+        if not timed:
+            del acc, rho, grids
+            return
+        # times in turns, dt 0
+        tp, tv = pos.clone(), vel.clone()
+        kw_old = dict(live=live, cell=cell if auto else None)
+
+        def old_tail():
+            a = pm_cuda.gather(grids, tp.reshape(3, -1), n_active, box, cell,
+                               **gkw)
+            m = pm_cuda.momentum_mean(a, n_active, masses=masses, live=live)
+            pm_cuda.clean_kick_and_step(tp, tv, a, pv0, m, n_active, g_const,
+                                        **kw_old)
+
+        fns = [
+            old_tail,
+            lambda: pm_cuda.gather_kick_and_step(
+                grids, tp, tv, pv0, pm_cuda.grid_momentum_mean(rho, grids),
+                n_active, g_const, box, cell, auto_box=auto, **gkw),
+            lambda: pm_cuda.gather(grids, tp.reshape(3, -1), n_active, box,
+                                   cell, **gkw),
+            lambda: pm_cuda.momentum_mean(acc, n_active, masses=masses,
+                                          live=live),
+            lambda: pm_cuda.clean_kick_and_step(tp, tv, acc, pv0, p_mean,
+                                                n_active, g_const, **kw_old),
+            lambda: pm_cuda.grid_momentum_mean(rho, grids),
+            lambda: pm_cuda.gather_kick_and_step(
+                grids, tp, tv, pv0, p_mean, n_active, g_const, box, cell,
+                auto_box=auto, **gkw)]
+        t = median_ms(fns, reps=7, inner=10, lead_ms=4.0)
+        live_b = 0 if live is None else 1
+        mass_b = 0 if masses is None else 4
+        grid_b = cfg.grid ** 3 * 16
+        gather_b = n * (12 + live_b + 12) + grid_b
+        sums_b = n * (12 + live_b + mass_b)
+        kick_b = n * (12 + live_b + 48)
+        gsums_b = cfg.grid ** 3 * 20
+        kgather_b = n * (48 + live_b) + grid_b
+        old_b, new_b = gather_b + sums_b + kick_b, gsums_b + kgather_b
+        ms[label] = t
+        print(f"phase 25 {label} times (ms, in turns, dt 0): old tail "
+              f"{t[0]:.5f} (bound {bytes_ms(old_b):.5f}: "
+              f"{old_b / 1e6:.1f} MB), new tail {t[1]:.5f} (bound "
+              f"{bytes_ms(new_b):.5f}: {new_b / 1e6:.1f} MB), "
+              f"{t[0] / t[1]:.2f}x; alone: gather {t[2]:.5f}, sums "
+              f"{t[3]:.5f}, kicked step {t[4]:.5f}; grid sums {t[5]:.5f} "
+              f"(bound {bytes_ms(gsums_b):.5f}), kicked gather {t[6]:.5f} "
+              f"(bound {bytes_ms(kgather_b):.5f}: {kgather_b / 1e6:.1f} MB)")
+        del acc, rho, grids
+
+    # (1) the persistent 16M states of the main path's run: the sphere as
+    # generated (timed; its engine is traced below) and in two seeded
+    # orientations against the grid (checked)
+    n16 = 16_777_216
+    cfg = PMConfig()
+    m16 = np.ones(n16, np.float32)
+    m16[0] = 1000.0
+    g16 = torch.tensor([1.0], device=dev)[0]
+    # a device count: a Python int would be uploaded at every call
+    na16 = torch.tensor(n16, dtype=torch.int32, device=dev)
+    e16 = None
+    for turn in (None, 2_147_483_675, 26):
+        e = Engine(n16, device=dev, pm=cfg, pm_persist=True,
+                   pairwise=PairwiseParams(1.0, cfg.softening))
+        if turn is not None:
+            e.state = turned(e.state, turn)
+        e.set_masses(m16)
+        name = "persistent 16M" + ("" if turn is None else f" turn {turn}")
+        done = 0
+        for label in ("step 0", "step 40", "step 150"):
+            if label == "step 0":
+                st = pper.init_sorted(e.state.pos.reshape(3, -1), n16, cfg,
+                                      masses=e._masses_for_capacity())
+                vel = torch.randn(st.pos.shape, generator=torch.Generator(
+                    device=dev).manual_seed(25), device=dev)
+            else:
+                while done < int(label.split()[1]):
+                    e.step(SimParams())
+                    done += 1
+                torch.cuda.synchronize()
+                st = e._persist
+                vel = st.vel
+            tail_case(f"{name} {label}", st.pos.view(3, -1, 128),
+                      vel.reshape(3, -1, 128), na16, cfg, g16, st.masses,
+                      st.ids < n16, True, timed=turn is None)
+        del st, vel
+        if turn is None:
+            e16 = e
+        del e
+        torch.cuda.empty_cache()
+
+    # (2) the 1M hollow sphere in the auto box (a live count)
+    n1 = 1_000_000
+    cfg_a = PMConfig(auto_box=True)
+    e1 = Engine(n1, device=dev, pm=cfg_a, pm_persist=False,
+                pairwise=PairwiseParams(0.08, cfg_a.softening))
+    s1 = e1.state
+    tail_case("auto box 1M", s1.pos, torch.randn(
+        s1.pos.shape, generator=torch.Generator(device=dev).manual_seed(26),
+        device=dev), s1.n_active, cfg_a, torch.tensor([0.08], device=dev)[0],
+        None, None, False)
+    del e1, s1
+
+    # (3) traced engines: pm.kick_gathered once a step on one interleaved
+    # grid, never with levels or the exact window
+    p1 = dict(particle_count=n1, pm_persist=False,
+              pairwise=PairwiseParams(0.08, 2.0))
+    runs = (("pm1m static", dict(p1, pm=cfg), 10),
+            ("pm1m autobox", dict(p1, pm=cfg_a), 10),
+            ("pm16m persist", None, 10),
+            ("pm1m two-level", dict(p1, pm=cfg, pm2=pm2.PM2Config(
+                None, 32.0, 0.75)), 0),
+            ("pm1m pmx", dict(p1, pm=cfg, pmx=pmx.PMXConfig(
+                window_size=4.0, softening=0.1, capacity=8192)), 0))
+    for label, kw, want in runs:
+        e = e16 if kw is None else Engine(device=dev, **kw)
+        e.step(SimParams(delta_time=0.004))
+        torch.cuda.synchronize()
+        zero_launches()
+        trace.reset()
+        trace.enable()
+        try:
+            for _ in range(10):
+                e.step(SimParams(delta_time=0.004))
+            recs = trace.records()
+            counts = trace.counters()
+        finally:
+            trace.disable()
+            trace.reset()
+        got = launch_counts()
+        steps = sum(1 for r in recs if r.name == "engine.step")
+        if (steps, counts.get("pm.kick_gathered", 0), got["pm_kick_gather"],
+                counts.get("pm.kick_fused"), got["pm_kick_fused"],
+                got["pm_momentum"]) != (10, want, want, 10, 10, 10):
+            fail(f"phase 25 {label}: engine.step {steps}, pm.kick_gathered "
+                 f"{counts.get('pm.kick_gathered')}, pm.kick_fused "
+                 f"{counts.get('pm.kick_fused')}, launches {got}")
+        tail = [r.device_ms for r in recs
+                if r.name in ("pm.momentum", "pm.kick")]
+        print(f"phase 25 {label} engine x 10 traced: pm.kick_gathered "
+              f"{want}, pm.kick_fused 10, launches {got}; pm.momentum + "
+              f"pm.kick {sum(tail) / 10:.4f} device ms a step")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        del e
+        torch.cuda.empty_cache()
+    del e16
+    torch.cuda.empty_cache()
+    print(f"phase 25 done in {time.perf_counter() - t_start:.1f} s; the "
+          f"grid mean's largest gap {max(shares):.3g} of the scale (bar "
+          f"{GRID_MEAN_SHARE})")
+    return {"launches": total, "ms": ms, "share": shares}
 
 
 def phase20(dev, states) -> dict:
@@ -2183,9 +2524,9 @@ def phase22(dev) -> dict:
     runs = [
         ("attractor", attractor, [], 600, 100, 0, ("step",)),
         ("disk", disk, ["--out"], 600, 60, 10,
-         ("step", "pm_deposit_mass", "pm_gather") + frame_k),
+         ("pm_kick_gather", "pm_deposit_mass", "pm_gather") + frame_k),
         ("collapse", collapse, ["--out"], 600, 60, 10,
-         ("step", "pm_deposit", "pm_gather") + frame_k),
+         ("pm_kick_gather", "pm_deposit", "pm_gather") + frame_k),
         ("cluster_core", cluster_core, ["--out"], 400, 50, 8,
          ("step", "pm_deposit", "pm_gather") + frame_k),
         ("deep_zoom", deep_zoom, ["--out"], 300, 50, 6,
@@ -2249,8 +2590,10 @@ def phase22(dev) -> dict:
         if len(pngs) != frames or not all(lit):
             fail(f"phase 22 {label}: frames {pngs}, brightest channel "
                  f"{lit} (want {frames} frames, none black)")
+        # a step is the step kernel's launch or, on the single-level PM,
+        # the kicked gather's
         missed = [k for k in must if got[k] == 0]
-        if missed or got["step"] != steps:
+        if missed or got["step"] + got["pm_kick_gather"] != steps:
             fail(f"phase 22 {label}: launches {got}: {missed or 'step'} "
                  f"did not launch as expected")
         renderer = ("none" if not frames else "compact"
@@ -3415,7 +3758,7 @@ def main() -> int:
             pm_cuda.DEPOSIT_LAUNCHES = 0
             pm_cuda.DEPOSIT_MASS_LAUNCHES = 0
             pm_cuda.DEPOSIT_SORTED_LAUNCHES = 0
-            pm_cuda.GATHER_LAUNCHES = 0
+            pm_cuda.GATHER_LAUNCHES = pm_cuda.KICK_GATHER_LAUNCHES = 0
             psort.RADIX_HIST_LAUNCHES = psort.RADIX_PASS_LAUNCHES = 0
             out = io.StringIO()
             t0 = time.perf_counter()
@@ -3426,6 +3769,7 @@ def main() -> int:
                    "pm_deposit_mass": pm_cuda.DEPOSIT_MASS_LAUNCHES,
                    "pm_deposit_sorted": pm_cuda.DEPOSIT_SORTED_LAUNCHES,
                    "pm_gather": pm_cuda.GATHER_LAUNCHES,
+                   "pm_kick_gather": pm_cuda.KICK_GATHER_LAUNCHES,
                    "step": step_cuda.LAUNCHES,
                    "sorted_deposit": rs.LAUNCHES,
                    "radix_hist": psort.RADIX_HIST_LAUNCHES,
@@ -3454,12 +3798,14 @@ def main() -> int:
     for tag, (got, wall, lines, pngs, (p_end, v_end, _, m_end)) \
             in pm_runs.items():
         steps_ = lines[-1]["steps"]
-        # each diagnostics line of (a) deposits and gathers once more
+        # each diagnostics line of (a) deposits and gathers once more; a
+        # step's gather is its kicked gather
         n_diag = sum("potential" in ln for ln in lines)
         want = {"pm_deposit": steps_ + n_diag if tag == "a" else 0,
                 "pm_deposit_mass": 0 if tag == "a" else steps_,
                 "pm_deposit_sorted": 0,
-                "pm_gather": steps_ + n_diag, "step": steps_,
+                "pm_gather": steps_ + n_diag, "pm_kick_gather": steps_,
+                "step": 0,
                 "sorted_deposit": 0 if tag == "a" else 2,
                 "radix_hist": 0 if tag == "a" else 2,
                 "radix_pass": 0 if tag == "a" else 2 * psort.radix_digits()}
@@ -4492,13 +4838,16 @@ def main() -> int:
     r24 = phase24(dev)
     p24 = r24["launches"]
 
+    # -- phase 25: the single-level PM tail from the grids ---------------------------
+    p25 = phase25(dev)["launches"]
+
     src = "particle_sim_tpu_torch/csrc/"
     kernels = [
         {"name": "step", "route": "cuda", "source": src + "step.cu",
          "replaces": "particle_sim_tpu/ops/step_pallas.py:38",
          "launches": launches["step"] + pmn_launches["step"]
          + pmx_launches["step"] + p19["step"] + p20["step"] + p22["step"]
-         + p23["step"],
+         + p23["step"] + p25["step"],
          "max_abs_err": err["step"],
          "ms": timing[1_000_000][0], "plain_ms": timing[1_000_000][1],
          "bound_ms": bytes_ms(STEP_BYTES * 1_000_000), "bound_by": "bytes",
@@ -4558,7 +4907,7 @@ def main() -> int:
                                               pmx_launches, p19)
                          for k in ("pm_deposit", "pm_deposit_mass"))
          + p20["pm_deposit"] + p22["pm_deposit"] + p22["pm_deposit_mass"]
-         + p23["pm_deposit"],
+         + p23["pm_deposit"] + p25["pm_deposit"],
          "max_abs_err": err["pm_deposit"],
          "ms": pm_timing["n=1000000"][0],
          "plain_ms": pm_timing["n=1000000"][1],
@@ -4568,7 +4917,7 @@ def main() -> int:
          "replaces": "particle_sim_tpu/ops/pm_pallas.py:259",
          "launches": pm_launches["pm_gather"] + pmn_launches["pm_gather"]
          + pmx_launches["pm_gather"] + p19["pm_gather"] + p20["pm_gather"]
-         + p22["pm_gather"] + p23["pm_gather"],
+         + p22["pm_gather"] + p23["pm_gather"] + p25["pm_gather"],
          "max_abs_err": err["pm_gather"],
          "ms": pm_timing["n=1000000"][4],
          "plain_ms": pm_timing["n=1000000"][5],
@@ -4627,7 +4976,7 @@ def main() -> int:
          "launches": g_launches["radix_hist"]
          + pm_runs["b"][0]["radix_hist"] + pmx_launches["radix_hist"]
          + p19["radix_hist"] + p20["radix_hist"] + p22["radix_hist"]
-         + p23["radix_hist"],
+         + p23["radix_hist"] + p25["radix_hist"],
          "max_abs_err": err["sort"], "ms": sort_timing["16M"]["hist"],
          "plain_ms": sort_timing["16M"]["hist_plain"],
          "bound_ms": sort_timing["16M"]["hist_bound"], "bound_by": "bytes",
@@ -4638,7 +4987,7 @@ def main() -> int:
          "launches": g_launches["radix_pass"]
          + pm_runs["b"][0]["radix_pass"] + pmx_launches["radix_pass"]
          + p19["radix_pass"] + p20["radix_pass"] + p22["radix_pass"]
-         + p23["radix_pass"],
+         + p23["radix_pass"] + p25["radix_pass"],
          "max_abs_err": err["sort"], "ms": sort_timing["16M"]["pass_"],
          "plain_ms": sort_timing["16M"]["pass_plain"],
          "bound_ms": sort_timing["16M"]["pass_bound"], "bound_by": "bytes",

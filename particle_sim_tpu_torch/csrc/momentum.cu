@@ -5,7 +5,9 @@
 // (ops/pm.py momentum_clean); the port's plain version, ops/pm.py
 // momentum_mean, makes elementwise passes over f32[3, N] and two
 // reductions. csrc/step.cu's kicked form subtracts the mean; this kernel
-// only reads.
+// only reads. Its grid instance (psim_momentum_sums_grid) takes the same
+// sums from the deposit and the interleaved grid, G^3 cells in place of N
+// particles, for the PM gather's kicked instance (csrc/pm.cu).
 //
 // What bounds it on the H100: device-memory bandwidth. A particle is read
 // once: its three accelerations (12 B), its live flag (1 B, or none when
@@ -61,6 +63,10 @@ __device__ __forceinline__ void block_sum4(double v[4], double (*smem)[4]) {
   }
 }
 
+// kGrid: the grid instance. acc is then the interleaved f32[n, 4] grid (x,
+// y, z, pad a cell; n = G^3 cells), `masses` the deposit rho (f32[n]), the
+// weight of cell i, and live / n_active are unused.
+template <bool kGrid>
 __global__ void __launch_bounds__(MS_THREADS) momentum_sums_kernel(
     const float* __restrict__ acc, int64_t n, const uint8_t* __restrict__ live,
     const int* __restrict__ n_active, const float* __restrict__ masses,
@@ -68,18 +74,28 @@ __global__ void __launch_bounds__(MS_THREADS) momentum_sums_kernel(
     float* __restrict__ out) {
   __shared__ double smem[MS_WARPS][4];
   __shared__ bool last;
-  const int64_t n_live = live == nullptr ? (int64_t)__ldg(n_active) : n;
+  const int64_t n_live =
+      kGrid || live != nullptr ? n : (int64_t)__ldg(n_active);
   double v[4] = {0.0, 0.0, 0.0, 0.0};
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    const bool on = live != nullptr ? __ldg(live + i) != 0 : i < n_live;
-    float w = on ? 1.0f : 0.0f;
-    if (masses != nullptr) w = __fmul_rn(w, __ldg(masses + i));
+    float w, a[3];
+    if constexpr (kGrid) {
+      w = __ldg(masses + i);
+      const float4 c = __ldg(reinterpret_cast<const float4*>(acc) + i);
+      a[0] = c.x; a[1] = c.y; a[2] = c.z;
+    } else {
+      const bool on = live != nullptr ? __ldg(live + i) != 0 : i < n_live;
+      w = on ? 1.0f : 0.0f;
+      if (masses != nullptr) w = __fmul_rn(w, __ldg(masses + i));
+      a[0] = __ldg(acc + i); a[1] = __ldg(acc + n + i);
+      a[2] = __ldg(acc + 2 * n + i);
+    }
     const double wd = (double)w;
-    v[0] += (double)__ldg(acc + i) * wd;
-    v[1] += (double)__ldg(acc + n + i) * wd;
-    v[2] += (double)__ldg(acc + 2 * n + i) * wd;
+    v[0] += (double)a[0] * wd;
+    v[1] += (double)a[1] * wd;
+    v[2] += (double)a[2] * wd;
     v[3] += wd;
   }
   block_sum4(v, smem);
@@ -115,6 +131,13 @@ __global__ void __launch_bounds__(MS_THREADS) momentum_sums_kernel(
   }
 }
 
+unsigned sum_blocks(int64_t n, int max_blocks) {
+  int64_t blocks = (n + MS_THREADS - 1) / MS_THREADS;
+  if (blocks > max_blocks) blocks = max_blocks;
+  if (blocks < 1) blocks = 1;
+  return (unsigned)blocks;
+}
+
 }  // namespace
 
 // acc: float32[3, n] contiguous. live: bool[n], or NULL for i < *n_active
@@ -127,10 +150,27 @@ PSIM_EXPORT int psim_momentum_sums(const float* acc, int64_t n,
                                    const float* masses, double* partials,
                                    unsigned int* counter, int max_blocks,
                                    float* out, cudaStream_t stream) {
-  int64_t blocks = (n + MS_THREADS - 1) / MS_THREADS;
-  if (blocks > max_blocks) blocks = max_blocks;
-  if (blocks < 1) blocks = 1;
-  momentum_sums_kernel<<<(unsigned)blocks, MS_THREADS, 0, stream>>>(
-      acc, n, live, n_active, masses, partials, counter, out);
+  momentum_sums_kernel<false><<<sum_blocks(n, max_blocks), MS_THREADS, 0,
+                                stream>>>(acc, n, live, n_active, masses,
+                                          partials, counter, out);
+  return (int)cudaGetLastError();
+}
+
+// The same sums from the grids: grid4 the interleaved float32[cells, 4]
+// acceleration grid (16-byte aligned), rho the float32[cells] deposit it
+// was solved from; out[0..3] = (sum rho a_x, sum rho a_y, sum rho a_z, sum
+// rho), out[4..6] the mean. Equal, in exact arithmetic, to
+// psim_momentum_sums of the field gathered from grid4 with rho's weights
+// (csrc/pm.cu: deposit and gather share their corner weights); the order of
+// every sum depends on cells alone. The rest as psim_momentum_sums.
+PSIM_EXPORT int psim_momentum_sums_grid(const float* grid4, const float* rho,
+                                        int64_t cells, double* partials,
+                                        unsigned int* counter, int max_blocks,
+                                        float* out, cudaStream_t stream) {
+  if (reinterpret_cast<uintptr_t>(grid4) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  momentum_sums_kernel<true><<<sum_blocks(cells, max_blocks), MS_THREADS, 0,
+                               stream>>>(grid4, cells, nullptr, nullptr, rho,
+                                         partials, counter, out);
   return (int)cudaGetLastError();
 }

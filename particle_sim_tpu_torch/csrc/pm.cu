@@ -91,7 +91,18 @@
 //   and the two x neighbours share a 32-byte sector: 8 loads a particle.
 //   Dense planes (the potential, C = 1, and the periodic 'exact' solve's
 //   output) keep the scalar loads.
-#include "common.cuh"
+// gather, kicked (psim_pm_gather_kick, the single-level PM step's tail on
+//   the interleaved grids; ops/pm_cuda.py): device-memory bandwidth. The
+//   tail was three passes over a gathered f32[3, N] field: the gather wrote
+//   it, the momentum sums read it back, the kicked step read it a third
+//   time (1.76 GB a step at 16M). The mean needs no particle: deposit and
+//   gather share their weights, so sum_i w_i a(x_i) = sum_c rho_c a_c, and
+//   csrc/momentum.cu takes it from rho and the grid (42 MB at G = 128).
+//   Given the mean first, the gather's thread cleans, scales and kicks its
+//   particle and takes the attractor step in registers; the field is never
+//   written. A particle moves 49 B (pos and vel read and written, the live
+//   mask) and its 8 corners from L2: 0.85 GB at 16M.
+#include "attractor.cuh"
 
 #define PM_BLOCK 256
 #define FULL_WARP 0xffffffffu
@@ -407,34 +418,93 @@ __global__ void __launch_bounds__(PM_BLOCK) pm_gather_planar_kernel(
   for (int ch = 0; ch < C; ++ch) out[ch * (size_t)n + i] = acc[ch];
 }
 
-// interleaved f32[G, G, G, 4] (x, y, z, pad): one 16-byte load a corner
+// What the gather's kicked instance reads and writes besides the grid: the
+// step's planes, which are also its positions, and what csrc/step.cu's
+// kicked form reads for the PM step's tail.
+struct GatherKick {
+  float* pos;              // f32[3, n], read and written in place
+  float* vel;              // f32[3, n], read and written in place
+  const float* params;     // f32[16] (core/params.py slots)
+  const float* mean;       // f32[3]: the live mass-weighted mean of a
+  const float* scale;      // the scale: *scale, or with cell
+  const float* cell;       //   *scale / (cell^2); NULL: a static box
+};
+
+// The trilinear sum of the interleaved grid at the corners of c, in the
+// plain version's order, added into (ax, ay, az).
+__device__ __forceinline__ void gather_corners(
+    const float4* __restrict__ grid4, const Cic& c, int g, float& ax,
+    float& ay, float& az) {
+  float w[8];
+  corner_weights<false>(c, 1.0f, w);
+#pragma unroll
+  for (int corner = 0; corner < 8; ++corner) {
+    const int ix = (corner & 1) ? c.hi[0] : c.lo[0];
+    const int iy = ((corner >> 1) & 1) ? c.hi[1] : c.lo[1];
+    const int iz = (corner >> 2) ? c.hi[2] : c.lo[2];
+    const float4 v = __ldg(grid4 + ((size_t)iz * g + iy) * g + ix);
+    ax = __fadd_rn(ax, __fmul_rn(w[corner], v.x));
+    ay = __fadd_rn(ay, __fmul_rn(w[corner], v.y));
+    az = __fadd_rn(az, __fmul_rn(w[corner], v.z));
+  }
+}
+
+// interleaved f32[G, G, G, 4] (x, y, z, pad): one 16-byte load a corner.
+// kKick: the PM step's tail in the same thread, from the gathered a in
+// registers and in csrc/step.cu's order, a = (a - mean) * live, a = scale
+// * a, vel += a * dt, then the attractor step (csrc/attractor.cuh), pos
+// and vel written in place through k; `pos` and `out` are unused then.
+// The two instances keep separate bodies: with one body the gather's
+// instance took 34 registers for 32 and ran 18 % slower at 16M.
+template <bool kKick>
 __global__ void __launch_bounds__(PM_BLOCK) pm_gather_interleaved_kernel(
     const float4* __restrict__ grid4, const float* __restrict__ pos, int n,
     const int* __restrict__ n_active, const uint8_t* __restrict__ live,
     const float* __restrict__ box_min, const float* __restrict__ cell_p,
-    int g, float hi, int periodic, float* __restrict__ out) {
+    int g, float hi, int periodic, float* __restrict__ out, GatherKick k) {
   const int i = blockIdx.x * PM_BLOCK + threadIdx.x;
   if (i >= n) return;
-  float ax = 0.0f, ay = 0.0f, az = 0.0f;
-  if (alive(i, n_active, live)) {
-    const Cic c = cic_setup(pos, (size_t)n, (size_t)i, box_min,
-                            __ldg(cell_p), g, hi, periodic != 0);
-    float w[8];
-    corner_weights<false>(c, 1.0f, w);
-#pragma unroll
-    for (int corner = 0; corner < 8; ++corner) {
-      const int ix = (corner & 1) ? c.hi[0] : c.lo[0];
-      const int iy = ((corner >> 1) & 1) ? c.hi[1] : c.lo[1];
-      const int iz = (corner >> 2) ? c.hi[2] : c.lo[2];
-      const float4 v = __ldg(grid4 + ((size_t)iz * g + iy) * g + ix);
-      ax = __fadd_rn(ax, __fmul_rn(w[corner], v.x));
-      ay = __fadd_rn(ay, __fmul_rn(w[corner], v.y));
-      az = __fadd_rn(az, __fmul_rn(w[corner], v.z));
+  if constexpr (!kKick) {
+    float ax = 0.0f, ay = 0.0f, az = 0.0f;
+    if (alive(i, n_active, live)) {
+      const Cic c = cic_setup(pos, (size_t)n, (size_t)i, box_min,
+                              __ldg(cell_p), g, hi, periodic != 0);
+      gather_corners(grid4, c, g, ax, ay, az);
     }
+    out[i] = ax;
+    out[(size_t)n + i] = ay;
+    out[2 * (size_t)n + i] = az;
+  } else {
+    // every slot is stepped, and its planes are written: plain loads
+    const size_t nn = (size_t)n;
+    float p[3] = {k.pos[i], k.pos[nn + i], k.pos[2 * nn + i]};
+    float ax = 0.0f, ay = 0.0f, az = 0.0f;
+    const bool on = alive(i, n_active, live);
+    if (on) {
+      const Cic c = cic_of(p, box_min, __ldg(cell_p), g, hi, periodic != 0);
+      gather_corners(grid4, c, g, ax, ay, az);
+    }
+    const StepScalars s = load_scalars(k.params);
+    const float lv = on ? 1.0f : 0.0f;
+    ax = __fmul_rn(__fsub_rn(ax, __ldg(k.mean)), lv);
+    ay = __fmul_rn(__fsub_rn(ay, __ldg(k.mean + 1)), lv);
+    az = __fmul_rn(__fsub_rn(az, __ldg(k.mean + 2)), lv);
+    float scale = __ldg(k.scale);
+    if (k.cell != nullptr) {
+      const float cl = __ldg(k.cell);
+      scale = __fdiv_rn(scale, __fmul_rn(cl, cl));
+    }
+    ax = __fmul_rn(scale, ax);
+    ay = __fmul_rn(scale, ay);
+    az = __fmul_rn(scale, az);
+    float vx = k.vel[i], vy = k.vel[nn + i], vz = k.vel[2 * nn + i];
+    vx = __fadd_rn(vx, __fmul_rn(ax, s.dt));
+    vy = __fadd_rn(vy, __fmul_rn(ay, s.dt));
+    vz = __fadd_rn(vz, __fmul_rn(az, s.dt));
+    attractor(p[0], p[1], p[2], vx, vy, vz, s, __ldg(k.params + P_DRAGGING));
+    k.pos[i] = p[0]; k.pos[nn + i] = p[1]; k.pos[2 * nn + i] = p[2];
+    k.vel[i] = vx; k.vel[nn + i] = vy; k.vel[2 * nn + i] = vz;
   }
-  out[i] = ax;
-  out[(size_t)n + i] = ay;
-  out[2 * (size_t)n + i] = az;
 }
 
 }  // namespace
@@ -512,9 +582,9 @@ PSIM_EXPORT int psim_pm_gather(const float* grids, int channels,
   const int blocks = (n + PM_BLOCK - 1) / PM_BLOCK;
   if (blocks > 0) {
     if (interleaved) {
-      pm_gather_interleaved_kernel<<<blocks, PM_BLOCK, 0, stream>>>(
+      pm_gather_interleaved_kernel<false><<<blocks, PM_BLOCK, 0, stream>>>(
           reinterpret_cast<const float4*>(grids), pos, n, n_active, live,
-          box_min, cell, g, hi, periodic, out);
+          box_min, cell, g, hi, periodic, out, GatherKick{});
     } else if (channels == 3) {
       pm_gather_planar_kernel<3><<<blocks, PM_BLOCK, 0, stream>>>(
           grids, pos, n, n_active, live, box_min, cell, g, hi, periodic, out);
@@ -522,6 +592,35 @@ PSIM_EXPORT int psim_pm_gather(const float* grids, int channels,
       pm_gather_planar_kernel<1><<<blocks, PM_BLOCK, 0, stream>>>(
           grids, pos, n, n_active, live, box_min, cell, g, hi, periodic, out);
     }
+  }
+  return (int)cudaGetLastError();
+}
+
+// The PM step's tail from the interleaved grids, in one launch (the
+// gather's kicked instance): the gather of psim_pm_gather with
+// interleaved = 1 at pos, then a = (a - mean) * live, a = scale * a (scale
+// = *scale_g, or *scale_g / (*scale_cell)^2 when scale_cell is given),
+// vel += a * dt and one attractor step with params (float32[16]), pos and
+// vel (float32[3, n] contiguous) updated in place; the same bits as
+// psim_pm_gather, then psim_kick_step with the same mean. mean: float32[3];
+// the rest as psim_pm_gather's; every pointer is device memory.
+PSIM_EXPORT int psim_pm_gather_kick(const float* grids, float* pos,
+                                    float* vel, int n, const int* n_active,
+                                    const uint8_t* live,
+                                    const float* box_min, const float* cell,
+                                    int g, float hi, int periodic,
+                                    const float* params, const float* mean,
+                                    const float* scale_g,
+                                    const float* scale_cell,
+                                    cudaStream_t stream) {
+  if (reinterpret_cast<uintptr_t>(grids) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (n + PM_BLOCK - 1) / PM_BLOCK;
+  if (blocks > 0) {
+    pm_gather_interleaved_kernel<true><<<blocks, PM_BLOCK, 0, stream>>>(
+        reinterpret_cast<const float4*>(grids), nullptr, n, n_active, live,
+        box_min, cell, g, hi, periodic, nullptr,
+        GatherKick{pos, vel, params, mean, scale_g, scale_cell});
   }
   return (int)cudaGetLastError();
 }

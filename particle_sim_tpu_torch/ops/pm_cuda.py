@@ -28,16 +28,20 @@ at the particles that read it (the TPU's un-sort pack poisons all three
 components of such a particle together).
 
 :func:`step_pm` (through :func:`step_pm_planes`) updates ``pos`` and
-``vel`` IN PLACE: the deposit, the solve (``pm.solve_accel(fused=True)``:
+``vel`` IN PLACE: the deposit and the solve (``pm.solve_accel(fused=True)``:
 the isolated exact-gradient solve through ops/pm_fft.py, the plain path
-keeps ``torch.fft``) and the gather give the raw acceleration
-(:func:`accel_raw`); two launches finish this and every other PM step
-on the kernel path (pm2, pmx, pm_persist): :func:`momentum_mean`
-(csrc/momentum.cu, the live mass-weighted mean) and
-:func:`clean_kick_and_step` (csrc/step.cu's kicked form: the clean, the
-scale G or G / h^2, ``vel += acc * dt`` and the attractor step). The
-public accelerations end in :func:`clean_and_scale` instead: on CPU
-tensors the same bits for a given raw field.
+keeps ``torch.fft``), then the tail. With one interleaved grid on CUDA
+(the per-frame PM and the single-level persistent step) the tail is two
+launches that never write the raw field: :func:`grid_momentum_mean`
+(csrc/momentum.cu's grid instance: the mean from rho and the grids) and
+:func:`gather_kick_and_step` (csrc/pm.cu's kicked gather). Every other PM
+step on the kernel path (pm2, pmx, the mesh) gathers the raw acceleration
+(:func:`accel_raw`) and finishes in :func:`momentum_mean` (the live
+mass-weighted mean of the field) and :func:`clean_kick_and_step`
+(csrc/step.cu's kicked form: the clean, the scale G or G / h^2, ``vel +=
+acc * dt`` and the attractor step). The public accelerations end in
+:func:`clean_and_scale` instead: on CPU tensors the same bits for a given
+raw field.
 """
 
 from __future__ import annotations
@@ -54,15 +58,19 @@ from . import pm, step_cuda
 #: Kernel launches in this process: the deposit with unit masses, the
 #: deposit with masses, the deposit of cell-sorted input (``cell_sorted``;
 #: the two counts before it count these too), the gather, the momentum
-#: sums (csrc/momentum.cu), and the step kernel's kicked form with the
-#: momentum clean (:func:`clean_kick_and_step`; step_cuda.LAUNCHES counts
-#: these too).
+#: sums (csrc/momentum.cu, from a field or from the grids), the fused PM
+#: kick (the step kernel's kicked form with the momentum clean,
+#: :func:`clean_kick_and_step`, which step_cuda.LAUNCHES counts too, or
+#: the gather's kicked instance), and the gather's kicked instance
+#: (:func:`gather_kick_and_step`; GATHER_LAUNCHES and KICK_FUSED_LAUNCHES
+#: count it too).
 DEPOSIT_LAUNCHES = 0
 DEPOSIT_MASS_LAUNCHES = 0
 DEPOSIT_SORTED_LAUNCHES = 0
 GATHER_LAUNCHES = 0
 MOMENTUM_LAUNCHES = 0
 KICK_FUSED_LAUNCHES = 0
+KICK_GATHER_LAUNCHES = 0
 
 #: Blocks of the momentum sums kernel at most (8 of 256 threads on each
 #: of the H100's 132 SMs): with N they fix the order of its sums.
@@ -310,6 +318,121 @@ def momentum_mean(acc: torch.Tensor, n_active, *, masses=None, live=None,
         return sums[:3] / torch.clamp_min(sums[3], 1e-12)
 
 
+def _check_grid_pair(rho: torch.Tensor, grids: torch.Tensor) -> None:
+    """rho f32[G, G, G] contiguous and ``grids`` the interleaved
+    f32[3, G, G, G] view solved from it (:func:`grid_layout`), on one
+    device; else ValueError."""
+    if not isinstance(rho, torch.Tensor) or not isinstance(grids,
+                                                           torch.Tensor):
+        raise TypeError("rho and grids must be torch.Tensors")
+    if grid_layout(grids, rho) != "interleaved":
+        raise ValueError("grids must be the interleaved f32[3, G, G, G] "
+                         "view (pm.interleaved_view), not dense planes")
+    g = grids.shape[1]
+    if (rho.dtype != torch.float32 or tuple(rho.shape) != (g, g, g)
+            or not rho.is_contiguous()):
+        raise ValueError(f"rho must be a contiguous float32[{g}, {g}, {g}], "
+                         f"got {rho.dtype}{list(rho.shape)}")
+
+
+def grid_momentum_mean_plain(rho: torch.Tensor,
+                             grids: torch.Tensor) -> torch.Tensor:
+    """The plain version of :func:`grid_momentum_mean`: the float64 sums
+    sum rho a and sum rho, each rounded to float32, then the mean as
+    pm.momentum_mean forms it."""
+    w = rho.double().reshape(-1)
+    s = (grids.double().reshape(3, -1) * w[None]).sum(dim=1).float()
+    return s / torch.clamp_min(w.sum().float(), 1e-12)
+
+
+def grid_momentum_mean(rho: torch.Tensor,
+                       grids: torch.Tensor) -> torch.Tensor:
+    """f32[3] mass-weighted mean of the raw acceleration at the particles
+    that deposited ``rho`` (f32[G, G, G]), taken from the grids instead:
+    the deposit and the gather share their CIC weights and dead slots do
+    neither, so sum_i w_i a(x_i) = sum_c rho_c a_c and sum_i w_i = sum_c
+    rho_c, exactly in real arithmetic (float32 rounding of rho apart).
+    ``grids``: the interleaved f32[3, G, G, G] view solved from ``rho``.
+    On CUDA one launch of the momentum sums' grid instance (float64 sums
+    in an order fixed by G); :func:`grid_momentum_mean_plain` on CPU
+    tensors."""
+    global MOMENTUM_LAUNCHES
+    _check_grid_pair(rho, grids)
+    with trace.span("pm.momentum", device=rho.is_cuda):
+        if rho.device.type == "cpu":
+            return grid_momentum_mean_plain(rho, grids)
+        dev = rho.device
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        out = torch.empty(8, dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        partials, counter = _momentum_workspace(dev, stream)
+        with torch.cuda.device(dev):
+            err = cuda_build.library().psim_momentum_sums_grid(
+                grids.data_ptr(), rho.data_ptr(), rho.numel(),
+                partials.data_ptr(), counter.data_ptr(), MOMENTUM_MAX_BLOCKS,
+                out.data_ptr(), stream)
+        MOMENTUM_LAUNCHES += 1
+        cuda_build.check(err, "momentum sums (grid)")
+        return out[4:7]
+
+
+def gather_kick_and_step(grids: torch.Tensor, pos: torch.Tensor,
+                         vel: torch.Tensor, param_vec: torch.Tensor,
+                         mean: torch.Tensor, n_active, g_const, box_min,
+                         cell, *, periodic: bool, live=None,
+                         auto_box: bool = False
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The PM step's tail from the interleaved grids, IN PLACE on (3, R,
+    LANE) planes, in one launch of the gather's kicked instance: the
+    gather of :func:`gather` at ``pos`` (``box_min``, ``cell``,
+    ``periodic``, ``live`` / ``n_active`` as there), then
+    :func:`clean_kick_and_step`'s operations in its order with ``mean``
+    (f32[3]) and the scale ``g_const``, or ``g_const / (cell * cell)``
+    with ``auto_box``. The raw f32[3, N] field is never written. For a
+    given mean the same bits as :func:`gather`, then
+    :func:`clean_kick_and_step`; those two on CPU tensors. -> (pos, vel),
+    the same tensors."""
+    global GATHER_LAUNCHES, KICK_FUSED_LAUNCHES, KICK_GATHER_LAUNCHES
+    flat = pos.reshape(3, -1)
+    if grid_layout(grids, flat) != "interleaved":
+        raise ValueError("grids must be the interleaved f32[3, G, G, G] "
+                         "view (pm.interleaved_view), not dense planes")
+    _check(flat, None, live)
+    step_cuda._check(pos, vel, param_vec, 1)
+    dev = pos.device
+    g = (g_const if isinstance(g_const, torch.Tensor)
+         else device_const((float(g_const),), dev))
+    step_cuda._check_scalar("g_const", g, torch.float32, dev)
+    step_cuda._check_operand("mean", mean, torch.float32, (3,), dev)
+    if dev.type == "cpu":
+        trace.count("pm.kick_gathered")
+        acc = gather_plain(grids, flat, n_active, box_min, cell,
+                           periodic=periodic, live=live)
+        return clean_kick_and_step(pos, vel, acc, param_vec, mean, n_active,
+                                   g, live=live,
+                                   cell=cell if auto_box else None)
+    with trace.span("pm.kick", device=True):
+        trace.count("pm.kick_fused")
+        trace.count("pm.kick_gathered")
+        na, bmin, cell_t = _device_args(flat, n_active, box_min, cell)
+        gd = grids.shape[1]
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with torch.cuda.device(dev):
+            err = cuda_build.library().psim_pm_gather_kick(
+                grids.data_ptr(), pos.data_ptr(), vel.data_ptr(),
+                flat.shape[1], na.data_ptr(), _ptr(live), bmin.data_ptr(),
+                cell_t.data_ptr(), gd, pm.clamp_limit(gd, periodic),
+                int(periodic), param_vec.data_ptr(), mean.data_ptr(),
+                g.data_ptr(), cell_t.data_ptr() if auto_box else None,
+                stream)
+        GATHER_LAUNCHES += 1
+        KICK_FUSED_LAUNCHES += 1
+        KICK_GATHER_LAUNCHES += 1
+        cuda_build.check(err, "pm gather kick")
+    return pos, vel
+
+
 def clean_kick_and_step(pos: torch.Tensor, vel: torch.Tensor,
                         acc: torch.Tensor, param_vec: torch.Tensor,
                         mean: torch.Tensor, n_active, g_const, *,
@@ -341,6 +464,32 @@ def clean_kick_and_step(pos: torch.Tensor, vel: torch.Tensor,
 
 
 # -- the pipeline --------------------------------------------------------------------
+def _mesh(pos_flat: torch.Tensor, n_active, cfg: "P.PMConfig", *, masses,
+          live, coll, plain: bool, cell_sorted: bool) -> tuple:
+    """(rho, grids, box_min, cell, periodic): :func:`accel_raw`'s deposit
+    and solve, and the box its gather takes."""
+    dep = (deposit_plain if plain else
+           functools.partial(deposit, cell_sorted=cell_sorted))
+    if cfg.auto_box:
+        if live is not None:
+            raise ValueError("a live mask needs a static box")
+        # coords clamp into the traced box in either boundary mode, as in
+        # pm.pm_accel_ref: the upper corner never needs the wrap
+        box_min, cell = pm.auto_box(pos_flat, n_active, cfg.grid, coll=coll)
+        periodic, solve_kw = False, {"cell_size": 1.0}
+    else:
+        periodic, solve_kw = cfg.boundary == "periodic", {}
+        box_min, cell = static_box(tuple(cfg.box_min), float(cfg.cell_size),
+                                   pos_flat.device)
+    rho = dep(pos_flat, n_active, box_min, cell, cfg.grid,
+              periodic=periodic, masses=masses, live=live)
+    if coll is not None:
+        coll.sum_(rho)
+    grids = pm.solve_accel(rho, cfg, cfg.softening, fused=not plain,
+                           **solve_kw)
+    return rho, grids, box_min, cell, periodic
+
+
 def accel_raw(pos_flat: torch.Tensor, n_active, cfg: "P.PMConfig", *,
               masses=None, live=None, coll=None, plain: bool = False,
               cell_sorted: bool = False) -> tuple:
@@ -350,32 +499,12 @@ def accel_raw(pos_flat: torch.Tensor, n_active, cfg: "P.PMConfig", *,
     box (the scale is G). ``plain``: the plain deposit, solve and gather
     on any device. ``cell_sorted``: :func:`deposit`'s, for a caller that
     keeps ``pos_flat`` in the order of the grid's lower cells."""
-    dep, gat = ((deposit_plain, gather_plain) if plain else
-                (functools.partial(deposit, cell_sorted=cell_sorted), gather))
-    if cfg.auto_box:
-        if live is not None:
-            raise ValueError("a live mask needs a static box")
-        # coords clamp into the traced box in either boundary mode, as in
-        # pm.pm_accel_ref: the upper corner never needs the wrap
-        box_min, cell = pm.auto_box(pos_flat, n_active, cfg.grid, coll=coll)
-        rho = dep(pos_flat, n_active, box_min, cell, cfg.grid,
-                  periodic=False, masses=masses)
-        if coll is not None:
-            coll.sum_(rho)
-        grids = pm.solve_accel(rho, cfg, cfg.softening, cell_size=1.0,
-                               fused=not plain)
-        return gat(grids, pos_flat, n_active, box_min, cell,
-                   periodic=False), cell
-    periodic = cfg.boundary == "periodic"
-    box_min, cell = static_box(tuple(cfg.box_min), float(cfg.cell_size),
-                               pos_flat.device)
-    rho = dep(pos_flat, n_active, box_min, cell, cfg.grid,
-              periodic=periodic, masses=masses, live=live)
-    if coll is not None:
-        coll.sum_(rho)
-    grids = pm.solve_accel(rho, cfg, cfg.softening, fused=not plain)
-    return gat(grids, pos_flat, n_active, box_min, cell, periodic=periodic,
-               live=live), None
+    _, grids, box_min, cell, periodic = _mesh(
+        pos_flat, n_active, cfg, masses=masses, live=live, coll=coll,
+        plain=plain, cell_sorted=cell_sorted)
+    gat = gather_plain if plain else gather
+    return (gat(grids, pos_flat, n_active, box_min, cell, periodic=periodic,
+                live=live), cell if cfg.auto_box else None)
 
 
 def pm_accel(pos_flat: torch.Tensor, n_active, g_const, cfg: "P.PMConfig",
@@ -413,20 +542,35 @@ def clean_and_scale(acc: torch.Tensor, n_active, g_const, *, cell=None,
 
 def step_pm_planes(pos: torch.Tensor, vel: torch.Tensor,
                    param_vec: torch.Tensor, g_const, n_active,
-                   cfg: "P.PMConfig", *, masses=None, live=None, coll=None
+                   cfg: "P.PMConfig", *, masses=None, live=None, coll=None,
+                   cell_sorted: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One PM step on (3, R, LANE) planes, IN PLACE: the raw acceleration
-    (:func:`accel_raw`: the deposit, solve and gather), then
-    :func:`momentum_mean` and :func:`clean_kick_and_step`, two launches
-    where the plain path makes a dozen passes over f32[3, N]; the plain
-    versions of each on CPU tensors. Arguments as in :func:`pm_accel`
-    (``coll``: the sums are all-reduced between the two launches). ->
-    (pos, vel), the same tensors."""
-    acc, cell = accel_raw(pos.reshape(3, -1), n_active, cfg, masses=masses,
-                          live=live, coll=coll)
+    """One PM step on (3, R, LANE) planes, IN PLACE: the deposit and the
+    solve, then the tail. On CUDA tensors with interleaved grids and no
+    ``coll``, two launches: :func:`grid_momentum_mean` from rho and the
+    grids, then :func:`gather_kick_and_step` (the raw field is never
+    written). Otherwise the gather, :func:`momentum_mean` (``coll``: the
+    sums all-reduced) and :func:`clean_kick_and_step`, the plain versions
+    of each on CPU tensors. Arguments as in :func:`pm_accel`;
+    ``cell_sorted`` as in :func:`accel_raw`. -> (pos, vel), the same
+    tensors."""
+    flat = pos.reshape(3, -1)
+    rho, grids, box_min, cell, periodic = _mesh(
+        flat, n_active, cfg, masses=masses, live=live, coll=coll,
+        plain=False, cell_sorted=cell_sorted)
+    if (flat.is_cuda and coll is None
+            and grid_layout(grids, flat) == "interleaved"):
+        mean = grid_momentum_mean(rho, grids)
+        return gather_kick_and_step(grids, pos, vel, param_vec, mean,
+                                    n_active, g_const, box_min, cell,
+                                    periodic=periodic, live=live,
+                                    auto_box=cfg.auto_box)
+    acc = gather(grids, flat, n_active, box_min, cell, periodic=periodic,
+                 live=live)
     mean = momentum_mean(acc, n_active, masses=masses, live=live, coll=coll)
     return clean_kick_and_step(pos, vel, acc, param_vec, mean, n_active,
-                               g_const, live=live, cell=cell)
+                               g_const, live=live,
+                               cell=cell if cfg.auto_box else None)
 
 
 def step_pm(pos: torch.Tensor, vel: torch.Tensor, param_vec: torch.Tensor,

@@ -16,13 +16,15 @@ of the levels are not, and keep the deposit for any order.
 
   * The steady frame is the per-frame pipeline of
     ``pm_cuda.step_pm_planes`` on the sorted planes: ``pm_cuda.deposit`` ->
-    ``pm.solve_accel`` (cuFFT) -> ``pm_cuda.gather`` ->
-    ``pm_cuda.momentum_mean`` (one launch) ->
-    ``pm_cuda.clean_kick_and_step`` (one launch of the step kernel: the
-    clean, the G scale, the kick and the attractor). Refinement levels
-    (ops/pm2.py) and the window-exact correction (ops/pmx.py) run
-    unchanged on the same planes and add their raw fields to the coarse
-    one before that tail. No sort, no host read. Liveness is
+    ``pm.solve_accel`` (cuFFT) -> ``pm_cuda.grid_momentum_mean`` (one
+    launch: the mean from rho and the grids) ->
+    ``pm_cuda.gather_kick_and_step`` (one launch of the gather's kicked
+    instance: the gather, the clean, the G scale, the kick and the
+    attractor). Refinement levels (ops/pm2.py) and the window-exact
+    correction (ops/pmx.py) run unchanged on the same planes and add
+    their raw fields to the coarse one, which then ends in
+    ``pm_cuda.momentum_mean`` and ``pm_cuda.clean_kick_and_step`` (the
+    step kernel's kicked form). No sort, no host read. Liveness is
     ``ids < n_active``, so any slot order gives the same physics (f32
     summation order aside).
   * A **repair** re-sorts the state: ``psort.sort((key, slot))`` on the
@@ -466,16 +468,23 @@ def step_sorted(st: SortedPMState, param_vec: torch.Tensor,
     first when ``repair`` says so; one level with a single ``cfg2``, the
     multi-level order with a tuple, optionally ended by ``cfgx``), then
     the kick and the attractor step in slot order: with ``use_fast``, in
-    place, the raw field through the PM step's tail
-    (pm_cuda.momentum_mean, then pm_cuda.clean_kick_and_step), else the
-    plain physics.kick_and_step_planes. -> state', or (state', pmx member
-    count) with ``cfgx``. ``coll``: one rank's shard of the mesh
-    (:func:`accel_sorted`)."""
+    place, with no level and no ``cfgx`` pm_cuda.step_pm_planes (on CUDA
+    the mean from the grids and the kicked gather), else the raw field
+    through pm_cuda.momentum_mean and pm_cuda.clean_kick_and_step;
+    without ``use_fast`` the plain physics.kick_and_step_planes. ->
+    state', or (state', pmx member count) with ``cfgx``. ``coll``: one
+    rank's shard of the mesh (:func:`accel_sorted`)."""
     st, n_active, levels = _repaired(st, cfg, cfg2, cfgx, n_active, repair,
                                      use_fast, coll)
     planes = (3, -1, LANE)
     pos, vel = st.pos.view(planes), st.vel.view(planes)
-    if use_fast:
+    if use_fast and not levels and cfgx is None:
+        # sorted by this deposit's own lower cells (cell_keys)
+        pm_cuda.step_pm_planes(pos, vel, param_vec, pair_vec[0], n_active,
+                               cfg, masses=st.masses, live=st.ids < n_active,
+                               coll=coll, cell_sorted=True)
+        n_m = None
+    elif use_fast:
         live = st.ids < n_active
         acc, n_m = _accel_raw(st, n_active, live, cfg, levels, cfgx, coll)
         mean = pm_cuda.momentum_mean(acc, n_active, masses=st.masses,

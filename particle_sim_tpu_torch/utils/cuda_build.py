@@ -48,6 +48,8 @@ SIGNATURES = {
     # acc, n, live, n_active, masses, partials, counter, max blocks, out,
     # stream
     "psim_momentum_sums": (_P, _I64, _P, _P, _P, _P, _P, _I, _P, _P),
+    # grid4, rho, cells, partials, counter, max blocks, out, stream
+    "psim_momentum_sums_grid": (_P, _P, _I64, _P, _P, _I, _P, _P),
     "psim_compact": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     "psim_deposit": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # xi, xj, gv, eps_sq, n_i, n_j (NULL: ni, nj), out, partial, ni, nj,
@@ -59,6 +61,10 @@ SIGNATURES = {
                                _P),
     "psim_pm_gather": (_P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _F, _I,
                        _P, _P),
+    # grids, pos, vel, n, n_active, live, box_min, cell, g, hi, periodic,
+    # params, mean, scale, scale cell (NULL: a static box), stream
+    "psim_pm_gather_kick": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _F, _I, _P,
+                            _P, _P, _P, _P),
     # xi, order, xj, gv, eps_sq, box, out, ni, nj, stream
     "psim_pairwise_mxu": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     # int32[6] out: registers, shared bytes, blocks an SM, threads, local
