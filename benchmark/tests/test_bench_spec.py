@@ -132,6 +132,19 @@ def test_configs_state_what_they_cut(bench):
         assert math.isfinite(cfg["count"]) and cfg["count"] > 0
 
 
+def test_every_generation_is_one_the_state_maker_makes(bench):
+    """And a sphere is the one its command's ``--generation`` names
+    (hollow by default)."""
+    from benchmark import state, traffic
+
+    for c in bench["configs"]:
+        cfg = spec.config(c["name"])
+        assert cfg["generation"] in state.GENERATIONS, c["name"]
+        if cfg["generation"] in state.SPHERES:
+            args = traffic.cli_args(cfg, "cpu")
+            assert args.generation == cfg["generation"], c["name"]
+
+
 def _documented_argv(source):
     """The flags of the README command a configuration's ``source``
     names, without ``--device``."""
