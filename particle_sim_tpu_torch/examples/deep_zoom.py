@@ -23,6 +23,18 @@ The same configuration via the CLI / server:
         --count 16777216 --pm-persist --pm2-size 32 8 \
         --pm2-softening 0.6 0.2 --view-mode raster
 
+The ``--exact`` run (this script's physics and its exact window) via the
+CLI, with a capacity that holds every member:
+
+    python -m particle_sim_tpu_torch.app.cli --device cuda --count 500000 \
+        --pm --pm-persist --pm-softening 3.0 --pairwise-g 0.05 \
+        --pm2-size 32 8 --pm2-softening 0.6 0.2 --pmx-size 2 \
+        --pmx-softening 0.05 --pmx-capacity 147456 --steps 600
+
+At 500,000 the 2-unit window holds ~129k members at the start and 38k-87k
+past step 100 (H100), so this script's capacity of 8,192 corrects only
+the first of them in the mirror's slot order (the engine warns once).
+
 Counterpart of ``examples/deep_zoom.py``: the same arguments, plus
 ``--device {cuda,cpu}`` ('cuda' never falls back), and the same lines.
 The printed ``repairs`` differ from the JAX script's by design: the

@@ -35,6 +35,11 @@ correction is antisymmetric over members (momentum-exact).
 
 The correction joins the mesh stack's raw field (``pmx_accel_raw``),
 cleaned once (ops/pm_cuda.py); the member count stays on the device.
+Traced (utils/trace.py): the window's origin, the mask, the flag sort
+and the compaction (step 2) in span ``pmx.members``, the difference pass
+in ``pmx.diff``, the scatter in a second ``pmx.members``; the counters
+``pmx.members`` and ``pmx.member_pairs`` sum the in-budget members and
+the pairs the pass covers, on the device.
 With ``use_kernels=False`` the same
 steps run on the plain versions (``psort.radix_sort_ref``,
 ``pairwise.pairwise_accel_diff``, the two plain passes subtracted); on
@@ -50,6 +55,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..core import params as P
+from ..utils import trace
 from . import pairwise, pairwise_cuda, physics, pm, pm2, pm_cuda, psort
 
 
@@ -119,13 +125,34 @@ def members_first(member: torch.Tensor, *,
     return sort((flag, idx))[1]
 
 
+def window_origin(pos_flat: torch.Tensor, live: torch.Tensor,
+                  cfgx: PMXConfig, levels=(), *, masses=None,
+                  coll=None) -> torch.Tensor:
+    """f32[3] origin of the exact window: the static one, or (tracked) the
+    mass centroid of the innermost mesh level's members (of every live
+    particle without levels) minus half the window; under levels clamped
+    inside the innermost one (pm2.clamp_nested)."""
+    if not levels:
+        return pm2.window_min(pos_flat, None, cfgx, masses, live=live,
+                              coll=coll)
+    wmins = pm2._nested_wmins(pos_flat, live, None, levels, masses,
+                              coll=coll)
+    inner = levels[-1]
+    lv_live = (pm2._in_window(pos_flat, wmins[-1], inner.window_size,
+                              inner.margin) & live)
+    wmin = pm2.window_min(pos_flat, None, cfgx, masses, live=lv_live,
+                          coll=coll)
+    return pm2.clamp_nested(wmin, wmins[-1], inner, cfgx.window_size)
+
+
 def exact_accel(pos_flat: torch.Tensor, live: torch.Tensor,
                 cfgx: PMXConfig, eps_prev: float, *, masses=None,
-                wmin=None, use_kernels: bool = True, coll=None
+                wmin=None, levels=(), use_kernels: bool = True, coll=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(corr f32[3, N], n_members int32 0-d, on the device) — the
     compact-buffer path (module docstring). Members past the capacity get
-    no correction.
+    no correction. ``wmin`` None: :func:`window_origin` under ``levels``
+    (PM2Config, outermost first), inside the ``pmx.members`` span.
 
     ``coll`` (parallel.mesh.Collectives; ``pos_flat`` is this rank's
     shard): each rank puts its first capacity/n_dev members in its
@@ -137,22 +164,24 @@ def exact_accel(pos_flat: torch.Tensor, live: torch.Tensor,
     dev = pos_flat.device
     n_sh = 1 if coll is None else coll.size
     B = min(cfgx.capacity, n * n_sh) // n_sh       # this rank's budget
-    if wmin is None:
-        wmin = pm2.window_min(pos_flat, None, cfgx, masses, live=live,
-                              coll=coll)
-    member = _member_mask(pos_flat, wmin, cfgx, live)
-    n_m = member.sum(dtype=torch.int32)
-    idx_b = members_first(member, use_kernels=use_kernels)[:B].long()
-    n_in = torch.clamp_max(n_m, B)                      # in budget
-    in_budget = torch.arange(B, dtype=torch.int32, device=dev) < n_in
-    buf = pos_flat.index_select(1, idx_b)               # f32[3, B]
-    m_buf = in_budget.to(torch.float32)
-    if masses is not None:
-        m_buf = m_buf * masses.index_select(0, idx_b)
-    src, m_src = buf, m_buf
-    if coll is not None:
-        src = coll.all_gather(buf, dim=1)                # f32[3, B n_dev]
-        m_src = coll.all_gather(m_buf)
+    on_device = pos_flat.is_cuda
+    with trace.span("pmx.members", device=on_device):
+        if wmin is None:
+            wmin = window_origin(pos_flat, live, cfgx, levels,
+                                 masses=masses, coll=coll)
+        member = _member_mask(pos_flat, wmin, cfgx, live)
+        n_m = member.sum(dtype=torch.int32)
+        idx_b = members_first(member, use_kernels=use_kernels)[:B].long()
+        n_in = torch.clamp_max(n_m, B)                  # in budget
+        in_budget = torch.arange(B, dtype=torch.int32, device=dev) < n_in
+        buf = pos_flat.index_select(1, idx_b)           # f32[3, B]
+        m_buf = in_budget.to(torch.float32)
+        if masses is not None:
+            m_buf = m_buf * masses.index_select(0, idx_b)
+        src, m_src = buf, m_buf
+        if coll is not None:
+            src = coll.all_gather(buf, dim=1)            # f32[3, B n_dev]
+            m_src = coll.all_gather(m_buf)
     diff = (pairwise_cuda.pairwise_accel_diff if use_kernels
             else pairwise.pairwise_accel_diff)
     # device constants: a Python number would be uploaded (and waited
@@ -160,14 +189,24 @@ def exact_accel(pos_flat: torch.Tensor, live: torch.Tensor,
     n_b = pm_cuda.device_const(src.shape[1], dev, torch.int32)
     one, eps_x, eps_p = pm_cuda.device_const(
         (1.0, cfgx.softening, eps_prev), dev)
-    corr_buf = diff(buf.T.contiguous(), src, n_b, one, eps_x, eps_p,
-                    masses=m_src, n_i=n_in,
-                    n_j=n_in if coll is None else None).T
-    corr = torch.zeros((3, n), dtype=torch.float32, device=dev)
-    corr.index_copy_(1, idx_b, corr_buf)
+    with trace.span("pmx.diff", device=on_device):
+        corr_buf = diff(buf.T.contiguous(), src, n_b, one, eps_x, eps_p,
+                        masses=m_src, n_i=n_in,
+                        n_j=n_in if coll is None else None).T
+    with trace.span("pmx.members", device=on_device):
+        corr = torch.zeros((3, n), dtype=torch.float32, device=dev)
+        corr.index_copy_(1, idx_b, corr_buf)
     if coll is None:
-        return corr, n_m
-    return corr, coll.sum_(torch.stack([n_m, torch.clamp_max(n_m, B)]))
+        n_out = n_m
+        sources = n_in
+    else:
+        n_out = coll.sum_(torch.stack([n_m, torch.clamp_max(n_m, B)]))
+        sources = n_out[1]                 # in budget on every rank
+    if trace.on():
+        k = n_in.to(torch.int64)
+        trace.tally("pmx.members", k)
+        trace.tally("pmx.member_pairs", k * sources)
+    return corr, n_out
 
 
 def _eps_prev(cfg: "P.PMConfig", levels) -> float:
@@ -220,28 +259,16 @@ def pmx_accel_raw(pos_flat: torch.Tensor, n_active, cfg: "P.PMConfig",
         else:
             acc = pm2.pmn_accel_ref(pos_flat, n_active, 1.0, cfg, levels,
                                     masses=masses, kernels=kernels)
-        wmins = pm2._nested_wmins(pos_flat, live, cfg, levels, masses,
-                                  coll=coll)
-        # the exact window tracks the innermost mesh level's members
-        lv_live = (pm2._in_window(pos_flat, wmins[-1],
-                                  levels[-1].window_size,
-                                  levels[-1].margin) & live)
-        wmin = pm2.window_min(pos_flat, None, cfgx, masses, live=lv_live,
-                              coll=coll)
-        wmin = pm2.clamp_nested(wmin, wmins[-1], levels[-1],
-                                cfgx.window_size)
+    elif use_fast:
+        acc, _ = pm_cuda.accel_raw(pos_flat, n_active, cfg, masses=masses,
+                                   live=live, coll=coll)
     else:
-        if use_fast:
-            acc, _ = pm_cuda.accel_raw(pos_flat, n_active, cfg,
-                                       masses=masses, live=live, coll=coll)
-        else:
-            acc = pm.pm_accel_ref(pos_flat, n_active, 1.0, cfg.softening,
-                                  cfg, masses=masses)
-        wmin = pm2.window_min(pos_flat, None, cfgx, masses, live=live,
-                              coll=coll)
+        acc = pm.pm_accel_ref(pos_flat, n_active, 1.0, cfg.softening, cfg,
+                              masses=masses)
+    # the exact window tracks the innermost mesh level's members
     corr, n_m = exact_accel(pos_flat, live, cfgx, _eps_prev(cfg, levels),
-                            masses=masses, wmin=wmin, use_kernels=use_fast,
-                            coll=coll)
+                            masses=masses, levels=levels,
+                            use_kernels=use_fast, coll=coll)
     return acc + corr, n_m
 
 

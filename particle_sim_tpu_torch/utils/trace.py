@@ -23,13 +23,17 @@ synchronises first: nothing on the hot path waits for the card. Spans
 are not profiler ranges, which the profiler would put on the device's
 timeline as annotations; the device sees only the event records.
 
-Counters (:func:`count`) count only while tracing is on. At most
+Counters (:func:`count`) count only while tracing is on. A count that
+lives on the device (:func:`tally`: a member count the host never reads
+in a step) is summed there, and :func:`counters` reads the sum. At most
 MAX_RECORDS records are kept: past that the oldest drop, and the counter
 ``trace.dropped`` says how many.
 
     with trace.span("pm.solve", device=rho.is_cuda):
         ...
     trace.count("server.frames_sent")
+    if trace.on():
+        trace.tally("pmx.members", n_members)
 """
 
 from __future__ import annotations
@@ -63,6 +67,7 @@ _done: collections.deque = collections.deque(maxlen=MAX_RECORDS)
 _pending: collections.deque = collections.deque()  # device events unread
 _pool: list = []            # free CUDA timing events
 _counts: collections.Counter = collections.Counter()
+_tallies: dict = {}         # name -> int64 0-d sum on the tally's device
 
 
 class _Null:
@@ -200,12 +205,31 @@ def span(name: str, device: bool = False,
     return _Span(name, device, on_device)
 
 
+def on() -> bool:
+    """Whether tracing is on (as the last :func:`refresh` read it): a
+    caller computes what it would :func:`tally` only then."""
+    return _on
+
+
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to counter ``name`` while tracing is on."""
     if not _on:
         return
     with _lock:
         _counts[name] += n
+
+
+def tally(name: str, value: torch.Tensor) -> None:
+    """Add the device scalar ``value`` to counter ``name`` while tracing
+    is on, on the device: nothing is read back until :func:`counters`."""
+    if not _on:
+        return
+    with _lock:
+        acc = _tallies.get(name)
+        if acc is None:
+            _tallies[name] = value.detach().to(torch.int64).clone()
+        else:
+            acc.add_(value)
 
 
 def records(t0_ns: int = 0, t1_ns: Optional[int] = None) -> list:
@@ -223,8 +247,10 @@ def records(t0_ns: int = 0, t1_ns: Optional[int] = None) -> list:
 
 
 def counters() -> dict:
+    """The counts, with the device tallies read (a synchronisation when
+    there are any)."""
     with _lock:
-        return dict(_counts)
+        return {**_counts, **{k: int(v) for k, v in _tallies.items()}}
 
 
 def reset() -> None:
@@ -235,3 +261,4 @@ def reset() -> None:
         _pending.clear()
         _pool.clear()
         _counts.clear()
+        _tallies.clear()
