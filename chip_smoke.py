@@ -222,8 +222,11 @@ Phases (each prints a line; any failure raises and exits non-zero):
      pmx 2 / 0.05, capacity 262,144, holding every member) at 1M: accel
      against
      the per-frame pmx_accel within 1e-4 max|a| + 2e-4 max|a_x|, the
-     persistent and the per-frame engine 3 steps each (launches;
-     positions after one step within G dt^2 times that bar); (6)
+     persistent and the per-frame engine 4 steps each beside three
+     per-frame witnesses (two random start orders and the persistent
+     mirror's class order; launches; positions after one step within
+     G dt^2 times that bar, from step 2 the persistent engine within 5x
+     the random witnesses' spread of its class-order twin); (6)
      ensure_identity_order at 1M and 16M (equal to the identity planes)
      beside index_copy_ by ids and a radix sort of the rows by ids;
      (7) Engine(debug_checks=True): clean steps pass, a NaN planted in a
@@ -307,6 +310,17 @@ Phases (each prints a line; any failure raises and exits non-zero):
      traced engines count pm.kick_gathered once a step on one
      interleaved grid (1M static and auto box, 16M persistent) and never
      with a level or pmx
+ 26. the refinement windows' bookkeeping in one pass a window
+     (chip_smoke.phase26, callable alone; pm2.window_pass,
+     csrc/windows.cu) against the plain bookkeeping it replaced on the
+     deep-zoom --exact state at 500,000 after 100 steps and a 16M core,
+     cluster and halo with masses (two tracked levels and the exact
+     window, every window holding members): two passes bit for bit,
+     each mask _in_window at the kernel's origin, the origins within
+     ORIGIN_ULPS of the plain ones beyond the float32 sums' bar, the
+     masks equal but within 1e-5 of a face, the member count; times in
+     turns (the step's bookkeeping, the verdict's origins) with the
+     bytes bound
 
 The line before the last is a JSON object with one entry per kernel (the
 launches of step are phases 4, 16 (the engine), 18, 19, 20, 22, 23 and
@@ -316,7 +330,8 @@ phases 18, 20 (the deep zoom) and 22; of pm_deposit and pm_gather phase
 gather counts as a gather); of compact
 and deposit phases 4, 20 and 22; those of sorted_deposit phases 8 and 12
 (b); of radix_hist and radix_pass phases 8, 12 (b), 18, 19, 20, 22,
-23 and 25; of pm_solve phases 20, 22, 23 and 24;
+23 and 25; of pm_solve phases 20, 22, 23 and 24; of window_pass
+phases 19, 20, 22, 23, 25 and 26;
 those of
 pairwise_mxu, hilbert_keys, inlier_box, block_sort and merge_round the
 drives of phases 14 and 15); the last line is {"ok": true, "device":
@@ -1177,11 +1192,17 @@ def phase19(dev, states) -> dict:
     # pmx) at 1M against the per-frame pmn / pmx engine on the same start;
     # the capacity holds every member, so both correct the same pairs. Two
     # more per-frame engines, the witnesses, start from the same particles
-    # in two other orders: they differ from the first in f32 summation
-    # order only, as the persistent one does. The scene is violent (the
-    # core's max|a| G dt^2 is ~4.5, so the window loses most of its members
-    # in a step): such differences grow by ~270x in the second step, so
-    # from step 2 on the bar is set by the witnesses
+    # in two random orders: they differ from the first in f32 summation
+    # order only. A third starts in the persistent mirror's own class
+    # order (spatially sorted slots, the order of the persistent engine's
+    # deposits and pair sums); the persistent engine differs from it in
+    # the deposits' rounding only. The scene is violent (the core's max|a|
+    # G dt^2 is ~4.5, so the window loses most of its members in a step):
+    # such differences grow by ~270x in the second step, so from step 2
+    # on the bar is set by the random witnesses, around the class-order
+    # one. The window origins' float64 sums (csrc/windows.cu) do not move
+    # with the order, so a random order no longer spans the class order's
+    # own rounding: the persistent engine is held to its own order's twin
     n_z, steps_z = 1_000_000, 4
     rng = np.random.default_rng(13)
 
@@ -1202,23 +1223,33 @@ def phase19(dev, states) -> dict:
               pm2.PM2Config(window_min=None, window_size=8.0,
                             softening=0.2))
     zx = pmx.PMXConfig(window_size=2.0, softening=0.05, capacity=262144)
-    engines = []
-    for persist, start in ((True, zpos), (False, zpos),
-                           *((False, zpos[p]) for p in perms)):
+
+    def zoom_engine(persist, start):
         e = Engine(n_z, device=dev, pm=zcfg,
                    pairwise=PairwiseParams(0.05, 3.0), pm2=levels, pmx=zx,
                    pm_persist=persist)
         e.state = ParticleState.from_arrays(
             start, np.zeros_like(start), np.full_like(start, 0.7),
             device=dev, capacity=e.capacity)
-        engines.append(e)
-    e_p, e_f = engines[:2]
+        return e
+
+    engines = [zoom_engine(True, zpos), zoom_engine(False, zpos)]
+    e_p, e_f = engines
     zflat, zna = e_f.state.pos.reshape(3, -1), e_f.state.n_active
     zs = pper.init_sorted_multi(zflat, zna, zcfg, levels)
+    # the persistent mirror's class order (its first frame sorts the same
+    # start by the same keys; no repair follows in 4 steps)
+    perms.append(zs.ids[:n_z].long().cpu().numpy())
+    engines += [zoom_engine(False, zpos[p]) for p in perms]
+    e_c = engines[-1]
     _, acc_zp, n_zp = pper.accel_sorted_multi(zs, 1.0, zcfg, levels,
                                               n_active=zna, cfgx=zx,
                                               repair=False)
     acc_zf, n_zf = pmx.pmx_accel(zflat, zna, 1.0, zcfg, levels, zx)
+    # the per-frame field of the start in the class order, in slot order
+    acc_zc = pmx.pmx_accel(e_c.state.pos.reshape(3, -1), zna, 1.0, zcfg,
+                           levels, zx)[0][:, :n_z]
+    e_zc = float((acc_zp[:, :n_z] - acc_zc).abs().max())
     # phase 16's bar on the mesh part, phase 17's on the exact correction
     a_x = acc_zf - pm2.pmn_accel(zflat, zna, 1.0, zcfg, levels)
     e_z = float((acc_zp - acc_zf[:, zs.ids.long()]).abs().max())
@@ -1253,19 +1284,22 @@ def phase19(dev, states) -> dict:
     pm_cuda.DEPOSIT_LAUNCHES = pm_cuda.GATHER_LAUNCHES = 0
     # per step, for the persistent engine and each witness against the
     # per-frame one: max |dp| in identity order, the window origins' max
-    # difference, the member count's difference
-    dz, dw, d_org, members = [], [], [], []
+    # difference, the member count's difference; and the persistent
+    # engine against the class-order witness
+    dz, dw, dc, d_cf, d_org, members = [], [], [], [], [], []
     for _ in range(steps_z):
         for e in engines:
             e.step(zp)
-        p_f = e_f.state.positions()
-        d_pos = [float(np.abs(e_p.state.positions() - p_f).max())]
+        p_f, p_p = e_f.state.positions(), e_p.state.positions()
+        d_pos = [float(np.abs(p_p - p_f).max())]
         for e, p in zip(engines[2:], perms):
             p_w = np.empty_like(p_f)
             p_w[p] = e.state.positions()
             d_pos.append(float(np.abs(p_w - p_f).max()))
         dz.append(d_pos[0])
-        dw.append(max(d_pos[1:]))
+        dw.append(max(d_pos[1:3]))
+        d_cf.append(d_pos[3])
+        dc.append(float(np.abs(p_p - p_w).max()))
         o_f = origins(e_f)
         d_org.append([float((origins(e) - o_f).abs().max())
                       for e in engines if e is not e_f])
@@ -1281,34 +1315,39 @@ def phase19(dev, states) -> dict:
     print(f"phase 19 deep zoom composition at {n_z} (pm2 32 / 0.6, 8 / 0.2, "
           f"pmx 2 / 0.05, capacity {zx.capacity}, G 0.05): {int(n_zf)} "
           f"members in both, persistent vs per-frame accel (G = 1) {e_z:.3g}"
-          f" (bar {bar_z:.3g}, max|a| {float(acc_zf.abs().max()):.4g}); "
-          f"positions after step 1 (bar {bar_p:.3g}) and on: persistent vs "
-          f"per-frame {[f'{d:.3g}' for d in dz]}, witnesses' worst "
-          f"(per-frame, permuted starts) {[f'{d:.3g}' for d in dw]}; window "
+          f" (bar {bar_z:.3g}, max|a| {float(acc_zf.abs().max()):.4g}), vs "
+          f"per-frame in its class order {e_zc:.3g}; positions after step 1 "
+          f"(bar {bar_p:.3g}) and on: persistent vs per-frame "
+          f"{[f'{d:.3g}' for d in dz]}, random witnesses' worst (per-frame, "
+          f"permuted starts) {[f'{d:.3g}' for d in dw]}, class-order "
+          f"witness vs per-frame {[f'{d:.3g}' for d in d_cf]}, persistent "
+          f"vs the class-order witness {[f'{d:.3g}' for d in dc]}; window "
           f"origins' max difference a step (persistent, witnesses) "
           f"{[[f'{d:.3g}' for d in ds] for ds in d_org]}; members "
           f"(persistent, per-frame, witnesses) {members}; launches of the "
-          f"four engines {z_launch}, repairs {e_p.resorts}")
+          f"five engines {z_launch}, repairs {e_p.resorts}")
     frames_z = steps_z * len(engines)
     if z_launch != {"pm_deposit": 3 * frames_z, "pm_gather": 3 * frames_z,
                     "pairwise": 0, "pairwise_diff": frames_z,
                     "step": frames_z}:
         fail(f"deep zoom engines: launches {z_launch}")
-    if not (dz[0] <= bar_p and dw[0] <= bar_p) or not e_p.persist_resolved():
+    if (not max(dz[0], dw[0], dc[0]) <= bar_p
+            or not e_p.persist_resolved()):
         fail(f"deep zoom: persistent / witness vs per-frame positions differ "
-             f"by {dz[0]:.3g} / {dw[0]:.3g} after 1 step (bar {bar_p:.3g})")
-    # from step 2: within 5x the witnesses' worst (on an H100 the four
-    # steps read 1.0, 0.99, 3.7 and 2.9x the first witness's, and equal
-    # the second's to three digits); origins within a few f32
-    # roundings of |p| < 64 summed over 1M (any order); member counts
-    # within 5x the witnesses' worst difference (at least 1)
+             f"by {dz[0]:.3g} / {dw[0]:.3g} after 1 step, the persistent vs "
+             f"the class-order witness by {dc[0]:.3g} (bar {bar_p:.3g})")
+    # from step 2: the persistent engine within 5x the random witnesses'
+    # worst of its class-order twin; origins within a few f32 roundings
+    # of |p| < 64 summed over 1M (any order); member counts within 5x the
+    # witnesses' worst difference (at least 1)
     for k in range(1, steps_z):
         d_m = [abs(m - members[k][1]) for m in members[k]]
-        if (dz[k] > 5.0 * dw[k] or max(d_org[k]) > 64 * 2.0 ** -18
+        if (dc[k] > 5.0 * dw[k] or max(d_org[k]) > 64 * 2.0 ** -18
                 or d_m[0] > 5 * max(1, *d_m[2:])):
-            fail(f"deep zoom step {k + 1}: persistent vs per-frame positions "
-                 f"{dz[k]:.3g} (bar 5 x the witnesses' {dw[k]:.3g}), origins "
-                 f"{d_org[k]} (bar {64 * 2.0 ** -18:.3g}), members "
+            fail(f"deep zoom step {k + 1}: persistent vs the class-order "
+                 f"witness positions {dc[k]:.3g} (bar 5 x the random "
+                 f"witnesses' {dw[k]:.3g}; vs per-frame {dz[k]:.3g}), "
+                 f"origins {d_org[k]} (bar {64 * 2.0 ** -18:.3g}), members "
                  f"{members[k]}")
 
     # (6) ensure_identity_order (pm_persist.unsort: the inverse permutation
@@ -1382,7 +1421,7 @@ def phase19(dev, states) -> dict:
 def launch_counts() -> dict:
     """Every kernel wrapper's launch count, by kernel name."""
     from particle_sim_tpu_torch.ops import (
-        pairwise_cuda, pm_cuda, pm_fft, psort, step_cuda,
+        pairwise_cuda, pm2, pm_cuda, pm_fft, psort, step_cuda,
     )
     from particle_sim_tpu_torch.render import raster_compact as rc
     from particle_sim_tpu_torch.render import raster_sorted as rs
@@ -1400,12 +1439,13 @@ def launch_counts() -> dict:
             "radix_hist": psort.RADIX_HIST_LAUNCHES,
             "radix_pass": psort.RADIX_PASS_LAUNCHES,
             "compact": rc.COMPACT_LAUNCHES, "deposit": rc.DEPOSIT_LAUNCHES,
-            "sorted_deposit": rs.LAUNCHES}
+            "sorted_deposit": rs.LAUNCHES,
+            "window_pass": pm2.WINDOW_LAUNCHES}
 
 
 def zero_launches() -> None:
     from particle_sim_tpu_torch.ops import (
-        pairwise_cuda, pm_cuda, pm_fft, psort, step_cuda,
+        pairwise_cuda, pm2, pm_cuda, pm_fft, psort, step_cuda,
     )
     from particle_sim_tpu_torch.render import raster_compact as rc
     from particle_sim_tpu_torch.render import raster_sorted as rs
@@ -1419,6 +1459,7 @@ def zero_launches() -> None:
     pm_fft.LAUNCHES = 0
     psort.RADIX_HIST_LAUNCHES = psort.RADIX_PASS_LAUNCHES = 0
     rc.COMPACT_LAUNCHES = rc.DEPOSIT_LAUNCHES = rs.LAUNCHES = 0
+    pm2.WINDOW_LAUNCHES = 0
 
 
 def phase23(dev) -> dict:
@@ -2062,6 +2103,196 @@ def phase25(dev) -> dict:
           f"grid mean's largest gap {max(shares):.3g} of the scale (bar "
           f"{GRID_MEAN_SHARE})")
     return {"launches": total, "ms": ms, "share": shares}
+
+
+#: Float32 ulps (of |origin| + the window) an origin of the window pass may
+#: lie from the plain one beyond the float32 sums' own rounding bar: the
+#: division and the subtraction round once each, the sums twice.
+ORIGIN_ULPS = 4
+
+
+def window_pass_bytes(plan, n: int, masses: bool, masks: bool) -> int:
+    """Bytes one window pass must move over ``n`` slots (pm2._plan's
+    launches): a launch that tests or reduces reads each slot's position
+    (12 B), live flag (1 B) and mass (4 B, with masses), and writes its
+    mask (1 B) when it tests a window with ``masks``; a launch that only
+    finishes an origin moves nothing a slot."""
+    total = 0
+    for ln in plan:
+        mask = masks and ln.win >= 0
+        if mask or ln.sums:
+            total += n * (13 + 4 * masses + mask)
+    return total
+
+
+def phase26(dev) -> dict:
+    """Phase 26: the refinement windows' bookkeeping in one pass a window
+    (pm2.window_pass -> csrc/windows.cu: each launch finishes a window's
+    origin from the sums the launch before it reduced, writes the mask
+    and reduces its members' sums) against the plain bookkeeping it
+    replaced on the step (pm2._nested_wmins, a mask a level, then
+    pmx.window_origin, which takes the levels' origins again, the member
+    mask and its count), on two deep-zoom states: the example's --exact
+    scene at 500,000 (capacity 147,456) after 100 steps (two tracked
+    levels and the exact window), and at 16M a core (sigma 1), a cluster
+    (sigma 4) and a halo (sigma 15) off the origin, with masses, under
+    the 32 / 0.6 and 8 / 0.2 levels and the 2-unit exact window, every
+    window holding members (the 16M sphere of the deep_zoom16m cell
+    empties its windows within 40 steps, so it would compare
+    nothing). Two calls give the same bits; each mask is
+    _in_window at the kernel's own origin bit for bit; the origins lie
+    within ORIGIN_ULPS float32 ulps of the plain ones or on the
+    float32-sum bar; masks differ from the plain ones only within 1e-5
+    of a face; the member count is the mask's. Times in turns (the plain
+    chain, the pass; the verdict's origins alone, plain and pass) beside
+    the bytes bound (window_pass_bytes at 3.35 TB/s). Callable alone
+    after ``cuda_build.library()``. -> {"launches", "ms"}."""
+    import dataclasses
+
+    import torch
+
+    from particle_sim_tpu_torch.examples import deep_zoom
+    from particle_sim_tpu_torch.ops import pm2, pmx
+
+    t_start = time.perf_counter()
+    u = 2.0 ** -24
+    out_ms = {}
+
+    def exact_state():
+        e, params, _ = deep_zoom.build(deep_zoom.build_parser().parse_args(
+            ["--count", "500000", "--exact", "--device", "cuda"]))
+        e.set_pmx(dataclasses.replace(e.pmx, capacity=147_456))
+        return e, params, 100
+
+    def exact_scene():
+        e, params, steps = exact_state()
+        for _ in range(steps):
+            e.step(params)
+        torch.cuda.synchronize()
+        st = e._persist
+        return (st.pos, st.ids < e.state.n_active, st.masses,
+                pm2.as_levels(e.pm2), e.pmx)
+
+    def halo_scene(n=16_777_216):
+        g = torch.Generator(dev).manual_seed(31)
+        pos = torch.randn((3, n), device=dev, generator=g)
+        pos[:, n // 4: n // 2] *= 4.0
+        pos[:, n // 2:] *= 15.0
+        pos += torch.tensor([1.5, -0.5, 0.7], device=dev)[:, None]
+        masses = 0.5 + torch.rand(n, device=dev, generator=g)
+        live = torch.arange(n, device=dev) < n - 4096
+        return (pos, live, masses,
+                (pm2.PM2Config(None, 32.0, 0.6),
+                 pm2.PM2Config(None, 8.0, 0.2)),
+                pmx.PMXConfig(2.0, 0.05, capacity=262_144))
+
+    def plain_pass(pos, live, levels, masses, cfgx):
+        """The plain bookkeeping the step ran before the pass."""
+        w = pm2.window_pass(pos, live, levels, masses=masses, plain=True)
+        wx = pmx.window_origin(pos, live, cfgx, levels, masses=masses)
+        xm = pmx._member_mask(pos, wx, cfgx, live)
+        return w._replace(x_origin=wx, x_member=xm,
+                          x_count=xm.sum(dtype=torch.int32))
+
+    launched = 0
+    for label, make in (("exact core n=500000", exact_scene),
+                        ("deep zoom n=16777216", halo_scene)):
+        pos, live, masses, levels, cfgx = make()
+        wins = levels + (cfgx,)
+        exact = pm2.Win.of(cfgx)
+        before = pm2.WINDOW_LAUNCHES
+        win = pm2.window_pass(pos, live, levels, masses=masses, exact=exact)
+        again = pm2.window_pass(pos, live, levels, masses=masses,
+                                exact=exact)
+        plain = plain_pass(pos, live, levels, masses, cfgx)
+        torch.cuda.synchronize()
+        plan = pm2._plan(tuple(pm2.Win.of(c) for c in wins), True)
+        launched += pm2.WINDOW_LAUNCHES - before
+        if pm2.WINDOW_LAUNCHES - before != 2 * len(plan):
+            fail(f"phase 26 {label}: {pm2.WINDOW_LAUNCHES - before} "
+                 f"launches for two passes of {len(plan)}")
+        got_o = list(win.origins) + [win.x_origin]
+        got_m = list(win.masks) + [win.x_member]
+        want_o = list(plain.origins) + [plain.x_origin]
+        want_m = list(plain.masks) + [plain.x_member]
+        for a, b in zip(got_o + got_m,
+                        list(again.origins) + [again.x_origin]
+                        + list(again.masks) + [again.x_member]):
+            if not torch.equal(a, b):
+                fail(f"phase 26 {label}: two passes differ")
+        parent, gaps, differ, members = live, [], [], []
+        for k, c in enumerate(wins):
+            if not torch.equal(got_m[k], pm2._in_window(
+                    pos, got_o[k], c.window_size, c.margin) & live):
+                fail(f"phase 26 {label}: window {k}'s mask is not "
+                     f"_in_window at its origin")
+            o, w_o = got_o[k].double(), want_o[k].double()
+            ulp_o = (torch.nextafter(w_o.abs().float() + c.window_size,
+                                     torch.tensor(1e30, device=dev))
+                     - (w_o.abs().float() + c.window_size)).double()
+            w = parent.double() * (1.0 if masses is None
+                                   else masses.double())
+            tot = float(w.sum())
+            scale = ((pos.double().abs() * w[None]).sum(1) / tot
+                     if tot > 0 else torch.zeros(3, device=dev,
+                                                 dtype=torch.float64))
+            k_bar = math.ceil(math.log2(max(int(parent.sum()), 2))) + 4
+            bar = ORIGIN_ULPS * ulp_o + k_bar * u * scale
+            gap = (o - w_o).abs()
+            if not bool((gap <= bar).all()):
+                fail(f"phase 26 {label}: window {k}'s origin {o.tolist()} "
+                     f"is {gap.tolist()} from the plain one (bar "
+                     f"{bar.tolist()})")
+            gaps.append(float((gap / ulp_o).max()))
+            d = got_m[k] != want_m[k]
+            if bool(d.any()):
+                p = pos[:, d].double()
+                near = torch.zeros(p.shape[1], dtype=torch.bool, device=dev)
+                tol = max(1e-5, 2 * float(gap.max()))
+                for oo in (o, w_o):
+                    lo = oo[:, None] + c.margin
+                    hi = lo + (c.window_size - 2.0 * c.margin)
+                    near |= (((p - lo).abs() < tol)
+                             | ((p - hi).abs() < tol)).any(0)
+                if not bool(near.all()):
+                    fail(f"phase 26 {label}: window {k}'s mask differs "
+                         f"from the plain one away from its faces")
+            differ.append(int(d.sum()))
+            members.append(int(got_m[k].sum()))
+            parent = got_m[k]
+        if int(win.x_count) != members[-1] or min(members) == 0:
+            fail(f"phase 26 {label}: count {int(win.x_count)} for "
+                 f"{members[-1]} members, members {members}")
+        n = pos.shape[1]
+        ms = median_ms([
+            lambda: plain_pass(pos, live, levels, masses, cfgx),
+            lambda: pm2.window_pass(pos, live, levels, masses=masses,
+                                    exact=exact),
+            lambda: pm2._nested_wmins(pos, live, None, levels, masses),
+            lambda: pm2.window_pass(pos, live, levels, masses=masses,
+                                    masks=False)], lead_ms=5.0)
+        v_plan = pm2._plan(tuple(pm2.Win.of(c) for c in levels), False)
+        bound = bytes_ms(window_pass_bytes(plan, n, masses is not None,
+                                           True))
+        v_bound = bytes_ms(window_pass_bytes(v_plan, n, masses is not None,
+                                             False))
+        out_ms[label] = {"plain": ms[0], "pass": ms[1], "bound": bound,
+                         "verdict_plain": ms[2], "verdict_pass": ms[3],
+                         "verdict_bound": v_bound}
+        print(f"phase 26 {label}: {len(plan)} launches a step (members "
+              f"{members}, masses {masses is not None}); the pass "
+              f"{ms[1]:.4f} ms against the plain bookkeeping {ms[0]:.4f} "
+              f"(bound {bound:.4f} ms, {100 * bound / ms[1]:.1f} % of it; "
+              f"{window_pass_bytes(plan, n, masses is not None, True) / n:.0f}"
+              f" B a slot over {len(plan)} launches); the verdict's "
+              f"origins {ms[3]:.4f} against {ms[2]:.4f} (bound "
+              f"{v_bound:.4f}); origins within {max(gaps):.2f} ulps of "
+              f"the plain ones, masks differ at {differ} slots (near a "
+              f"face); two passes bit for bit")
+        del pos, live, masses, win, again, plain
+        torch.cuda.empty_cache()
+    print(f"phase 26 done in {time.perf_counter() - t_start:.1f} s")
+    return {"launches": {"window_pass": launched}, "ms": out_ms}
 
 
 def phase20(dev, states) -> dict:
@@ -4841,6 +5072,10 @@ def main() -> int:
     # -- phase 25: the single-level PM tail from the grids ---------------------------
     p25 = phase25(dev)["launches"]
 
+    # -- phase 26: the refinement windows' bookkeeping in one pass a window -----------
+    r26 = phase26(dev)
+    p26 = r26["launches"]
+
     src = "particle_sim_tpu_torch/csrc/"
     kernels = [
         {"name": "step", "route": "cuda", "source": src + "step.cu",
@@ -5007,6 +5242,20 @@ def main() -> int:
          "plain_ms": r24["ms"]["n=16777216 static box"][0],
          "bound_ms": bytes_ms(pm_fft.solve_bytes(128)), "bound_by": "bytes",
          "library_ms": None},
+        # the refinement windows' origins, masks and the exact window's
+        # origin and count, one launch a window; phase 26 on the deep-zoom
+        # 16M state (two tracked levels); plain: the bookkeeping it
+        # replaced (ops/pm2.py _nested_wmins and the masks)
+        {"name": "window_pass", "route": "cuda",
+         "source": src + "windows.cu",
+         "replaces": "particle_sim_tpu/ops/pm2.py:282",
+         "launches": sum(runs.get("window_pass", 0) for runs in (
+             p19, p20, p22, p23, p25, p26)),
+         "max_abs_err": None,
+         "ms": r26["ms"]["deep zoom n=16777216"]["pass"],
+         "plain_ms": r26["ms"]["deep zoom n=16777216"]["plain"],
+         "bound_ms": r26["ms"]["deep zoom n=16777216"]["bound"],
+         "bound_by": "bytes", "library_ms": None},
     ]
     print(gpu_name_and_limit())
     print(json.dumps({"kernels": kernels}))

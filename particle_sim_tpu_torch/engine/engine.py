@@ -659,7 +659,8 @@ class Engine:
         if self._frame_index % pper.CHECK_EVERY == 0:
             st = self._persist
             self._trigger.measure(
-                lambda: pper.needs_repair(st, n_active, cfg, levels))
+                lambda: pper.needs_repair(st, n_active, cfg, levels,
+                                          use_kernels=fast))
 
     def ensure_identity_order(self) -> None:
         """Rebuild the identity-order planes from the sorted mirror

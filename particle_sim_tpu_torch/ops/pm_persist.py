@@ -144,7 +144,7 @@ def class_keys(pos_flat: torch.Tensor, live: torch.Tensor,
     """int32[N] sort key of the persistent order: :func:`cell_keys`
     without levels; with them the class key (module docstring): m * 2G^3
     + level m's cell key for class m, (k + 1) * 2G^3 for dead slots.
-    ``wmins``: the levels' window origins (pm2._nested_wmins)."""
+    ``wmins``: the levels' window origins (pm2.window_pass)."""
     key = cell_keys(pos_flat, live, cfg)
     if not levels:
         return key
@@ -161,10 +161,14 @@ def class_keys(pos_flat: torch.Tensor, live: torch.Tensor,
 
 
 def state_keys(st: SortedPMState, n_active, cfg: "P.PMConfig",
-               levels: Sequence = ()) -> torch.Tensor:
-    """The sort keys of ``st``'s particles as they stand."""
+               levels: Sequence = (), *,
+               use_kernels: bool = True) -> torch.Tensor:
+    """The sort keys of ``st``'s particles as they stand; the levels'
+    origins from one ``pm2.window_pass`` without masks (its plain version
+    without ``use_kernels``)."""
     live = st.ids < n_active
-    wmins = (pm2._nested_wmins(st.pos, live, cfg, tuple(levels), st.masses)
+    wmins = (pm2.window_pass(st.pos, live, levels, masses=st.masses,
+                             masks=False, plain=not use_kernels).origins
              if levels else ())
     return class_keys(st.pos, live, cfg, levels, wmins)
 
@@ -177,12 +181,14 @@ def disorder(key: torch.Tensor) -> torch.Tensor:
 
 
 def needs_repair(st: SortedPMState, n_active, cfg: "P.PMConfig",
-                 levels: Sequence = ()) -> torch.Tensor:
+                 levels: Sequence = (), *,
+                 use_kernels: bool = True) -> torch.Tensor:
     """bool 0-d on the state's device: disorder > REPAIR_SHARE * n_active.
     Nothing is read back. Traced: span ``persist.verdict`` (the keys,
     with levels their window origins and masks, and the disorder)."""
     with trace.span("persist.verdict", device=st.pos.is_cuda):
-        d = disorder(state_keys(st, n_active, cfg, levels))
+        d = disorder(state_keys(st, n_active, cfg, levels,
+                                use_kernels=use_kernels))
         return d.to(torch.float32) > REPAIR_SHARE * torch.as_tensor(
             n_active, device=d.device)
 
@@ -208,7 +214,7 @@ def _resort(st: SortedPMState, n_active, cfg: "P.PMConfig",
             levels: Sequence, use_kernels: bool) -> SortedPMState:
     """``st`` sorted by its current keys; with levels ``fine_b`` the new
     class boundaries (in ``st.fine_b``'s shape)."""
-    key = state_keys(st, n_active, cfg, levels)
+    key = state_keys(st, n_active, cfg, levels, use_kernels=use_kernels)
     st2 = _take(st, _order(key, use_kernels))
     if not levels:
         return st2
@@ -392,7 +398,8 @@ def _repaired(st, cfg, cfg2, cfgx, n_active, repair, use_fast,
     # window origins): they call no collective, so the ranks' collectives
     # stay in step whichever of them repair
     if repair is None:
-        repair = bool(needs_repair(st, n_active, cfg, levels))
+        repair = bool(needs_repair(st, n_active, cfg, levels,
+                                   use_kernels=use_fast))
     if repair:
         st = repair_state(st, n_active, cfg, levels, use_kernels=use_fast)
     return st, n_active, levels
@@ -405,7 +412,8 @@ def _accel_raw(st, n_active, live, cfg, levels, cfgx, coll) -> tuple:
     if cfgx is not None:
         return pmx.pmx_accel_raw(st.pos, n_active, cfg, levels, cfgx, **kw)
     if levels:
-        return pm2.pmn_accel_raw(st.pos, n_active, cfg, levels, **kw), None
+        return pm2.pmn_accel_raw(st.pos, n_active, cfg, levels,
+                                 **kw)[0], None
     # sorted by this deposit's own lower cells (cell_keys)
     return pm_cuda.accel_raw(st.pos, n_active, cfg, cell_sorted=True,
                              **kw)[0], None

@@ -33,13 +33,19 @@ correction is antisymmetric over members (momentum-exact).
      f32[3, N] at the sorted indices (the JAX un-sort by a second sort is
      a TPU workaround; a scatter of a permutation is exact).
 
-The correction joins the mesh stack's raw field (``pmx_accel_raw``),
-cleaned once (ops/pm_cuda.py); the member count stays on the device.
-Traced (utils/trace.py): the window's origin, the mask, the flag sort
-and the compaction (step 2) in span ``pmx.members``, the difference pass
-in ``pmx.diff``, the scatter in a second ``pmx.members``; the counters
-``pmx.members`` and ``pmx.member_pairs`` sum the in-budget members and
-the pairs the pass covers, on the device.
+On CUDA the window's origin, its member mask and their count come from
+the levels' window pass (``pm2.window_pass``: one launch more than the
+levels', csrc/windows.cu), which ``pm2.pmn_accel_raw`` runs for
+``pmx_accel_raw`` (without levels ``pmx_accel_raw`` runs it alone); on
+CPU tensors from :func:`window_origin` and the mask. The correction
+joins the mesh stack's raw field (``pmx_accel_raw``), cleaned once
+(ops/pm_cuda.py); the member count stays on the device. Traced
+(utils/trace.py): the window pass without levels, the plain origin and
+mask, the flag sort and the compaction (step 2) in span
+``pmx.members``, the difference pass in ``pmx.diff``, the scatter in a
+second ``pmx.members``; the counters ``pmx.members`` and
+``pmx.member_pairs`` sum the in-budget members and the pairs the pass
+covers, on the device.
 With ``use_kernels=False`` the same
 steps run on the plain versions (``psort.radix_sort_ref``,
 ``pairwise.pairwise_accel_diff``, the two plain passes subtracted); on
@@ -131,7 +137,8 @@ def window_origin(pos_flat: torch.Tensor, live: torch.Tensor,
     """f32[3] origin of the exact window: the static one, or (tracked) the
     mass centroid of the innermost mesh level's members (of every live
     particle without levels) minus half the window; under levels clamped
-    inside the innermost one (pm2.clamp_nested)."""
+    inside the innermost one (pm2.clamp_nested). The plain version of
+    ``pm2.window_pass``'s exact origin."""
     if not levels:
         return pm2.window_min(pos_flat, None, cfgx, masses, live=live,
                               coll=coll)
@@ -147,12 +154,14 @@ def window_origin(pos_flat: torch.Tensor, live: torch.Tensor,
 
 def exact_accel(pos_flat: torch.Tensor, live: torch.Tensor,
                 cfgx: PMXConfig, eps_prev: float, *, masses=None,
-                wmin=None, levels=(), use_kernels: bool = True, coll=None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                wmin=None, levels=(), use_kernels: bool = True, coll=None,
+                window=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(corr f32[3, N], n_members int32 0-d, on the device) — the
     compact-buffer path (module docstring). Members past the capacity get
-    no correction. ``wmin`` None: :func:`window_origin` under ``levels``
-    (PM2Config, outermost first), inside the ``pmx.members`` span.
+    no correction. The members: ``window``'s (a ``pm2.window_pass`` result
+    with this window as its ``exact``, on CUDA), else those of ``wmin``,
+    else of :func:`window_origin` under ``levels`` (PM2Config, outermost
+    first), inside the ``pmx.members`` span.
 
     ``coll`` (parallel.mesh.Collectives; ``pos_flat`` is this rank's
     shard): each rank puts its first capacity/n_dev members in its
@@ -166,11 +175,14 @@ def exact_accel(pos_flat: torch.Tensor, live: torch.Tensor,
     B = min(cfgx.capacity, n * n_sh) // n_sh       # this rank's budget
     on_device = pos_flat.is_cuda
     with trace.span("pmx.members", device=on_device):
-        if wmin is None:
-            wmin = window_origin(pos_flat, live, cfgx, levels,
-                                 masses=masses, coll=coll)
-        member = _member_mask(pos_flat, wmin, cfgx, live)
-        n_m = member.sum(dtype=torch.int32)
+        if window is not None and window.x_member is not None:
+            member, n_m = window.x_member, window.x_count
+        else:
+            if wmin is None:
+                wmin = window_origin(pos_flat, live, cfgx, levels,
+                                     masses=masses, coll=coll)
+            member = _member_mask(pos_flat, wmin, cfgx, live)
+            n_m = member.sum(dtype=torch.int32)
         idx_b = members_first(member, use_kernels=use_kernels)[:B].long()
         n_in = torch.clamp_max(n_m, B)                  # in budget
         in_budget = torch.arange(B, dtype=torch.int32, device=dev) < n_in
@@ -251,24 +263,30 @@ def pmx_accel_raw(pos_flat: torch.Tensor, n_active, cfg: "P.PMConfig",
                          "(use_fast=True)")
     if live is None:
         live = pm.live_mask(pos_flat.shape[1], n_active, pos_flat.device)
+    window, exact = None, pm2.Win.of(cfgx)
     if levels:
         if use_fast:
-            acc = pm2.pmn_accel_raw(pos_flat, n_active, cfg, levels,
-                                    masses=masses, kernels=kernels,
-                                    live=live, coll=coll)
+            # on CUDA the levels' window pass also finds the exact window
+            acc, window = pm2.pmn_accel_raw(pos_flat, n_active, cfg, levels,
+                                            masses=masses, kernels=kernels,
+                                            live=live, coll=coll, exact=exact)
         else:
             acc = pm2.pmn_accel_ref(pos_flat, n_active, 1.0, cfg, levels,
                                     masses=masses, kernels=kernels)
     elif use_fast:
         acc, _ = pm_cuda.accel_raw(pos_flat, n_active, cfg, masses=masses,
                                    live=live, coll=coll)
+        if pos_flat.is_cuda:
+            with trace.span("pmx.members", device=True):
+                window = pm2.window_pass(pos_flat, live, (), masses=masses,
+                                         exact=exact, coll=coll)
     else:
         acc = pm.pm_accel_ref(pos_flat, n_active, 1.0, cfg.softening, cfg,
                               masses=masses)
     # the exact window tracks the innermost mesh level's members
     corr, n_m = exact_accel(pos_flat, live, cfgx, _eps_prev(cfg, levels),
                             masses=masses, levels=levels,
-                            use_kernels=use_fast, coll=coll)
+                            use_kernels=use_fast, coll=coll, window=window)
     return acc + corr, n_m
 
 

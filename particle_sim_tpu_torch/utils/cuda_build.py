@@ -50,6 +50,11 @@ SIGNATURES = {
     "psim_momentum_sums": (_P, _I64, _P, _P, _P, _P, _P, _I, _P, _P),
     # grid4, rho, cells, partials, counter, max blocks, out, stream
     "psim_momentum_sums_grid": (_P, _P, _I64, _P, _P, _I, _P, _P),
+    # pos, n, live, masses, sums in, parent, origin, mask, sums out, count,
+    # partials, counter, max blocks, static origin x y z, half, clamp lo,
+    # clamp hi, shrink, extent, stream
+    "psim_window_pass": (_P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _F, _F, _F, _F, _F, _F, _F, _F, _P),
     "psim_compact": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     "psim_deposit": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # xi, xj, gv, eps_sq, n_i, n_j (NULL: ni, nj), out, partial, ni, nj,

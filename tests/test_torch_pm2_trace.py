@@ -4,7 +4,9 @@ the kernel path records one ``pm2.windows`` span a step and one
 ``pm2.level`` a level, both inside ``engine.step``, and inside each
 ``pm2.level`` one ``pm2.deposit``, ``pm2.solve`` and ``pm2.gather`` in
 that order; a persistent engine records one ``persist.verdict`` every
-CHECK_EVERY-th step, inside ``engine.step``; with the tracer off nothing
+CHECK_EVERY-th step, inside ``engine.step``; the counter
+``pm2.windows.fused`` counts the window kernel's passes only, so the
+plain passes here count none; with the tracer off nothing
 is recorded, and the spans leave the state's bits unchanged. The engines
 take the kernels' wrappers (``Method.CUDA`` set after construction),
 whose plain versions run here, on the persistent order and per frame."""
@@ -126,6 +128,24 @@ def test_the_verdict_spans_every_check(levels, steps):
     # the verdict computes its own window origins, outside pm2.windows
     assert not any(r.name == "pm2.windows" and r.parent == "persist.verdict"
                    for r in recs)
+
+
+@pytest.mark.parametrize("steps", [1, pm_persist.CHECK_EVERY + 1])
+@pytest.mark.parametrize("levels,persist", MODES)
+def test_the_window_pass_counts_once_a_step_and_a_verdict(levels, persist,
+                                                          steps):
+    """One window pass a step inside ``pm2.windows``, and the verdicts and
+    repairs of the persistent order; ``pm2.windows.fused`` counts the
+    kernel's passes (one a step and one a verdict or repair on the card,
+    tests/test_torch_windows.py), and the plain ones here not at all."""
+    e = level_engine(levels, persist)
+    trace.enable()
+    run(e, steps)
+    names = [r.name for r in trace.records()]
+    keys = names.count("persist.verdict") + names.count("persist.repair")
+    assert (keys >= 1) == persist
+    assert names.count("pm2.windows") == steps
+    assert "pm2.windows.fused" not in trace.counters()
 
 
 @pytest.mark.parametrize("what", ["records", "counters"])

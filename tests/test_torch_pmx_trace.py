@@ -1,10 +1,12 @@
 """The exact window's spans and counters (ops/pmx.py) on the CPU: with the
 tracer on, a step of the deep-zoom stack with its exact window records
 inside ``engine.step`` one ``pmx.diff`` a step around the difference pass,
-between two ``pmx.members`` (the origin, the mask, the flag sort and the
-compaction before it; the scatter after it); the counters ``pmx.members``
-and ``pmx.member_pairs`` sum the in-budget members and their squares over
-the steps, read from the device once; with the tracer off nothing is
+between two ``pmx.members`` (the flag sort and the compaction before it;
+the scatter after it); the counters ``pmx.members`` and
+``pmx.member_pairs`` sum the in-budget members and their squares over
+the steps, read from the device once; the levels' one window pass a
+step runs inside ``pm2.windows``, and its plain version here counts no
+fused pass (``pm2.windows.fused``); with the tracer off nothing is
 recorded, and the spans leave the state's bits unchanged. The engines take
 the kernels' wrappers (``Method.CUDA`` set after construction), whose
 plain versions run here, on the persistent order and per frame."""
@@ -108,6 +110,30 @@ def test_the_counters_sum_the_members_and_their_squares(window, persist):
     assert min(seen) > 0
     if window == "small":
         assert max(seen) == WINDOWS["small"].capacity
+
+
+@pytest.mark.parametrize("window,persist", MODES)
+def test_the_window_comes_from_the_levels_pass(window, persist):
+    """One window pass a step inside ``pm2.windows`` (on the card it finds
+    the exact window too); here, on CPU tensors, the plain pass counts no
+    fused pass and the exact window's origin comes from window_origin,
+    once a step."""
+    e = exact_engine(window, persist)
+    calls = []
+    origin = pmx.window_origin
+    pmx.window_origin = lambda *a, **k: calls.append(1) or origin(*a, **k)
+    trace.enable()
+    try:
+        run(e)
+    finally:
+        pmx.window_origin = origin
+    recs = trace.records()
+    names = [r.name for r in recs]
+    keys = names.count("persist.verdict") + names.count("persist.repair")
+    assert (keys >= 1) == persist
+    assert "pm2.windows.fused" not in trace.counters()
+    assert names.count("pm2.windows") == STEPS
+    assert len(calls) == STEPS
 
 
 @pytest.mark.parametrize("what", ["records", "counters"])
